@@ -6,14 +6,19 @@
 Phases, each of which exits non-zero on failure:
 
 1. Environment: torch, CUDA, nvcc, Triton and the card (nvidia-smi); then
-   both CUDA kernels are built from ``src/repro_torch/kernels/csrc`` (one
-   nvcc each, started together).
+   the four CUDA kernels are built from ``src/repro_torch/kernels/csrc``
+   (one nvcc each, started together).
 2. Kernel vs plain version on the card, bit for bit: ``recovery_scan`` on
    random legal stages at N = 2^21, 2^23 and 2^21 + 3; ``hash_probe`` at
    NB = 2^19, W = 8 over a table that ``build_buckets`` filled from a real
    pool, B = 1024 and 65536, half present keys and half absent.  Each
    kernel's median time (L2 flushed between launches), its plain version's
-   time and its bound from bytes moved at 3.35 TB/s.
+   time and its bound from bytes moved at 3.35 TB/s.  Then both again at
+   the shapes the serving registry gives them: ``recovery_scan`` over its
+   pool of 1024 slots, ``hash_probe`` at the bucket geometry of its SOFT
+   1024-slot spec (NB 256, W 8) with B = 8, half present and half absent,
+   over a table holding 8 keys (the served requests) and one holding 1024
+   (a full registry).
 3. Main path: the paper's hash-set experiment (key range 2^20, 90% reads)
    on a bucket-backend ``DurableMap`` of 2^21 slots in SOFT mode.  Prefill
    2^19 keys, 200 mixed batches of 1024 lanes, crash, recover, 20 more
@@ -22,6 +27,29 @@ Phases, each of which exits non-zero on failure:
    reference that follows the same linearization.  The kernels' launch
    counts are zeroed before this phase and must both be > 0 after it.
    Then a shorter run at 2^16 slots in the link-free and log-free modes.
+
+4. Attention kernels against their plain versions on the card, in f32 and
+   bf16 at the JAX tests' tolerances: ``gqa_decode`` at qwen3-32b's decode
+   shape (B 8, H 64, KV 8, D 128, S 544, random lengths in [1, 544]) and
+   at B 2, H 32, KV 8, D 120, S 300; ``flash_prefill`` at qwen3-32b's
+   prefill shape (B 8, S 512, H 64, KV 8, D 128, causal) and at B 2,
+   S 300, H 32, KV 8, D 120 with window 128.  Each with its time, its
+   plain version's, ``scaled_dot_product_attention``'s (the yardstick,
+   which the port never calls) and its bound from bytes at 3.35 TB/s or
+   operations at the card's peak for the type, whichever is larger.
+5. Decode agrees with prefill at qwen3-32b's full width, 2 layers, f32:
+   the logits of one decode step at position 511 equal the last-position
+   logits of a prefill over 512 tokens.
+6. The serving path: ``repro_torch.launch.serve.run`` with qwen3-32b at
+   full width and depth (64 layers, bf16, random weights from a seed), 8
+   requests of 512 prompt tokens and 32 generated, then a crash of the
+   registry and its recovery.  Every completion registered at one psync
+   each and still registered after recovery at zero recovery psyncs;
+   every launch count of the path checked (``flash_prefill`` once per
+   layer, ``gqa_decode`` once per layer and decode step, ``hash_probe`` and
+   ``recovery_scan`` at least once); prefill ms, decode ms per step, tok/s,
+   peak memory, and the device's busy share over a profiled window of
+   decode steps.
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -40,19 +68,33 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import (DurableMap, SetSpec, OP_CONTAINS,  # noqa: E402
                               OP_INSERT, OP_REMOVE, VALID)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_prefill.kernel import (  # noqa: E402
+    flash_prefill_cuda)
+from repro_torch.kernels.flash_prefill.ref import (  # noqa: E402
+    flash_prefill_ref)
+from repro_torch.kernels.gqa_decode.kernel import gqa_decode_cuda  # noqa: E402
+from repro_torch.kernels.gqa_decode.ref import gqa_decode_ref  # noqa: E402
 from repro_torch.kernels.hash_probe.kernel import probe_cuda  # noqa: E402
 from repro_torch.kernels.hash_probe.ops import (bucket_of,  # noqa: E402
                                                 build_buckets)
 from repro_torch.kernels.hash_probe.ref import probe_ref  # noqa: E402
 from repro_torch.kernels.recovery_scan.kernel import scan_cuda  # noqa: E402
 from repro_torch.kernels.recovery_scan.ref import scan_ref  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models.params import tree_leaves  # noqa: E402
+from repro_torch.train import steps as TS  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
+# dense peaks of the H100 SXM: bf16 on the tensor cores, f32 on the CUDA
+# cores (the attention kernels compute f32 inputs on the CUDA cores)
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 SEED = 0
-KERNELS = ("recovery_scan", "hash_probe")
+KERNELS = ("recovery_scan", "hash_probe", "gqa_decode", "flash_prefill")
 SPIN_CYCLES = 2_000_000            # ~1 ms of device spin ahead of a timed call
 
 
@@ -390,6 +432,269 @@ def run_map(dev, mode, capacity, key_range, prefill, n_batches, n_after, b,
     return ops_s, rec_ms
 
 
+# ---------------------------------------------------------------------------
+# 4. attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+ATOL = {  # the JAX tests' tolerances (test_kernels.py:53-54,
+    #       test_seqmix_reference.py:78-79)
+    "gqa_decode": {torch.float32: 2e-5, torch.bfloat16: 3e-2},
+    "flash_prefill": {torch.float32: 3e-5, torch.bfloat16: 4e-2}}
+
+
+def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
+    """The least time for the work: bytes at the memory rate or operations
+    at the type's peak, whichever is larger, and which one it is."""
+    t_bytes = bytes_ms(nbytes)
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _randn(gen, shape, dtype, dev):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def check_decode(dev, b, h, kv, d, s, dtype, full=False):
+    """gqa_decode kernel vs plain at one shape and type; returns the row's
+    fields (time, plain time, library time, bound, error)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + s)
+    q = _randn(gen, (b, h, d), dtype, dev)
+    k = _randn(gen, (b, s, kv, d), dtype, dev)
+    v = _randn(gen, (b, s, kv, d), dtype, dev)
+    length = (torch.full((b,), s, dtype=torch.int32, device=dev) if full
+              else torch.randint(1, s + 1, (b,), generator=gen, device=dev,
+                                 dtype=torch.int32))
+    got = gqa_decode_cuda(q, k, v, length)
+    want = gqa_decode_ref(q, k, v, length)
+    sync(dev)
+    err = float((got.float() - want.float()).abs().max())
+    expect(bool(torch.isfinite(got).all()), "gqa_decode: non-finite output")
+    atol = ATOL["gqa_decode"][dtype]
+    tag = (f"gqa_decode B={b} H={h} KV={kv} D={d} S={s} {str(dtype)[6:]} "
+           f"lengths {'full' if full else 'random'}")
+    expect(err <= atol, f"{tag}: max |kernel - plain| {err} > {atol}")
+    # library yardstick on pre-transposed inputs, masked to each row's length
+    qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    qt, kt, vt = qt.contiguous(), kt.contiguous(), vt.contiguous()
+    mask = (torch.arange(s, device=dev)[None, :] < length[:, None]
+            )[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)[:, :, 0]
+    expect(float((lib.float() - want.float()).abs().max()) <= atol,
+           f"{tag}: scaled_dot_product_attention disagrees with plain")
+    ms = time_ms(lambda: gqa_decode_cuda(q, k, v, length), dev)
+    plain = time_ms(lambda: gqa_decode_ref(q, k, v, length), dev)
+    lib_ms = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                  enable_gqa=True), dev)
+    # the kernel reads the K and V prefix of each row's length, q and the
+    # lengths, and writes out; 4 flops per (head, slot, dim)
+    live = int(torch.clamp(length, 1, s).sum())
+    elt = q.element_size()
+    nbytes = 2 * live * kv * d * elt + 2 * b * h * d * elt + 4 * b
+    bound, by = bound_ms(nbytes, 4.0 * live * (h // kv) * kv * d, dtype)
+    print(f"{tag}: max err {err:.3g} (tolerance {atol}); kernel {ms:.6f} "
+          f"ms, plain {plain:.6f} ms, library {lib_ms:.6f} ms, bound "
+          f"{bound * 1e3:.3f} us ({by}); {b * kv} blocks")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=bound,
+                bound_by=by, max_abs_err=err)
+
+
+def _live_pairs(s: int, window: int) -> int:
+    """(query, key) pairs of a causal, optionally windowed, S x S mask."""
+    i = np.arange(s)
+    return int((np.minimum(i + 1, window) if window else i + 1).sum())
+
+
+def check_prefill(dev, b, s, h, kv, d, window, dtype):
+    """flash_prefill kernel vs plain at one shape and type; returns the
+    row's fields."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + s + window)
+    q = _randn(gen, (b, s, h, d), dtype, dev)
+    k = _randn(gen, (b, s, kv, d), dtype, dev)
+    v = _randn(gen, (b, s, kv, d), dtype, dev)
+    got = flash_prefill_cuda(q, k, v, window)
+    want = flash_prefill_ref(q, k, v, window)
+    sync(dev)
+    err = float((got.float() - want.float()).abs().max())
+    expect(bool(torch.isfinite(got).all()), "flash_prefill: non-finite "
+           "output")
+    atol = ATOL["flash_prefill"][dtype]
+    tag = (f"flash_prefill B={b} S={s} H={h} KV={kv} D={d} window={window} "
+           f"{str(dtype)[6:]}")
+    expect(err <= atol, f"{tag}: max |kernel - plain| {err} > {atol}")
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if window:
+        i = torch.arange(s, device=dev)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+
+        def lib_call():
+            return sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    else:
+        def lib_call():
+            return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_err = float((lib_call().transpose(1, 2).float()
+                     - want.float()).abs().max())
+    expect(lib_err <= atol, f"{tag}: scaled_dot_product_attention "
+           f"disagrees with plain ({lib_err})")
+    ms = time_ms(lambda: flash_prefill_cuda(q, k, v, window), dev, reps=20)
+    plain = time_ms(lambda: flash_prefill_ref(q, k, v, window), dev,
+                    reps=20)
+    lib_ms = time_ms(lib_call, dev, reps=20)
+    elt = q.element_size()
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * elt
+    flops = 4.0 * b * h * d * _live_pairs(s, window)
+    bound, by = bound_ms(nbytes, flops, dtype)
+    print(f"{tag}: max err {err:.3g} (tolerance {atol}); kernel {ms:.6f} "
+          f"ms, plain {plain:.6f} ms, library {lib_ms:.6f} ms, bound "
+          f"{bound * 1e3:.3f} us ({by}; {nbytes / 1e6:.1f} MB, "
+          f"{flops / 1e9:.2f} GFLOP)")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=bound,
+                bound_by=by, max_abs_err=err)
+
+
+def check_attention_kernels(dev):
+    """Both attention kernels at every stated shape, f32 and bf16.
+    Returns each kernel's row at the serving shape in bf16."""
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        r = check_decode(dev, 8, 64, 8, 128, 544, dtype)
+        if dtype == torch.bfloat16:
+            rows["gqa_decode"] = r
+        check_decode(dev, 2, 32, 8, 120, 300, dtype)
+        r = check_prefill(dev, 8, 512, 64, 8, 128, 0, dtype)
+        if dtype == torch.bfloat16:
+            rows["flash_prefill"] = r
+        check_prefill(dev, 2, 300, 32, 8, 120, 128, dtype)
+    # the serving path's decode reads nearly the whole cache
+    check_decode(dev, 8, 64, 8, 128, 544, torch.bfloat16, full=True)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# 5. decode agrees with prefill at full width
+# ---------------------------------------------------------------------------
+
+# f32 throughout, but the two sides sum in other orders: cuBLAS picks other
+# kernels for 1-row and 512-row products, and the attention runs through
+# gqa_decode on one side and flash_prefill on the other.  Set from the
+# reading: max |diff| 1.69e-5 over logits up to 4.8 on an H100 80GB HBM3 at
+# 700 W; the limit leaves about 12x of that for other cuBLAS kernel choices.
+DECODE_PREFILL_ATOL = 2e-4
+
+
+def check_decode_matches_prefill(dev, arch="qwen3-32b", s=511, b=2):
+    cfg = get_config(arch).with_layers(2).replace(
+        param_dtype="float32", compute_dtype="float32")
+    params = M.init_params(cfg, seed=SEED, device=dev)
+    tok = torch.randint(0, cfg.vocab, (b, s + 1), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1),
+                        dtype=torch.int32)
+    cache = M.init_cache(cfg, b, s + 1, device=dev)
+    cache, _ = M.prefill(params, {"tokens": tok[:, :s]}, cache, cfg)
+    _, lg_dec = M.decode_step(params, cache, tok[:, s:], cfg)
+    del cache
+    c2 = M.init_cache(cfg, b, s + 1, device=dev)
+    _, lg_ref = M.prefill(params, {"tokens": tok}, c2, cfg)
+    sync(dev)
+    expect(tuple(lg_dec.shape) == (b, cfg.vocab)
+           and bool(torch.isfinite(lg_dec).all()),
+           "decode logits: wrong shape or non-finite")
+    err = float((lg_dec - lg_ref).abs().max())
+    scale = float(lg_ref.abs().max())
+    print(f"decode vs prefill, {arch} width, 2 layers, f32, S={s}: max "
+          f"|diff| {err:.3g} over logits up to {scale:.3g} (tolerance "
+          f"{DECODE_PREFILL_ATOL}); argmax equal "
+          f"{bool((lg_dec.argmax(-1) == lg_ref.argmax(-1)).all())}")
+    expect(err <= DECODE_PREFILL_ATOL, "decode logits differ from prefill's")
+
+
+# ---------------------------------------------------------------------------
+# 6. the serving path
+# ---------------------------------------------------------------------------
+
+def profile_decode(dev, cfg, params, b, prompt_len, steps):
+    """A few decode steps of the serving path under torch.profiler: the
+    device's busy share of the window and the kernels that take its
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    _, decode_step = TS.make_serve_steps(cfg)
+    caches = M.init_cache(cfg, b, prompt_len + steps + 1, device=dev)
+    caches["pos"].fill_(prompt_len)
+    nxt = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+    caches, nxt, _ = decode_step(params, caches, nxt)       # warm
+    sync(dev)
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            caches, nxt, _ = decode_step(params, caches, nxt)
+        sync(dev)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    busy = sum(r[0] for r in rows)
+    print(f"decode profile: {steps} steps, wall {wall_us:.1f} us, device "
+          f"busy {busy:.1f} us ({100 * busy / wall_us:.2f}%), "
+          f"{sum(r[1] for r in rows) / steps:.1f} device ops per step")
+    for us, n, key in rows[:10]:
+        print(f"  {us:12.1f} us {n:6d}x  {key[:90]}")
+
+
+def run_serving(dev, arch="qwen3-32b", requests=8, prompt_len=512, gen=32):
+    """The serving path at qwen3-32b's full width and depth; returns its
+    launch counts."""
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in (scan_cuda, probe_cuda, gqa_decode_cuda, flash_prefill_cuda):
+        fn.launches = 0
+    res = serve.run(cfg, requests=requests, prompt_len=prompt_len, gen=gen,
+                    crash=True, backend="bucket", device=dev)
+    launches = {"recovery_scan": scan_cuda.launches,
+                "hash_probe": probe_cuda.launches,
+                "gqa_decode": gqa_decode_cuda.launches,
+                "flash_prefill": flash_prefill_cuda.launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"serving-path launches: {launches}")
+    tokens = res["tokens"]
+    expect(tuple(tokens.shape) == (requests, gen)
+           and bool(((tokens >= 0) & (tokens < cfg.vocab)).all())
+           and bool(torch.isfinite(res["logits"]).all()),
+           "serve: generated tokens or logits out of range")
+    expect(res["registered"] == requests and res["psyncs"] == requests,
+           f"serve: {res['registered']} registered at {res['psyncs']} "
+           f"psyncs, expected {requests} and {requests}")
+    expect(res["registered_after_recovery"] == requests
+           and res["recovery_psyncs"] == 0
+           and res["psyncs_after_recovery"] == 0,
+           "serve: the registry lost completions or paid psyncs in recovery")
+    layers = cfg.n_layers
+    expect(launches["flash_prefill"] == layers,
+           f"flash_prefill launched {launches['flash_prefill']} times, "
+           f"expected {layers}")
+    expect(launches["gqa_decode"] == layers * (gen - 1),
+           f"gqa_decode launched {launches['gqa_decode']} times, expected "
+           f"{layers * (gen - 1)}")
+    expect(launches["hash_probe"] > 0 and launches["recovery_scan"] > 0,
+           "the registry's kernels were not launched")
+    wbytes = sum(t.numel() * t.element_size()
+                 for _, t in tree_leaves(res["params"]))
+    print(f"serve qwen3-32b ({layers} layers, bf16, {wbytes / 2**30:.2f} "
+          f"GiB of weights): {requests} requests x {prompt_len} + {gen} "
+          f"tokens; prefill {res['prefill_ms']:.3f} ms; decode "
+          f"{res['decode_ms_per_step']:.3f} ms per step (weight-stream "
+          f"bound {bytes_ms(wbytes):.3f} ms); {res['tok_per_s']:.1f} tok/s "
+          f"over {res['seconds']:.3f} s; peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    params = res["params"]
+    del res, tokens
+    torch.cuda.empty_cache()
+    profile_decode(dev, cfg, params, requests, prompt_len, steps=4)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -401,6 +706,14 @@ def main() -> int:
     scan = check_scan(dev, [1 << 21, 1 << 23, (1 << 21) + 3])
     probe = check_probe(dev, capacity=1 << 21, key_range=1 << 20,
                         live=1 << 19, nb=1 << 19, w=8, batches=[1024, 65536])
+    # the serving registry's shapes (phase 6 drives them)
+    reg = serve.REGISTRY_CAPACITY
+    nb, w = SetSpec(capacity=reg, mode="soft",
+                    backend="bucket").bucket_geometry()
+    check_scan(dev, [reg])
+    for live in (8, reg):
+        check_probe(dev, capacity=reg, key_range=4 * reg, live=live, nb=nb,
+                    w=w, batches=[8])
     print("library_ms: no single PyTorch call computes either function")
 
     scan_cuda.launches = probe_cuda.launches = 0
@@ -417,6 +730,18 @@ def main() -> int:
         run_map(dev, mode, capacity=1 << 16, key_range=1 << 15,
                 prefill=1 << 14, n_batches=20, n_after=5, b=1024,
                 chunk=4096, label=f"{mode} run")
+    torch.cuda.empty_cache()
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
+    torch.backends.cudnn.allow_tf32 = False
+    attn = check_attention_kernels(dev)
+    torch.cuda.empty_cache()
+    check_decode_matches_prefill(dev)
+    torch.cuda.empty_cache()
+    serving = run_serving(dev)
+    for name in ("recovery_scan", "hash_probe"):
+        print(f"{name}: {serving[name]} launches on the serving path "
+              f"(registry inserts, contains and recovery)")
 
     record = {"kernels": [
         {"name": "recovery_scan", "route": "cuda",
@@ -429,6 +754,14 @@ def main() -> int:
          "replaces": "src/repro/kernels/hash_probe/kernel.py:64",
          "launches": launches["hash_probe"], **probe,
          "bound_by": "bytes", "library_ms": None},
+        {"name": "gqa_decode", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/gqa_decode.cu",
+         "replaces": "src/repro/kernels/gqa_decode/kernel.py:62",
+         "launches": serving["gqa_decode"], **attn["gqa_decode"]},
+        {"name": "flash_prefill", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
+         "replaces": "src/repro/kernels/flash_prefill/kernel.py:81",
+         "launches": serving["flash_prefill"], **attn["flash_prefill"]},
     ]}
     print(smi)
     print(json.dumps(record))

@@ -1,0 +1,4 @@
+"""Model configurations (copies of the JAX package's, for the ported
+families)."""
+from repro_torch.configs.base import (ModelConfig, get_config,  # noqa: F401
+                                      list_configs, register)

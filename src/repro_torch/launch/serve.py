@@ -1,0 +1,152 @@
+"""Serving entry point (a port of the single-wave path of
+``repro.launch.serve``): batched prefill + greedy decode with a durable
+request registry (the paper's set as serving metadata).
+
+Completed request ids are inserted into a SOFT ``DurableMap``; a crash
+loses the volatile index but not the registry, so after recovery the
+server knows exactly which requests had completed.  Each completion costs
+one psync; recovery costs none.  Prefill attention runs the port's
+``flash_prefill`` kernel and decode attention its ``gqa_decode`` kernel;
+the registry runs ``hash_probe`` and, on ``--crash``, ``recovery_scan``.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b-smoke \\
+      --requests 8 --prompt-len 32 --gen 16 [--crash] [--device cpu]
+
+It runs on the GPU unless given ``--device cpu``.  ``run`` is the same path
+for a caller that holds a config object.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, get_config
+from repro_torch.core import DurableMap, SetSpec
+from repro_torch.core.device import resolve_device
+from repro_torch.models import model as M
+from repro_torch.obs import MetricsRegistry
+from repro_torch.train import steps as TS
+
+# Options of repro.launch.serve that wait for their slices.
+NOT_PORTED = {
+    "--queue": "ROADMAP queue A, item 8 (durable queue)",
+    "--shards": "ROADMAP queue A, item 7 (sharded runtime)",
+    "--pipeline": "ROADMAP queue A, item 7 (sharded runtime)",
+    "--snapshot-every": "ROADMAP queue A, item 9 (snapshot store)",
+    "--autosplit": "ROADMAP queue A, item 10 (online resize)",
+    "--open-loop": "ROADMAP queue A, item 11 (bench_serve)",
+}
+
+
+# Node-pool size of the completion registry, as in repro.launch.serve.
+REGISTRY_CAPACITY = 1024
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run(cfg: ModelConfig, requests: int = 8, prompt_len: int = 32,
+        gen: int = 16, crash: bool = False, backend: str = "bucket",
+        device="cuda", params=None) -> dict:
+    """Serve ``requests`` prompts of ``prompt_len`` tokens for ``gen``
+    tokens each, record the completions in the registry, and with
+    ``crash`` crash and recover it.  ``params`` defaults to
+    ``init_params(cfg, seed=0)``.  Returns the generated tokens, the
+    registry's counts and the timings (the device synchronized around
+    prefill and around the decode loop)."""
+    dev = resolve_device(device)
+    if params is None:
+        params = M.init_params(cfg, seed=0, device=dev)
+    prefill_step, decode_step = TS.make_serve_steps(cfg)
+
+    m = MetricsRegistry()     # one snapshot() reaches every structure
+    registry = DurableMap(SetSpec(capacity=REGISTRY_CAPACITY, mode="soft",
+                                  backend=backend),
+                          metrics=m, metrics_name="registry", device=dev)
+    b = requests
+    req_ids = np.arange(1000, 1000 + b, dtype=np.int32)
+    max_seq = prompt_len + gen
+    rng = np.random.default_rng(0)
+    all_toks = rng.integers(0, cfg.vocab, (b, prompt_len))
+
+    t0 = time.time()
+    caches = M.init_cache(cfg, b, max_seq, device=dev)
+    _sync(dev)
+    t1 = time.perf_counter()
+    caches, logits = prefill_step(
+        params, {"tokens": torch.as_tensor(all_toks, dtype=torch.int32,
+                                           device=dev)}, caches)
+    nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    _sync(dev)
+    t2 = time.perf_counter()
+    out = [nxt]
+    for _ in range(gen - 1):
+        caches, nxt, logits = decode_step(params, caches, nxt)
+        out.append(nxt)
+    tokens = torch.cat(out, dim=1)
+    _sync(dev)
+    t3 = time.perf_counter()
+    dt = time.time() - t0
+    print(f"served {b} requests x {gen} tokens in {dt:.2f}s "
+          f"({b * gen / dt:.1f} tok/s)")
+
+    # durably record completions: one psync per request (SOFT bound)
+    registry.insert(req_ids, tokens[:, -1])
+    reg = m.snapshot()["collected"]["registry"]
+    print(f"registry[{backend}]: {reg['size']} completed, "
+          f"psyncs={reg['psyncs']} (== #requests)")
+    result = {"tokens": tokens, "logits": logits, "params": params,
+              "registered": reg["size"], "psyncs": reg["psyncs"],
+              "seconds": dt, "tok_per_s": b * gen / dt,
+              "prefill_ms": (t2 - t1) * 1e3,
+              "decode_ms_per_step": (t3 - t2) * 1e3 / max(gen - 1, 1)}
+
+    if crash:
+        registry.crash_and_recover()
+        done = registry.contains(req_ids).cpu().numpy()
+        if not done.all():
+            raise RuntimeError(f"registry lost {int((~done).sum())} of {b} "
+                               "completions in crash and recovery")
+        print(f"after crash+recovery: all {b} completions still registered")
+        reg = m.snapshot()["collected"]["registry"]
+        result.update(registered_after_recovery=int(done.sum()),
+                      recovery_psyncs=reg["recovery_psyncs"],
+                      psyncs_after_recovery=reg["psyncs"])
+    return result
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    for flag, item in NOT_PORTED.items():
+        if any(a == flag or a.startswith(flag + "=") for a in argv):
+            raise NotImplementedError(f"{flag} is not ported yet ({item})")
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-32b-smoke")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--crash", action="store_true")
+    ap.add_argument("--backend", default="bucket",
+                    choices=("probe", "scan", "bucket"),
+                    help="registry index backend (bucket = the CUDA "
+                         "hash_probe / recovery_scan kernels).  The default "
+                         "is bucket, where repro.launch.serve's is probe, "
+                         "until the probe and scan backends are ported "
+                         "(ROADMAP queue A, item a)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve on (default: the GPU)")
+    args = ap.parse_args(argv)
+    run(get_config(args.arch), requests=args.requests,
+        prompt_len=args.prompt_len, gen=args.gen, crash=args.crash,
+        backend=args.backend, device=args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,38 @@
+"""Parameter and cache trees of the JAX package, as numpy arrays, into the
+port's torch trees, so that both packages compute on the same weights and
+caches.  Both packages stack layer params and caches on a leading dim with
+the same keys, so the conversion is a plain copy, leaf by leaf.
+
+The trees come in as numpy (``jax.tree.map(np.asarray, tree)`` on the JAX
+side): the port imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.params import tree_map
+
+
+def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
+    """One array into a tensor of the same dtype, copied (the port writes
+    caches in place, and arrays from JAX are read-only); bfloat16 (numpy's
+    ``ml_dtypes`` extension type) crosses as its 16-bit pattern."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_jax(tree, device="cuda"):
+    """A JAX parameter tree (``repro.models.params.init_params``), leaves as
+    numpy arrays, as the port's parameter tree on ``device``."""
+    return tree_map(lambda a: tensor_from_numpy(a, device), tree)
+
+
+def cache_from_jax(tree, device="cuda"):
+    """A JAX cache tree (``repro.models.model.init_cache`` or what prefill
+    and decode_step return), leaves as numpy arrays, as the port's cache
+    tree on ``device``."""
+    return tree_map(lambda a: tensor_from_numpy(a, device), tree)

@@ -1,0 +1,169 @@
+"""Shared neural building blocks (a port of ``repro.models.layers`` for the
+dense GQA serving path): norms, rotary embeddings, prefill and decode
+attention through the port's kernels, the KV cache ring, SwiGLU MLP.
+
+Params are dict subtrees produced by ``params.py``.  Compute dtype follows
+the config; norms, rotary and softmax run in f32.  Large matrix products
+stay ``torch.matmul``, as the JAX package leaves them to XLA.  The
+multi-device pieces (``constrain``, ``_sharded_flash_decode``) are not
+ported: the port runs on one card.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_prefill.ops import flash_prefill
+from repro_torch.kernels.gqa_decode.ops import gqa_decode
+from repro_torch.models.params import not_ported
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def norm(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    xf = x.float()
+    if cfg.norm == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).square().mean(-1, keepdim=True)
+        out = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        out = out * p["scale"].float() + p["bias"].float()
+    else:
+        ms = xf.square().mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(ms + cfg.norm_eps) * p["scale"].float()
+    return out.to(x.dtype)
+
+
+def head_rms(scale: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """qk-norm: RMS over the head dim (qwen3)."""
+    xf = x.float()
+    ms = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings
+# ---------------------------------------------------------------------------
+
+def _rope_angles(positions: torch.Tensor, dim: int, theta: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions (..., S) -> cos/sin (..., S, dim/2) in f32."""
+    half = dim // 2
+    dev = positions.device
+    expo = -torch.arange(0, half, dtype=torch.float32, device=dev) / half
+    # theta filled on the device: torch.tensor(theta, device="cuda") would
+    # be a host-to-device copy, which synchronizes the host with the card
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32, device=dev),
+                      expo)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections: Optional[Tuple[int, int, int]] = None
+               ) -> torch.Tensor:
+    """x (B, S, H, D); positions (B, S).  Half-split rotation."""
+    if mrope_sections is not None:
+        raise not_ported("M-RoPE (the vlm family)")
+    half = x.shape[-1] // 2
+    cos, sin = _rope_angles(positions, x.shape[-1], theta)   # (B, S, half)
+    cos = cos[:, :, None, :]
+    sin = sin[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention cores
+# ---------------------------------------------------------------------------
+
+def attention_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      window: Optional[int]) -> torch.Tensor:
+    """Causal (optionally windowed) GQA attention over a whole prompt at
+    the default positions arange(S), through the port's ``flash_prefill``
+    op: the counterpart of the JAX package's ``attention_dense`` on the
+    prefill path, where ``serve`` only ever passes those positions.  The
+    kernel masks by sequence index, so ``model.prefill`` refuses any other
+    positions before it reaches this function.
+
+    q (B,S,H,D); k,v (B,S,KV,D)."""
+    return flash_prefill(q, k, v, window=window or 0)
+
+
+def attention_decode(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                     valid_len: torch.Tensor) -> torch.Tensor:
+    """Single-token decode over a (possibly ring) cache, through the port's
+    ``gqa_decode`` op.
+
+    q (B,1,H,D); ck/cv (B,W,KV,D); valid_len (B,) number of live slots."""
+    return gqa_decode(q[:, 0], ck, cv, valid_len)[:, None]
+
+
+# ---------------------------------------------------------------------------
+# QKV projection + cache plumbing for the standard (non-MLA) path
+# ---------------------------------------------------------------------------
+
+def qkv_project(p, x, cfg: ModelConfig, positions):
+    dt = x.dtype
+    q = x @ p["wq"].to(dt)
+    k = x @ p["wk"].to(dt)
+    v = x @ p["wv"].to(dt)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    b, s = x.shape[0], x.shape[1]
+    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = head_rms(p["q_norm"], q, cfg.norm_eps)
+        k = head_rms(p["k_norm"], k, cfg.norm_eps)
+    secs = cfg.mrope_sections if cfg.mrope else None
+    q = apply_rope(q, positions, cfg.rope_theta, secs)
+    k = apply_rope(k, positions, cfg.rope_theta, secs)
+    return q, k, v
+
+
+def cache_window(cfg: ModelConfig, max_seq: int) -> int:
+    """Ring-buffer length for the KV cache: the SWA window if sub-quadratic,
+    else the full sequence."""
+    if cfg.attn_kind == "swa":
+        return min(max_seq, cfg.window)
+    return max_seq
+
+
+def cache_write(ck, cv, k, v, pos0):
+    """Write S new entries at ring positions (pos0 + arange(S)) % W, in
+    place (the JAX version returns new arrays).
+
+    When S > W several positions share a slot and the last one wins, as XLA
+    resolves the duplicate scatter on the CPU; ``index_put_`` on CUDA does
+    not define which duplicate wins, so only the last W positions are
+    written."""
+    w = ck.shape[1]
+    s = k.shape[1]
+    if s > w:
+        k, v = k[:, s - w:], v[:, s - w:]
+        pos0 = pos0 + (s - w)
+        s = w
+    idx = (pos0[:, None] + torch.arange(s, device=ck.device)[None, :]) % w
+    bidx = torch.arange(ck.shape[0], device=ck.device)[:, None]
+    ck[bidx, idx] = k.to(ck.dtype)
+    cv[bidx, idx] = v.to(cv.dtype)
+    return ck, cv
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+def mlp(p, x):
+    dt = x.dtype
+    h = F.silu(x @ p["wg"].to(dt)) * (x @ p["wi"].to(dt))
+    return h @ p["wo"].to(dt)

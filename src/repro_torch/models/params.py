@@ -1,0 +1,158 @@
+"""Parameter definitions and initialization (a port of
+``repro.models.params`` for the ``attn`` block kind).
+
+``param_defs(cfg)`` builds a tree of ``PD`` (shape, init); ``init_params``
+materializes it on a device.  Stacked layer params carry a leading 'stack'
+dim, as in the JAX package, so a JAX parameter tree converts by a plain
+copy (``repro_torch.models.convert``).  The sharding roles of the JAX
+``PD`` and ``param_pspecs`` are not ported: the port runs on one card.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Iterator, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+# ROADMAP queue A, item 12 (model stack): the block kinds whose
+# parameters, caches and mixers are not ported yet
+NOT_PORTED = {
+    "moe": "MoE", "enc": "audio (whisper encoder)",
+    "dec": "audio (whisper decoder)", "mlstm": "recurrent mixers (xLSTM)",
+    "slstm": "recurrent mixers (xLSTM)",
+    "rglru": "recurrent mixers (RecurrentGemma)"}
+
+
+def not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP queue A, item 12: model stack)")
+
+
+class PD(NamedTuple):
+    shape: Tuple[int, ...]
+    init: str = "normal"               # normal | zeros | ones
+    scale_dim: int = -2                # fan-in dim index for init scale
+
+
+def _attn_defs(cfg: ModelConfig) -> Dict[str, PD]:
+    d, qd, kvd, hd = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.head_dim
+    if cfg.mla:
+        raise not_ported("MLA attention")
+    defs = {"wq": PD((d, qd)), "wk": PD((d, kvd)), "wv": PD((d, kvd)),
+            "wo": PD((qd, d))}
+    if cfg.qkv_bias:
+        defs["bq"] = PD((qd,), "zeros")
+        defs["bk"] = PD((kvd,), "zeros")
+        defs["bv"] = PD((kvd,), "zeros")
+    if cfg.qk_norm:
+        defs["q_norm"] = PD((hd,), "ones")
+        defs["k_norm"] = PD((hd,), "ones")
+    return defs
+
+
+def _mlp_defs(cfg: ModelConfig) -> Dict[str, PD]:
+    d, f = cfg.d_model, cfg.d_ff
+    return {"wi": PD((d, f)), "wg": PD((d, f)), "wo": PD((f, d))}
+
+
+def _norm_def(cfg: ModelConfig) -> Dict[str, PD]:
+    out = {"scale": PD((cfg.d_model,), "ones")}
+    if cfg.norm == "layernorm":
+        out["bias"] = PD((cfg.d_model,), "zeros")
+    return out
+
+
+def block_defs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
+    """Parameter defs for one block of the given kind (pre-norm residual)."""
+    if kind == "attn":
+        return {"ln1": _norm_def(cfg), "attn": _attn_defs(cfg),
+                "ln2": _norm_def(cfg), "mlp": _mlp_defs(cfg)}
+    if kind in NOT_PORTED:
+        raise not_ported(f"block kind {kind!r} ({NOT_PORTED[kind]})")
+    raise ValueError(f"unknown block kind {kind}")
+
+
+def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
+    if cfg.family in ("audio", "vlm"):
+        raise not_ported(f"the {cfg.family} family")
+    defs: Dict[str, Any] = {
+        "embed": {"w": PD((cfg.vocab, cfg.d_model))},
+        "final_norm": _norm_def(cfg),
+    }
+    if not cfg.tie_embeddings:
+        defs["unembed"] = {"w": PD((cfg.d_model, cfg.vocab))}
+    for si, (period, count) in enumerate(cfg.stacks()):
+        defs[f"stack_{si}"] = _stack(cfg, period, count)
+    return defs
+
+
+def _stack(cfg: ModelConfig, period: Tuple[str, ...], count: int):
+    body = {f"b{i}_{kind}": block_defs(cfg, kind)
+            for i, kind in enumerate(period)}
+    return tree_map(lambda pd: PD((count,) + pd.shape, pd.init, pd.scale_dim),
+                    body)
+
+
+# ---------------------------------------------------------------------------
+# Trees of dicts (the JAX package's pytrees)
+# ---------------------------------------------------------------------------
+
+def tree_map(fn, tree):
+    """``fn`` over the leaves of nested dicts."""
+    if isinstance(tree, dict):
+        return {key: tree_map(fn, tree[key]) for key in tree}
+    return fn(tree)
+
+
+def tree_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(path, leaf) pairs in sorted key order, the order of JAX's
+    ``tree.flatten`` over dicts."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from tree_leaves(tree[key], f"{prefix}/{key}" if prefix
+                                   else key)
+    else:
+        yield prefix, tree
+
+
+# ---------------------------------------------------------------------------
+# Materialization
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
+    """Random parameters on ``device``: normal / sqrt(fan-in) for weights,
+    ones and zeros for scales and biases, as in the JAX package (the values
+    differ: one ``torch.Generator`` seeded with ``seed`` replaces JAX's
+    split keys).
+
+    Each leaf is allocated once in the parameter dtype and filled one
+    layer at a time through an f32 draw of one layer's size, so no stacked
+    leaf ever exists in f32 (qwen3-32b's stacked ``mlp/wi`` alone would be
+    33.5 GB in f32)."""
+    dev = torch.device(device)
+    dtype = getattr(torch, cfg.param_dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def mk(pd: PD):
+        if pd.init == "zeros":
+            return torch.zeros(pd.shape, dtype=dtype, device=dev)
+        if pd.init == "ones":
+            return torch.ones(pd.shape, dtype=dtype, device=dev)
+        fan_in = pd.shape[pd.scale_dim] if len(pd.shape) > 1 else pd.shape[0]
+        scale = 1.0 / math.sqrt(max(fan_in, 1))
+        out = torch.empty(pd.shape, dtype=dtype, device=dev)
+        rows = out.reshape(-1, *pd.shape[-2:]) if len(pd.shape) > 2 \
+            else out[None]
+        for layer in rows:
+            layer.copy_(torch.randn(layer.shape, generator=gen, device=dev,
+                                    dtype=torch.float32).mul_(scale))
+        return out
+
+    return tree_map(mk, param_defs(cfg))
+
+
+def param_count(cfg: ModelConfig) -> int:
+    return sum(int(math.prod(pd.shape))
+               for _, pd in tree_leaves(param_defs(cfg)))

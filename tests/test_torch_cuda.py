@@ -10,13 +10,21 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import DurableMap, SetSpec  # noqa: E402
+from repro_torch.kernels.flash_prefill.kernel import (  # noqa: E402
+    flash_prefill_cuda)
+from repro_torch.kernels.flash_prefill.ref import (  # noqa: E402
+    flash_prefill_ref)
+from repro_torch.kernels.gqa_decode.kernel import gqa_decode_cuda  # noqa: E402
+from repro_torch.kernels.gqa_decode.ref import gqa_decode_ref  # noqa: E402
 from repro_torch.kernels.hash_probe.kernel import probe_cuda  # noqa: E402
 from repro_torch.kernels.hash_probe.ops import (bucket_of,  # noqa: E402
                                                 build_buckets)
 from repro_torch.kernels.hash_probe.ref import probe_ref  # noqa: E402
 from repro_torch.kernels.recovery_scan.kernel import scan_cuda  # noqa: E402
 from repro_torch.kernels.recovery_scan.ref import scan_ref  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -75,3 +83,106 @@ def test_map_on_the_card_uses_both_kernels(cuda):
     got = m.contains(np.arange(2000, dtype=np.int32)).cpu().numpy()
     np.testing.assert_array_equal(np.flatnonzero(got), keys)
     assert scan_cuda.launches == 1 and probe_cuda.launches == 2
+
+
+# the JAX tests' tolerances: decode test_kernels.py:53-54, prefill
+# test_seqmix_reference.py:78-79
+DECODE_ATOL = {"float32": 2e-5, "bfloat16": 3e-2}
+PREFILL_ATOL = {"float32": 3e-5, "bfloat16": 4e-2}
+
+
+def _randn(rng, shape, dtype, dev):
+    return torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev, getattr(torch, dtype))
+
+
+@pytest.fixture(autouse=True)
+def _no_tf32():
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.parametrize("dtype", sorted(DECODE_ATOL))
+@pytest.mark.parametrize("b,h,kv,d,s", [(8, 64, 8, 128, 544),
+                                        (2, 32, 8, 120, 300),
+                                        (1, 4, 4, 16, 7)])
+def test_gqa_decode_kernel_matches_plain(cuda, b, h, kv, d, s, dtype):
+    rng = np.random.default_rng(b * s + d)
+    q = _randn(rng, (b, h, d), dtype, cuda)
+    k = _randn(rng, (b, s, kv, d), dtype, cuda)
+    v = _randn(rng, (b, s, kv, d), dtype, cuda)
+    ln = torch.from_numpy(rng.integers(1, s + 1, b).astype(np.int32)).to(
+        cuda)
+    before = gqa_decode_cuda.launches
+    got = gqa_decode_cuda(q, k, v, ln)
+    assert gqa_decode_cuda.launches == before + 1
+    want = gqa_decode_ref(q, k, v, ln)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert float((got.float() - want.float()).abs().max()) <= \
+        DECODE_ATOL[dtype]
+
+
+def test_gqa_decode_kernel_with_no_live_slot_is_uniform(cuda):
+    """length 0 masks every slot: the softmax is uniform, as in the plain
+    version."""
+    rng = np.random.default_rng(0)
+    q = _randn(rng, (2, 4, 16), "float32", cuda)
+    k = _randn(rng, (2, 9, 2, 16), "float32", cuda)
+    v = _randn(rng, (2, 9, 2, 16), "float32", cuda)
+    ln = torch.tensor([0, 3], dtype=torch.int32, device=cuda)
+    got = gqa_decode_cuda(q, k, v, ln)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, gqa_decode_ref(q, k, v, ln), atol=2e-5,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", sorted(PREFILL_ATOL))
+@pytest.mark.parametrize("b,s,h,kv,d,window", [(8, 512, 64, 8, 128, 0),
+                                               (2, 300, 32, 8, 120, 128),
+                                               (1, 70, 4, 2, 256, 0),
+                                               (2, 33, 6, 3, 8, 5)])
+def test_flash_prefill_kernel_matches_plain(cuda, b, s, h, kv, d, window,
+                                            dtype):
+    rng = np.random.default_rng(b * s + d)
+    q = _randn(rng, (b, s, h, d), dtype, cuda)
+    k = _randn(rng, (b, s, kv, d), dtype, cuda)
+    v = _randn(rng, (b, s, kv, d), dtype, cuda)
+    before = flash_prefill_cuda.launches
+    got = flash_prefill_cuda(q, k, v, window)
+    assert flash_prefill_cuda.launches == before + 1
+    want = flash_prefill_ref(q, k, v, window)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert float((got.float() - want.float()).abs().max()) <= \
+        PREFILL_ATOL[dtype]
+
+
+def test_flash_prefill_kernel_reads_through_strides(cuda):
+    """q, k, v as views of one fused projection, as a caller may hold
+    them: the kernel reads them in place."""
+    rng = np.random.default_rng(1)
+    b, s, h, kv, d = 2, 40, 4, 2, 16
+    qkv = _randn(rng, (b, s, (h + 2 * kv) * d), "float32", cuda)
+    q = qkv[..., :h * d].unflatten(-1, (h, d))
+    k = qkv[..., h * d:(h + kv) * d].unflatten(-1, (kv, d))
+    v = qkv[..., (h + kv) * d:].unflatten(-1, (kv, d))
+    assert not q.is_contiguous()
+    got = flash_prefill_cuda(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, flash_prefill_ref(q.contiguous(), k.contiguous(),
+                               v.contiguous()), atol=3e-5, rtol=0)
+
+
+def test_serve_on_the_card_uses_every_kernel(cuda):
+    """The serving path at smoke size on the card: each of its four
+    kernels launched as often as the path says."""
+    cfg = get_config("qwen3-32b-smoke")
+    for fn in (scan_cuda, probe_cuda, gqa_decode_cuda, flash_prefill_cuda):
+        fn.launches = 0
+    res = serve.run(cfg, requests=4, prompt_len=8, gen=4, crash=True,
+                    device=cuda)
+    assert res["registered_after_recovery"] == 4 and res["psyncs"] == 4
+    assert flash_prefill_cuda.launches == cfg.n_layers
+    assert gqa_decode_cuda.launches == cfg.n_layers * 3
+    assert probe_cuda.launches > 0 and scan_cuda.launches == 1
