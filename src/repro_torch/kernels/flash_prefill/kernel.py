@@ -33,6 +33,16 @@ def _lib():
     return lib
 
 
+def _readable(t: torch.Tensor) -> bool:
+    """Whether the kernel can read ``t`` in place: a unit stride along D
+    and, for bf16 (read by TMA), a 16-byte aligned start and strides that
+    are multiples of 8 elements."""
+    if t.stride(-1) != 1:
+        return False
+    return t.dtype != torch.bfloat16 or (
+        t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3]))
+
+
 def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        window: int = 0) -> torch.Tensor:
     """q f[B, S, H, D]; k, v f[B, S, KV, D]; window 0 == full causal.
@@ -57,7 +67,8 @@ def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_head_dim(d, "flash_prefill_cuda")
     if window < 0:
         raise ValueError(f"flash_prefill_cuda: window {window} < 0")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in args)
+    q, k, v = (t if _readable(t) else t.clone(
+        memory_format=torch.contiguous_format) for t in args)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=dev)
     strides = (ctypes.c_longlong * 12)(
         *(st for t in (q, k, v, out) for st in t.stride()[:3]))

@@ -34,9 +34,14 @@ from repro_torch.train import steps as TS
 # Options of repro.launch.serve that wait for their slices.
 NOT_PORTED = {
     "--queue": "ROADMAP queue A, item 8 (durable queue)",
+    "--queue-capacity": "ROADMAP queue A, item 8 (durable queue)",
     "--shards": "ROADMAP queue A, item 7 (sharded runtime)",
+    "--router": "ROADMAP queue A, item 7 (sharded runtime)",
+    "--placement": "ROADMAP queue A, item 7 (sharded runtime)",
+    "--max-lane-budget": "ROADMAP queue A, item 7 (sharded runtime)",
     "--pipeline": "ROADMAP queue A, item 7 (sharded runtime)",
     "--snapshot-every": "ROADMAP queue A, item 9 (snapshot store)",
+    "--snapshot-dir": "ROADMAP queue A, item 9 (snapshot store)",
     "--autosplit": "ROADMAP queue A, item 10 (online resize)",
     "--open-loop": "ROADMAP queue A, item 11 (bench_serve)",
 }
@@ -138,7 +143,7 @@ def main(argv=None):
                          "hash_probe / recovery_scan kernels).  The default "
                          "is bucket, where repro.launch.serve's is probe, "
                          "until the probe and scan backends are ported "
-                         "(ROADMAP queue A, item a)")
+                         "(ROADMAP queue A, item 5a)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: the GPU)")
     args = ap.parse_args(argv)

@@ -136,11 +136,23 @@ def test_gqa_decode_kernel_with_no_live_slot_is_uniform(cuda):
                                rtol=0)
 
 
+# Shapes: the serving shape; h2o-danube-3-4b's head dim with a window;
+# D = 256 and D = 8 (the bf16 kernel pads both to its 64-column tiles);
+# S = 1 and S that are not multiples of the 64-row tiles, with and without
+# a window, at G = 1, 2 and 8.
 @pytest.mark.parametrize("dtype", sorted(PREFILL_ATOL))
 @pytest.mark.parametrize("b,s,h,kv,d,window", [(8, 512, 64, 8, 128, 0),
                                                (2, 300, 32, 8, 120, 128),
                                                (1, 70, 4, 2, 256, 0),
-                                               (2, 33, 6, 3, 8, 5)])
+                                               (2, 33, 6, 3, 8, 5),
+                                               (2, 1, 16, 2, 8, 0),
+                                               (2, 1, 4, 4, 120, 16),
+                                               (1, 1, 2, 1, 256, 0),
+                                               (2, 100, 16, 2, 8, 0),
+                                               (2, 100, 16, 2, 120, 0),
+                                               (2, 100, 16, 2, 120, 33),
+                                               (1, 130, 4, 2, 256, 50),
+                                               (2, 65, 8, 8, 120, 7)])
 def test_flash_prefill_kernel_matches_plain(cuda, b, s, h, kv, d, window,
                                             dtype):
     rng = np.random.default_rng(b * s + d)
@@ -157,12 +169,48 @@ def test_flash_prefill_kernel_matches_plain(cuda, b, s, h, kv, d, window,
         PREFILL_ATOL[dtype]
 
 
-def test_flash_prefill_kernel_reads_through_strides(cuda):
+@pytest.mark.parametrize("dtype", sorted(PREFILL_ATOL))
+def test_flash_prefill_kernel_window_one_returns_own_value(cuda, dtype):
+    """window = 1: each query sees only its own key, so the output is v at
+    the query's own position, for every query head of the group."""
+    rng = np.random.default_rng(2)
+    b, s, h, kv, d = 2, 77, 8, 2, 120
+    q = _randn(rng, (b, s, h, d), dtype, cuda)
+    k = _randn(rng, (b, s, kv, d), dtype, cuda)
+    v = _randn(rng, (b, s, kv, d), dtype, cuda)
+    got = flash_prefill_cuda(q, k, v, 1)
+    torch.cuda.synchronize()
+    want = v.repeat_interleave(h // kv, dim=2)
+    assert float((got.float() - want.float()).abs().max()) <= \
+        PREFILL_ATOL[dtype]
+    assert float((got.float() - flash_prefill_ref(q, k, v, 1).float()
+                  ).abs().max()) <= PREFILL_ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", sorted(PREFILL_ATOL))
+def test_flash_prefill_kernel_window_beyond_s_is_causal(cuda, dtype):
+    """A window longer than the sequence masks nothing more than
+    causality: the same output as window 0."""
+    rng = np.random.default_rng(3)
+    b, s, h, kv, d = 2, 150, 8, 2, 64
+    q = _randn(rng, (b, s, h, d), dtype, cuda)
+    k = _randn(rng, (b, s, kv, d), dtype, cuda)
+    v = _randn(rng, (b, s, kv, d), dtype, cuda)
+    got = flash_prefill_cuda(q, k, v, 4 * s)
+    full = flash_prefill_cuda(q, k, v, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, full)
+    assert float((got.float() - flash_prefill_ref(q, k, v, 0).float()
+                  ).abs().max()) <= PREFILL_ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", sorted(PREFILL_ATOL))
+def test_flash_prefill_kernel_reads_through_strides(cuda, dtype):
     """q, k, v as views of one fused projection, as a caller may hold
     them: the kernel reads them in place."""
     rng = np.random.default_rng(1)
     b, s, h, kv, d = 2, 40, 4, 2, 16
-    qkv = _randn(rng, (b, s, (h + 2 * kv) * d), "float32", cuda)
+    qkv = _randn(rng, (b, s, (h + 2 * kv) * d), dtype, cuda)
     q = qkv[..., :h * d].unflatten(-1, (h, d))
     k = qkv[..., h * d:(h + kv) * d].unflatten(-1, (kv, d))
     v = qkv[..., (h + kv) * d:].unflatten(-1, (kv, d))
@@ -171,7 +219,24 @@ def test_flash_prefill_kernel_reads_through_strides(cuda):
     torch.cuda.synchronize()
     torch.testing.assert_close(
         got, flash_prefill_ref(q.contiguous(), k.contiguous(),
-                               v.contiguous()), atol=3e-5, rtol=0)
+                               v.contiguous()),
+        atol=PREFILL_ATOL[dtype], rtol=0)
+
+
+def test_flash_prefill_kernel_copies_unaligned_bf16(cuda):
+    """A bf16 view whose start is not 16-byte aligned cannot be read by
+    TMA: the wrapper copies it first, and the result is the same."""
+    rng = np.random.default_rng(4)
+    b, s, h, kv, d = 2, 70, 4, 2, 64
+    flat = _randn(rng, (b * s * (h + 2 * kv) * d + 1,), "bfloat16", cuda)
+    q = flat[1:b * s * h * d + 1].view(b, s, h, d)
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    k = _randn(rng, (b, s, kv, d), "bfloat16", cuda)
+    v = _randn(rng, (b, s, kv, d), "bfloat16", cuda)
+    got = flash_prefill_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert float((got.float() - flash_prefill_ref(q, k, v).float()
+                  ).abs().max()) <= PREFILL_ATOL["bfloat16"]
 
 
 def test_serve_on_the_card_uses_every_kernel(cuda):
