@@ -30,19 +30,24 @@ Phases, each of which exits non-zero on failure:
 
 4. Attention kernels against their plain versions on the card, in f32 and
    bf16 at the JAX tests' tolerances: ``gqa_decode`` at qwen3-32b's decode
-   shape (B 8, H 64, KV 8, D 128, S 544, random lengths in [1, 544]) and
-   at B 2, H 32, KV 8, D 120, S 300; ``flash_prefill`` at qwen3-32b's
-   prefill shape (B 8, S 512, H 64, KV 8, D 128, causal) and at B 2,
-   S 300, H 32, KV 8, D 120 with window 128.  Each with its time, its
-   plain version's, ``scaled_dot_product_attention``'s (the yardstick,
-   which the port never calls) and its bound from bytes at 3.35 TB/s or
-   operations at the card's peak for the type, whichever is larger; in
-   bf16 the library call's own error against the plain version is
-   printed beside the kernel's, and the kernel's may not exceed it.  Then
-   ``flash_prefill`` in bf16 over a grid of edge shapes (D 8, 16, 64,
-   120, 128, 256; S 1, 63, 65, 129, 300; window 0, 5, 16, 100; G 1 and
-   8) and at h2o-danube-3-4b's own shape (S 512, H 32, KV 8, D 120,
-   window 4096).
+   shape (B 8, H 64, KV 8, D 128, S 544, random lengths in [1, 544]; in
+   bf16 also lengths 544 and 1) and at B 2, H 32, KV 8, D 120, S 300;
+   ``flash_prefill`` at qwen3-32b's prefill shape (B 8, S 512, H 64, KV 8,
+   D 128, causal) and at B 2, S 300, H 32, KV 8, D 120 with window 128.
+   Each with its time, its plain version's,
+   ``scaled_dot_product_attention``'s (the yardstick, which the port never
+   calls) and its bound from bytes at 3.35 TB/s or operations at the
+   card's peak for the type, whichever is larger; in bf16 the library
+   call's own error against the plain version is printed beside the
+   kernel's, and the kernel's may not exceed it.  ``gqa_decode`` also
+   prints its split plan and its wrapper's time per call back to back.
+   Then ``gqa_decode`` over edge shapes in both types (lengths 0, 1, S-1,
+   S, S+5 and random; S 1 to 4096; G 1, 8 and 16; D 8 to 256; and
+   h2o-danube-3-4b's H 32, KV 8, D 120, S 4096), and ``flash_prefill`` in
+   bf16 over a grid of edge shapes (D 8, 16, 64, 120, 128, 256; S 1, 63,
+   65, 129, 300; window 0, 5, 16, 100; G 1 and 8) and at
+   h2o-danube-3-4b's own shape (S 512, H 32, KV 8, D 120, window 4096).
+   Both serving-shape times are printed beside the designs they replaced.
 5. Decode agrees with prefill at qwen3-32b's full width, 2 layers, f32:
    the logits of one decode step at position 511 equal the last-position
    logits of a prefill over 512 tokens.
@@ -56,7 +61,7 @@ Phases, each of which exits non-zero on failure:
    ``recovery_scan`` at least once); prefill ms, decode ms per step, tok/s,
    peak memory, the device's busy share of a warm profiled prefill with
    ``flash_prefill``'s share of it, and the busy share over a profiled
-   window of decode steps.
+   window of decode steps with ``gqa_decode``'s microseconds per step.
 
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -83,7 +88,8 @@ from repro_torch.kernels.flash_prefill.kernel import (  # noqa: E402
     flash_prefill_cuda)
 from repro_torch.kernels.flash_prefill.ref import (  # noqa: E402
     flash_prefill_ref)
-from repro_torch.kernels.gqa_decode.kernel import gqa_decode_cuda  # noqa: E402
+from repro_torch.kernels.gqa_decode.kernel import (  # noqa: E402
+    gqa_decode_cuda, split_plan)
 from repro_torch.kernels.gqa_decode.ref import gqa_decode_ref  # noqa: E402
 from repro_torch.kernels.hash_probe.kernel import probe_cuda  # noqa: E402
 from repro_torch.kernels.hash_probe.ops import (bucket_of,  # noqa: E402
@@ -466,16 +472,41 @@ def _randn(gen, shape, dtype, dev):
     return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
 
-def check_decode(dev, b, h, kv, d, s, dtype, full=False):
-    """gqa_decode kernel vs plain at one shape and type; returns the row's
-    fields (time, plain time, library time, bound, error)."""
-    gen = torch.Generator(device=dev).manual_seed(SEED + s)
+def _decode_inputs(dev, b, h, kv, d, s, dtype, length, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
     q = _randn(gen, (b, h, d), dtype, dev)
     k = _randn(gen, (b, s, kv, d), dtype, dev)
     v = _randn(gen, (b, s, kv, d), dtype, dev)
-    length = (torch.full((b,), s, dtype=torch.int32, device=dev) if full
-              else torch.randint(1, s + 1, (b,), generator=gen, device=dev,
-                                 dtype=torch.int32))
+    if length is None:              # random lengths in [1, S]
+        length = torch.randint(1, s + 1, (b,), generator=gen, device=dev,
+                               dtype=torch.int32)
+    return q, k, v, torch.as_tensor(length, dtype=torch.int32, device=dev)
+
+
+def _decode_library(q, k, v, length):
+    """scaled_dot_product_attention on pre-transposed inputs, masked to
+    each row's length: the yardstick, never called by the port.  Returns
+    the call and its output as [B, H, D]."""
+    s = k.shape[1]
+    qt, kt, vt = (t.contiguous() for t in (q[:, :, None], k.transpose(1, 2),
+                                           v.transpose(1, 2)))
+    mask = (torch.arange(s, device=q.device)[None, :] < length[:, None]
+            )[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def call():
+        return sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    return call, call()[:, :, 0]
+
+
+def check_decode(dev, b, h, kv, d, s, dtype, fill=None):
+    """gqa_decode kernel vs plain at one shape and type, every row's length
+    ``fill`` (random in [1, S] if None); returns the row's fields (time,
+    plain time, library time, bound, error) and prints the wrapper's time
+    per call back to back."""
+    q, k, v, length = _decode_inputs(dev, b, h, kv, d, s, dtype,
+                                     None if fill is None else [fill] * b,
+                                     SEED + s)
     got = gqa_decode_cuda(q, k, v, length)
     want = gqa_decode_ref(q, k, v, length)
     sync(dev)
@@ -483,30 +514,32 @@ def check_decode(dev, b, h, kv, d, s, dtype, full=False):
     expect(bool(torch.isfinite(got).all()), "gqa_decode: non-finite output")
     atol = ATOL["gqa_decode"][dtype]
     tag = (f"gqa_decode B={b} H={h} KV={kv} D={d} S={s} {str(dtype)[6:]} "
-           f"lengths {'full' if full else 'random'}")
+           f"lengths {'random' if fill is None else fill}")
     expect(err <= atol, f"{tag}: max |kernel - plain| {err} > {atol}")
-    # library yardstick on pre-transposed inputs, masked to each row's length
-    qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-    qt, kt, vt = qt.contiguous(), kt.contiguous(), vt.contiguous()
-    mask = (torch.arange(s, device=dev)[None, :] < length[:, None]
-            )[:, None, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)[:, :, 0]
-    expect(float((lib.float() - want.float()).abs().max()) <= atol,
+    lib_call, lib = _decode_library(q, k, v, length)
+    lib_err = float((lib.float() - want.float()).abs().max())
+    expect(lib_err <= atol,
            f"{tag}: scaled_dot_product_attention disagrees with plain")
+    if dtype == torch.bfloat16:
+        expect(err <= lib_err, f"{tag}: kernel error {err} above the "
+               f"library's {lib_err}")
     ms = time_ms(lambda: gqa_decode_cuda(q, k, v, length), dev)
     plain = time_ms(lambda: gqa_decode_ref(q, k, v, length), dev)
-    lib_ms = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask,
-                                  enable_gqa=True), dev)
+    lib_ms = time_ms(lib_call, dev)
+    wall = wall_ms(lambda: gqa_decode_cuda(q, k, v, length), dev, reps=200)
     # the kernel reads the K and V prefix of each row's length, q and the
     # lengths, and writes out; 4 flops per (head, slot, dim)
     live = int(torch.clamp(length, 1, s).sum())
     elt = q.element_size()
     nbytes = 2 * live * kv * d * elt + 2 * b * h * d * elt + 4 * b
     bound, by = bound_ms(nbytes, 4.0 * live * (h // kv) * kv * d, dtype)
-    print(f"{tag}: max err {err:.3g} (tolerance {atol}); kernel {ms:.6f} "
-          f"ms, plain {plain:.6f} ms, library {lib_ms:.6f} ms, bound "
-          f"{bound * 1e3:.3f} us ({by}); {b * kv} blocks")
+    chunk_len, chunks = split_plan(
+        b, kv, s, torch.cuda.get_device_properties(dev).multi_processor_count)
+    print(f"{tag}: max err {err:.3g}, library's {lib_err:.3g} (tolerance "
+          f"{atol}); kernel {ms:.6f} ms, plain {plain:.6f} ms, library "
+          f"{lib_ms:.6f} ms, bound {bound * 1e3:.3f} us ({by}); "
+          f"{b * kv * -(-h // kv // 8)} clusters x {chunks} blocks of "
+          f"{chunk_len} slots; wrapper {wall:.6f} ms per call back to back")
     return dict(ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=bound,
                 bound_by=by, max_abs_err=err)
 
@@ -572,6 +605,54 @@ def check_prefill(dev, b, s, h, kv, d, window, dtype):
 # both types) at the serving shape in bf16, on an H100 80GB HBM3 at 700 W
 # (PERF.md): printed beside the tensor-core kernel's time
 CUDA_CORE_PREFILL_MS = 2.258016
+# gqa_decode's one-block-per-(batch row, KV head) design at the serving
+# shape in bf16, random and full lengths, on an H100 80GB HBM3 at 700 W
+# (PERF.md): printed beside the split design's times
+ONE_BLOCK_PER_HEAD_DECODE_MS = {"random": 0.158736, "full": 0.202272}
+
+
+def check_decode_edges(dev):
+    """gqa_decode against its plain version at lengths 0, 1, S - 1, S and
+    S + 5 (one batch row each) and at random lengths in [1, S], over S
+    below, at and above one chunk, G 1, 8 and 16, head dims 8 to 256, in
+    both types, and at h2o-danube-3-4b's shape.  In bf16 a batch whose rows
+    are all live is also held to the library's own error (the library
+    returns NaN for a row with no live slot)."""
+    shapes = [(2 * g, 2, d, s) for g in (1, 8, 16)
+              for d in (8, 16, 64, 120, 128, 256)
+              for s in (1, 7, 63, 64, 65, 300, 1000, 4096)
+              if g < 16 or d in (8, 120, 256)]
+    shapes.append((32, 8, 120, 4096))           # h2o-danube-3-4b
+    count, worst, worst_lib = 0, 0.0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        atol = ATOL["gqa_decode"][dtype]
+        for h, kv, d, s in shapes:
+            for edge in (True, False):
+                ln = [0, 1, s - 1, s, s + 5] if edge else None
+                q, k, v, length = _decode_inputs(dev, 5, h, kv, d, s, dtype,
+                                                 ln, SEED + h + d + s)
+                got = gqa_decode_cuda(q, k, v, length)
+                want = gqa_decode_ref(q, k, v, length).float()
+                err = float((got.float() - want).abs().max())
+                tag = (f"gqa_decode H={h} KV={kv} D={d} S={s} "
+                       f"{str(dtype)[6:]} lengths {length.tolist()}")
+                expect(bool(torch.isfinite(got).all()),
+                       f"{tag}: non-finite output")
+                expect(err <= atol, f"{tag}: max |kernel - plain| {err} > "
+                       f"{atol}")
+                if dtype == torch.bfloat16 and bool((length > 0).all()):
+                    lib_err = float((_decode_library(q, k, v, length)[1]
+                                     .float() - want).abs().max())
+                    expect(err <= lib_err, f"{tag}: kernel error {err} "
+                           f"above the library's {lib_err}")
+                    worst_lib = max(worst_lib, lib_err)
+                worst = max(worst, err)
+                count += 1
+    print(f"gqa_decode edge shapes: {count} held against plain (f32 and "
+          f"bf16; lengths 0, 1, S-1, S, S+5 and random; S 1-4096; G 1, 8, "
+          f"16; D 8-256; the last h2o-danube-3-4b's: H 32, KV 8, D 120, "
+          f"S 4096), max err {worst:.3g}; bf16 with every row live no "
+          f"worse than the library (worst library error {worst_lib:.3g})")
 
 
 def check_prefill_edges(dev):
@@ -613,9 +694,20 @@ def check_attention_kernels(dev):
         if dtype == torch.bfloat16:
             rows["flash_prefill"] = r
         check_prefill(dev, 2, 300, 32, 8, 120, 128, dtype)
-    # the serving path's decode reads nearly the whole cache
-    check_decode(dev, 8, 64, 8, 128, 544, torch.bfloat16, full=True)
+    # the serving path's decode reads nearly the whole cache; one live slot
+    # a row shows the kernel's fixed cost
+    full = check_decode(dev, 8, 64, 8, 128, 544, torch.bfloat16, fill=544)
+    check_decode(dev, 8, 64, 8, 128, 544, torch.bfloat16, fill=1)
+    check_decode_edges(dev)
     check_prefill_edges(dev)
+    for label, r in (("random", rows["gqa_decode"]), ("full", full)):
+        old = ONE_BLOCK_PER_HEAD_DECODE_MS[label]
+        print(f"gqa_decode bf16 at the serving shape, {label} lengths: "
+              f"{r['ms']:.6f} ms, {r['ms'] / r['library_ms']:.3f}x the "
+              f"library's {r['library_ms']:.6f} ms, "
+              f"{r['ms'] / r['bound_ms']:.3f}x the bound "
+              f"{r['bound_ms']:.6f} ms; the one-block-per-head design took "
+              f"{old:.6f} ms ({old / r['ms']:.2f}x this)")
     r = rows["flash_prefill"]
     print(f"flash_prefill bf16 at the serving shape: {r['ms']:.6f} ms, "
           f"{r['ms'] / r['library_ms']:.3f}x the library's "
@@ -687,9 +779,14 @@ def profile_decode(dev, cfg, params, b, prompt_len, steps):
         sync(dev)
         wall_us = (time.perf_counter() - t0) * 1e6
     rows, busy = device_rows(prof)
+    dec = sum(r[0] for r in rows if "gqa_decode" in r[2])
+    dec_n = sum(r[1] for r in rows if "gqa_decode" in r[2])
     print(f"decode profile: {steps} steps, wall {wall_us:.1f} us, device "
           f"busy {busy:.1f} us ({100 * busy / wall_us:.2f}%), "
-          f"{sum(r[1] for r in rows) / steps:.1f} device ops per step")
+          f"{sum(r[1] for r in rows) / steps:.1f} device ops per step; "
+          f"gqa_decode {dec / steps:.1f} us per step in "
+          f"{dec_n / steps:.1f} launches ({100 * dec / max(busy, 1e-9):.2f}% "
+          "of busy)")
     for us, n, key in rows[:10]:
         print(f"  {us:12.1f} us {n:6d}x  {key[:90]}")
 

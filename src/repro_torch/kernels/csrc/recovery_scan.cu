@@ -15,9 +15,10 @@
 //   * a grid-stride loop over 16-byte int4 loads of stages, with the four
 //     mask bytes of each load stored as one 4-byte uchar4 write (neighbouring
 //     threads on neighbouring addresses);
-//   * the grid is capped at a few blocks per SM so that each thread loops
-//     several times and the per-block epilogue (warp shuffles, 5 shared and
-//     5 global atomics) is paid rarely;
+//   * the grid is capped at a few blocks per SM (the SM count is read once
+//     per process) so that each thread loops several times and the
+//     per-block epilogue (warp shuffles, 5 shared and 5 global atomics) is
+//     paid rarely;
 //   * any N is accepted: a scalar loop covers the tail past the last full
 //     int4 and the whole vector when a pointer is not aligned.  (The TPU
 //     wrapper's N % 8 tiling gate does not apply.)
@@ -92,9 +93,12 @@ extern "C" int recovery_scan(const void* stage, void* mask, void* hist,
                        (reinterpret_cast<uintptr_t>(mask) % 4 == 0);
   const long long n_vec = aligned ? n / 4 : 0;
   const long long work = n_vec + (n - 4 * n_vec);
-  int device = 0, sms = 132;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  static const int sms = [] {  // read once per process
+    int device = 0, count = 132;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device);
+    return count;
+  }();
   long long blocks = (work + kThreads - 1) / kThreads;
   const long long cap = (long long)sms * kBlocksPerSm;
   if (blocks > cap) blocks = cap;

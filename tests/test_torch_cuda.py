@@ -122,18 +122,60 @@ def test_gqa_decode_kernel_matches_plain(cuda, b, h, kv, d, s, dtype):
         DECODE_ATOL[dtype]
 
 
-def test_gqa_decode_kernel_with_no_live_slot_is_uniform(cuda):
+@pytest.mark.parametrize("s", (9, 1000))
+def test_gqa_decode_kernel_with_no_live_slot_is_uniform(cuda, s):
     """length 0 masks every slot: the softmax is uniform, as in the plain
-    version."""
+    version, also where S spans several of the kernel's chunks (S 1000:
+    8 chunks of 128 slots)."""
     rng = np.random.default_rng(0)
     q = _randn(rng, (2, 4, 16), "float32", cuda)
-    k = _randn(rng, (2, 9, 2, 16), "float32", cuda)
-    v = _randn(rng, (2, 9, 2, 16), "float32", cuda)
+    k = _randn(rng, (2, s, 2, 16), "float32", cuda)
+    v = _randn(rng, (2, s, 2, 16), "float32", cuda)
     ln = torch.tensor([0, 3], dtype=torch.int32, device=cuda)
     got = gqa_decode_cuda(q, k, v, ln)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, gqa_decode_ref(q, k, v, ln), atol=2e-5,
                                rtol=0)
+    torch.testing.assert_close(got[0], v[0].mean(0).repeat_interleave(2, 0),
+                               atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", sorted(DECODE_ATOL))
+@pytest.mark.parametrize("s", (1, 7, 65, 300, 4096))
+@pytest.mark.parametrize("g", (1, 8, 16))
+@pytest.mark.parametrize("d", (8, 120, 256))
+def test_gqa_decode_kernel_edges(cuda, d, g, s, dtype):
+    """Lengths 0, 1, S - 1, S and S + 5 in one batch; S below, at and above
+    one chunk; head dims that pad (8, 120); G 16 takes two head tiles."""
+    rng = np.random.default_rng(d + g + s)
+    b, kv = 5, 2
+    q = _randn(rng, (b, kv * g, d), dtype, cuda)
+    k = _randn(rng, (b, s, kv, d), dtype, cuda)
+    v = _randn(rng, (b, s, kv, d), dtype, cuda)
+    ln = torch.tensor([0, 1, s - 1, s, s + 5], dtype=torch.int32,
+                      device=cuda)
+    got = gqa_decode_cuda(q, k, v, ln)
+    want = gqa_decode_ref(q, k, v, ln)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float((got.float() - want.float()).abs().max()) <= \
+        DECODE_ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", sorted(DECODE_ATOL))
+def test_gqa_decode_kernel_copies_unaligned_cache(cuda, dtype):
+    """A cache view that starts off a 16-byte boundary is copied, not
+    misread."""
+    rng = np.random.default_rng(3)
+    q = _randn(rng, (2, 8, 64), dtype, cuda)
+    flat = _randn(rng, (2 * 100 * 2 * 64 + 1,), dtype, cuda)
+    k = flat[1:].view(2, 100, 2, 64)
+    v = flat[:-1].view(2, 100, 2, 64)
+    ln = torch.tensor([37, 100], dtype=torch.int32, device=cuda)
+    got = gqa_decode_cuda(q, k, v, ln)
+    torch.cuda.synchronize()
+    assert float((got.float() - gqa_decode_ref(q, k, v, ln).float()
+                  ).abs().max()) <= DECODE_ATOL[dtype]
 
 
 # Shapes: the serving shape; h2o-danube-3-4b's head dim with a window;
