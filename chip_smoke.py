@@ -19,14 +19,31 @@ Phases, each of which exits non-zero on failure:
    1024-slot spec (NB 256, W 8) with B = 8, half present and half absent,
    over a table holding 8 keys (the served requests) and one holding 1024
    (a full registry).
+   Then ``hash_probe``'s probe-window entry (``table_probe``, the probe
+   backend's lookup) against its plain version, integers equal: on the
+   table of a 2^21-slot probe map (T = 2^23, 2^19 members, built by
+   recovery's ``table_build``, timed) at B = 1024 and 65536, where it also
+   equals the first-match lookup; on small arbitrary tables whose windows
+   wrap past T - 1 and with TOMBs and full 128-slot chains, at B = 1, 7
+   and 8 and max_probe 5, 128 and 200; and at the serving registry's shape
+   (1024 slots, B = 8).  Each at max_probe 128 timed beside its plain
+   version, the TPU route carried over literally (window gather +
+   ``hash_probe`` at W = 128) and the timing floor (an empty spin).
 3. Main path: the paper's hash-set experiment (key range 2^20, 90% reads)
    on a bucket-backend ``DurableMap`` of 2^21 slots in SOFT mode.  Prefill
    2^19 keys, 200 mixed batches of 1024 lanes, crash, recover, 20 more
    batches; every result, the size, the psync and op counters, the recovery
    histogram and the full key range's membership are held against a host
-   reference that follows the same linearization.  The kernels' launch
+   reference that follows the same linearization; a profiled window of 10
+   batches and 10 more counting host syncs.  The kernels' launch
    counts are zeroed before this phase and must both be > 0 after it.
    Then a shorter run at 2^16 slots in the link-free and log-free modes.
+   Then the same on the probe backend, the paper's own index for this
+   experiment (``configs/paper.py`` ``HASH_1M``), where the probe-window
+   kernel and ``recovery_scan`` must be launched, and the recovery's table
+   rebuild is timed alone; link-free and log-free at 2^16 slots.  Then
+   the paper's list experiment (``LIST_LONG``: 2048 slots, key range 1024,
+   64 lanes, 90% reads) on the scan backend in all three modes.
 
 4. Attention kernels against their plain versions on the card, in f32 and
    bf16 at the JAX tests' tolerances: ``gqa_decode`` at qwen3-32b's decode
@@ -57,13 +74,15 @@ Phases, each of which exits non-zero on failure:
    registry and its recovery.  Every completion registered at one psync
    each and still registered after recovery at zero recovery psyncs;
    every launch count of the path checked (``flash_prefill`` once per
-   layer, ``gqa_decode`` once per layer and decode step, ``hash_probe`` and
-   ``recovery_scan`` at least once); prefill ms, decode ms per step, tok/s,
-   peak memory, the device's busy share of a warm profiled prefill with
-   ``flash_prefill``'s share of it, and the busy share over a profiled
-   window of decode steps with ``gqa_decode``'s microseconds per step.
+   layer, ``gqa_decode`` once per layer and decode step, the registry's
+   probe-window lookup and ``recovery_scan`` at least once); prefill ms,
+   decode ms per step, tok/s, peak memory, the device's busy share of a
+   warm profiled prefill with ``flash_prefill``'s share of it, and the
+   busy share over a profiled window of decode steps with
+   ``gqa_decode``'s microseconds per step.
 
-The last two lines are the per-kernel JSON record and
+The last two lines are the per-kernel JSON record (``hash_probe``'s entry
+carries its probe-window route under ``probe_window``) and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
 """
 from __future__ import annotations
@@ -72,6 +91,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -80,9 +100,12 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.configs import paper  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import (DurableMap, SetSpec, OP_CONTAINS,  # noqa: E402
-                              OP_INSERT, OP_REMOVE, VALID)
+                              OP_INSERT, OP_REMOVE, VALID, EMPTY, TOMB,
+                              hash32)
+from repro_torch.core import durable_set as DS  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_prefill.kernel import (  # noqa: E402
     flash_prefill_cuda)
@@ -91,10 +114,12 @@ from repro_torch.kernels.flash_prefill.ref import (  # noqa: E402
 from repro_torch.kernels.gqa_decode.kernel import (  # noqa: E402
     gqa_decode_cuda, split_plan)
 from repro_torch.kernels.gqa_decode.ref import gqa_decode_ref  # noqa: E402
-from repro_torch.kernels.hash_probe.kernel import probe_cuda  # noqa: E402
+from repro_torch.kernels.hash_probe.kernel import (  # noqa: E402
+    probe_cuda, table_probe_cuda)
 from repro_torch.kernels.hash_probe.ops import (bucket_of,  # noqa: E402
                                                 build_buckets)
-from repro_torch.kernels.hash_probe.ref import probe_ref  # noqa: E402
+from repro_torch.kernels.hash_probe.ref import (  # noqa: E402
+    probe_ref, table_lookup_ref, window_rows)
 from repro_torch.kernels.recovery_scan.kernel import scan_cuda  # noqa: E402
 from repro_torch.kernels.recovery_scan.ref import scan_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -282,6 +307,161 @@ def check_probe(dev, capacity, key_range, live, nb, w, batches):
     return row
 
 
+def probe_pool(dev, capacity, key_range, live, seed=SEED):
+    """A pool of ``capacity`` slots holding ``live`` distinct keys at
+    random slots: (keys i32[N], member bool[N], the live keys)."""
+    rng = np.random.default_rng([seed, capacity, live])
+    keys = np.zeros(capacity, np.int32)
+    member = np.zeros(capacity, bool)
+    slots = rng.choice(capacity, live, replace=False)
+    live_keys = rng.choice(key_range, live, replace=False).astype(np.int32)
+    keys[slots] = live_keys
+    member[slots] = True
+    return (torch.from_numpy(keys).to(dev), torch.from_numpy(member).to(dev),
+            live_keys)
+
+
+def build_probe_table(dev, keys, member, table_factor=4, max_probe=128):
+    """Recovery's bulk build of the probe table over ``member``, timed
+    between synchronizations: (table, overflow, ms)."""
+    t = 1 << max(3, (keys.shape[0] * table_factor - 1).bit_length())
+    empty = torch.full((t,), EMPTY, dtype=torch.int32, device=dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    table, ovf = DS.table_build(empty, keys, member, max_probe)
+    sync(dev)
+    return table, bool(ovf), (time.perf_counter() - t0) * 1e3
+
+
+def window_bytes(table, q, max_probe):
+    """Bytes the probe-window lookup must move for these queries: each
+    query key in and id out, each slot of the windows they touch, and the
+    pool key of each distinct live id in those slots."""
+    t = table.shape[0]
+    d = torch.arange(max_probe, dtype=torch.int64, device=q.device)
+    slots = torch.unique(((hash32(q) & (t - 1))[:, None] + d) & (t - 1))
+    ids = table[slots]
+    live = int(torch.unique(ids[ids >= 0]).numel())
+    return 8 * q.shape[0] + 4 * slots.numel() + 4 * live
+
+
+def composition(table, pool, q, max_probe):
+    """The TPU route carried over literally: the window rows gathered into
+    two (B, max_probe) planes, then the bucket kernel at W = max_probe."""
+    wkeys, wids, rows = window_rows(table, pool, q, max_probe)
+    return probe_cuda(wkeys, wids, rows, q)
+
+
+def check_table_probe(dev, label, table, pool, q, max_probe=128,
+                      timed=True, pool_member=None):
+    """The probe-window kernel against its plain version on one table and
+    query batch (and against the windowed first-match lookup where the
+    table was built by the ops); timed beside the plain version, the
+    composition and the timing floor.  Returns the row's fields."""
+    got = table_probe_cuda(table, pool, q, max_probe)
+    ref = table_lookup_ref(table, pool, q, max_probe)
+    e = int((got - ref).abs().max()) if q.numel() else 0
+    expect(e == 0, f"table_probe differs from plain: {label}")
+    hits = int((got >= 0).sum())
+    if pool_member is not None:
+        st = DS.make_state(pool.shape[0], device=dev)._replace(
+            table=table, keys=pool)
+        expect(bool((DS._lookup_probe(st, q, max_probe) == got).all()),
+               f"table_probe differs from the first-match lookup: {label}")
+        expect(bool((pool_member[got[got >= 0].long()]).all()),
+               f"table_probe returned a node that is not live: {label}")
+    if not timed:
+        return dict(max_abs_err=e)
+    ms = time_ms(lambda: table_probe_cuda(table, pool, q, max_probe), dev)
+    plain = time_ms(lambda: table_lookup_ref(table, pool, q, max_probe), dev)
+    comp = time_ms(lambda: composition(table, pool, q, max_probe), dev)
+    floor = time_ms(lambda: torch.cuda._sleep(1), dev)
+    wall = wall_ms(lambda: table_probe_cuda(table, pool, q, max_probe), dev)
+    bound = bytes_ms(window_bytes(table, q, max_probe))
+    print(f"table_probe {label}: equal ({hits} hits); kernel {ms:.6f} ms, "
+          f"plain {plain:.6f} ms, composition (window gather + hash_probe "
+          f"at W={max_probe}) {comp:.6f} ms, floor {floor:.6f} ms, bound "
+          f"{bound * 1e3:.3f} us (bytes); wrapper {wall:.6f} ms per call "
+          "back to back")
+    return dict(ms=ms, plain_ms=plain, composition_ms=comp, floor_ms=floor,
+                bound_ms=bound, max_abs_err=e)
+
+
+def _queries(rng, live_keys, key_range, b, dev):
+    """b queries, half present keys and half absent, shuffled."""
+    absent = rng.integers(key_range, 2 * key_range, b - b // 2)
+    q = np.concatenate([rng.choice(live_keys, b // 2), absent])
+    return torch.from_numpy(rng.permutation(q).astype(np.int32)).to(dev)
+
+
+def _arbitrary_table(rng, dev, t, n, fill, tomb, dense=0):
+    """A table no op sequence builds: random ids (past the pool too) in a
+    ``fill`` share of slots, a ``tomb`` share of TOMBs, and ``dense`` slots
+    from 0 with no EMPTY (chains that reach max_probe)."""
+    table = np.full(t, EMPTY, np.int32)
+    slots = rng.choice(t, int(t * fill), replace=False)
+    table[slots] = rng.integers(0, n + 4, slots.size)
+    table[:dense] = rng.integers(0, n, dense)
+    table[rng.random(t) < tomb] = TOMB
+    return torch.from_numpy(table).to(dev)
+
+
+def check_table_probes(dev, cap=1 << 21, batches=(1024, 65536)):
+    """Phase 2b: the probe-window kernel at every shape of the probe
+    backend's paths: the table of a ``cap``-slot map holding cap / 4 of a
+    key range of cap / 2 at each batch, then small and registry tables.
+    Returns the first batch's row with the second's times beside it, and
+    the map table's build time."""
+    rng = np.random.default_rng(SEED)
+    key_range, live = cap // 2, cap // 4
+    keys, member, live_keys = probe_pool(dev, cap, key_range, live)
+    table, ovf, build_ms = build_probe_table(dev, keys, member)
+    expect(not ovf, "probe table build at 2^21 slots overflowed")
+    print(f"probe table: {cap} slots, T={table.shape[0]}, {live} members; "
+          f"built by table_build (claims of {DS.REBUILD_CHUNK} ids) in "
+          f"{build_ms:.3f} ms")
+    rows = {}
+    for b in batches:
+        q = _queries(rng, live_keys, key_range, b, dev)
+        rows[b] = check_table_probe(dev, f"map B={b}", table, keys, q,
+                                    pool_member=member)
+        expect(int((table_probe_cuda(table, keys, q) >= 0).sum()) == b // 2,
+               f"table_probe missed present keys at B={b}")
+    # windows that wrap past T - 1; TOMBs and full 128-slot chains; B 1,
+    # 7, 8; max_probe below and above a warp's sweep (arbitrary tables)
+    pool = torch.from_numpy(rng.choice(10 ** 8, 1024, replace=False)
+                            .astype(np.int32)).to(dev)
+    small = {"wrap": _arbitrary_table(rng, dev, 256, 64, 0.5, 0.1),
+             "tombs+full chains": _arbitrary_table(rng, dev, 1024, 256, 0.3,
+                                                   0.3, dense=512)}
+    for name, tb in small.items():
+        t = tb.shape[0]
+        pk = pool[: (64 if t == 256 else 256)]
+        home = hash32(pk) & (t - 1)
+        late = pk[home >= t - 16]                       # windows that wrap
+        for b in (1, 7, 8):
+            q = torch.cat([late, pk, pk + 10 ** 8])[:b] if name == "wrap" \
+                else torch.cat([pk[:b // 2 + 1], pk[:b] + 10 ** 8])[:b]
+            for mp in (5, 128, 200):
+                check_table_probe(dev, f"{name} T={t} B={b} max_probe={mp}",
+                                  tb, pk, q, mp, timed=(mp == 128))
+    # the serving registry's shape: 1024 slots, B = 8, a table holding the
+    # 8 served requests and a full one
+    reg = serve.REGISTRY_CAPACITY
+    for n_live in (8, reg):
+        keys_r, member_r, live_r = probe_pool(dev, reg, 4 * reg, n_live)
+        tb, _, _ = build_probe_table(dev, keys_r, member_r)
+        check_table_probe(dev, f"registry T={tb.shape[0]} {n_live} live "
+                          "B=8", tb, keys_r,
+                          _queries(rng, live_r, 4 * reg, 8, dev),
+                          pool_member=member_r)
+    big = rows[batches[1]]
+    row = dict(rows[batches[0]], **{f"{k}_b{batches[1]}": big[k] for k in
+                                    ("ms", "plain_ms", "composition_ms",
+                                     "bound_ms")})
+    return row, build_ms
+
+
 # ---------------------------------------------------------------------------
 # 3. the main path against a host reference
 # ---------------------------------------------------------------------------
@@ -411,13 +591,51 @@ def profile(m, ref, dev, batches, label):
         print(f"  {us:12.1f} us {n:6d}x  {key[:90]}")
 
 
+def count_syncs(m, ref, dev, batches, label):
+    """Host synchronizations per ``m.apply`` call made by the port's code
+    (warning sites under ``repro_torch/``), read from
+    ``torch.cuda.set_sync_debug_mode``'s warnings over ``batches``; sites
+    outside the port are printed apart and not counted.  The results are
+    checked against the reference after the count."""
+    ops, keys, vals = batches
+    d_ops, d_keys, d_vals = (torch.from_numpy(a).to(dev) for a in batches)
+    sync(dev)
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = [m.apply(d_ops[i], d_keys[i], d_vals[i])
+                   for i in range(len(ops))]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    got = torch.stack(out).cpu().numpy()
+    for i in range(len(ops)):
+        expect((got[i] == ref.apply(ops[i], keys[i], vals[i])).all(),
+               f"{label} sync count: batch {i} differs from the reference")
+    sites, other = {}, {}
+    for w in rec:
+        if "synchroniz" in str(w.message):
+            path = Path(w.filename)
+            into = sites if "repro_torch" in path.parts else other
+            site = f"{path.name}:{w.lineno}"
+            into[site] = into.get(site, 0) + 1
+    for name, found in (("the port's", sites), ("other", other)):
+        print(f"{label}: host syncs by site over {len(ops)} batches, "
+              f"{name} code: " + (", ".join(
+                  f"{k} x{v}" for k, v in
+                  sorted(found.items(), key=lambda kv: -kv[1])) or "none"))
+    return sum(sites.values()) / len(ops)
+
+
 def run_map(dev, mode, capacity, key_range, prefill, n_batches, n_after, b,
-            chunk, label, n_profiled=0):
+            chunk, label, n_profiled=0, backend="bucket"):
     """One map through prefill, mixed traffic, crash + recovery and more
     traffic, checked at every step; then ``n_profiled`` batches under the
-    profiler.  Returns (ops/s, recovery ms)."""
+    profiler and as many counting host syncs.  On the probe backend the
+    table rebuild of the recovery is timed again on its own.  Returns
+    (ops/s, recovery ms)."""
     rng = np.random.default_rng([SEED, capacity])
-    m = DurableMap(SetSpec(capacity=capacity, mode=mode, backend="bucket"),
+    m = DurableMap(SetSpec(capacity=capacity, mode=mode, backend=backend),
                    device=dev)
     ref = Reference(key_range, mode)
     pre = rng.choice(key_range, prefill, replace=False).astype(np.int32)
@@ -436,6 +654,17 @@ def run_map(dev, mode, capacity, key_range, prefill, n_batches, n_after, b,
     expect(int(hist[VALID]) == int(ref.present.sum()),
            f"{label}: VALID bin {int(hist[VALID])} != reference size")
     expect(m.psyncs == 0 and m.ops == 0, f"{label}: counters after recovery")
+    rec_ms = m.last_recovery_seconds * 1e3
+    rebuild = ""
+    if backend == "probe":
+        # the same bulk build the recovery ran, timed alone
+        table, ovf, build_ms = build_probe_table(
+            dev, m.state.keys, m.state.cur == VALID, m.spec.table_factor,
+            m.spec.max_probe)
+        expect(torch.equal(table, m.state.table) and not ovf,
+               f"{label}: the rebuilt table differs from a fresh build")
+        rebuild = (f" (its probe-table rebuild alone {build_ms:.3f} ms, "
+                   f"{100 * build_ms / rec_ms:.1f}%)")
     ref.psyncs = ref.ops = 0
     check_membership(m, ref, dev, chunk, f"{label} after recovery")
     drive(m, ref, dev, *traffic(rng, n_after, b, key_range),
@@ -443,10 +672,13 @@ def run_map(dev, mode, capacity, key_range, prefill, n_batches, n_after, b,
     check_membership(m, ref, dev, chunk, f"{label} end")
     if n_profiled:
         profile(m, ref, dev, traffic(rng, n_profiled, b, key_range), label)
-    rec_ms = m.last_recovery_seconds * 1e3
-    print(f"{label}: {mode}, {capacity} slots, {len(m)} live; mixed "
-          f"batches {ops_s:.1f} ops/s; recovery {rec_ms:.3f} ms; "
-          f"histogram {hist.tolist()}")
+        syncs = count_syncs(m, ref, dev, traffic(rng, n_profiled, b,
+                                                 key_range), label)
+        print(f"{label}: {syncs:.2f} host syncs per batch in the port's "
+              f"code over {n_profiled} batches")
+    print(f"{label}: {backend}, {mode}, {capacity} slots, {len(m)} live; "
+          f"mixed batches {ops_s:.1f} ops/s; recovery {rec_ms:.3f} ms"
+          f"{rebuild}; histogram {hist.tolist()}")
     return ops_s, rec_ms
 
 
@@ -822,12 +1054,13 @@ def run_serving(dev, arch="qwen3-32b", requests=8, prompt_len=512, gen=32):
     launch counts."""
     cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats(dev)
-    for fn in (scan_cuda, probe_cuda, gqa_decode_cuda, flash_prefill_cuda):
+    for fn in (scan_cuda, table_probe_cuda, gqa_decode_cuda,
+               flash_prefill_cuda):
         fn.launches = 0
     res = serve.run(cfg, requests=requests, prompt_len=prompt_len, gen=gen,
-                    crash=True, backend="bucket", device=dev)
+                    crash=True, device=dev)
     launches = {"recovery_scan": scan_cuda.launches,
-                "hash_probe": probe_cuda.launches,
+                "table_probe": table_probe_cuda.launches,
                 "gqa_decode": gqa_decode_cuda.launches,
                 "flash_prefill": flash_prefill_cuda.launches}
     peak = torch.cuda.max_memory_allocated(dev)
@@ -851,7 +1084,7 @@ def run_serving(dev, arch="qwen3-32b", requests=8, prompt_len=512, gen=32):
     expect(launches["gqa_decode"] == layers * (gen - 1),
            f"gqa_decode launched {launches['gqa_decode']} times, expected "
            f"{layers * (gen - 1)}")
-    expect(launches["hash_probe"] > 0 and launches["recovery_scan"] > 0,
+    expect(launches["table_probe"] > 0 and launches["recovery_scan"] > 0,
            "the registry's kernels were not launched")
     wbytes = sum(t.numel() * t.element_size()
                  for _, t in tree_leaves(res["params"]))
@@ -890,7 +1123,9 @@ def main() -> int:
     for live in (8, reg):
         check_probe(dev, capacity=reg, key_range=4 * reg, live=live, nb=nb,
                     w=w, batches=[8])
-    print("library_ms: no single PyTorch call computes either function")
+    window, probe_build_ms = check_table_probes(dev)
+    print("library_ms: no single PyTorch call computes any of these "
+          "functions")
 
     scan_cuda.launches = probe_cuda.launches = 0
     run_map(dev, "soft", capacity=1 << 21, key_range=1 << 20,
@@ -908,6 +1143,38 @@ def main() -> int:
                 chunk=4096, label=f"{mode} run")
     torch.cuda.empty_cache()
 
+    # the paper's hash experiment (Figure 1, "hash 1M keys") on the probe
+    # backend, at its 2^20 key range (PERF.md section 4)
+    hp = paper.HASH_1M
+    print(f"paper workload {hp.name}: index {hp.index}, {hp.read_pct}% "
+          f"reads, at key range 2^20 (the config's {hp.key_range} is cut to "
+          f"CPU size), pool 2^21, 1024 lanes")
+    scan_cuda.launches = table_probe_cuda.launches = 0
+    run_map(dev, "soft", capacity=1 << 21, key_range=1 << 20,
+            prefill=1 << 19, n_batches=200, n_after=20, b=1024, chunk=4096,
+            label="probe main path", n_profiled=10, backend=hp.index)
+    probe_launches = {"recovery_scan": scan_cuda.launches,
+                      "table_probe": table_probe_cuda.launches}
+    print(f"probe main-path launches: {probe_launches}")
+    expect(all(v > 0 for v in probe_launches.values()),
+           "a kernel of the probe main path was never launched")
+    for mode in ("linkfree", "logfree"):
+        run_map(dev, mode, capacity=1 << 16, key_range=1 << 15,
+                prefill=1 << 14, n_batches=20, n_after=5, b=1024,
+                chunk=4096, label=f"probe {mode} run", backend="probe")
+    # the paper's list experiment (Figure 1, list-1024) on the scan
+    # backend, as configured
+    lc = paper.LIST_LONG
+    for mode in ("soft", "linkfree", "logfree"):
+        scan_cuda.launches = 0
+        run_map(dev, mode, capacity=lc.capacity, key_range=lc.key_range,
+                prefill=lc.key_range // 2, n_batches=100, n_after=20,
+                b=lc.batch, chunk=lc.key_range,
+                label=f"paper {lc.name} {mode}", backend=lc.index)
+        expect(scan_cuda.launches > 0, "the scan backend's recovery did not "
+               "launch recovery_scan")
+    torch.cuda.empty_cache()
+
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
     attn = check_attention_kernels(dev)
@@ -915,7 +1182,7 @@ def main() -> int:
     check_decode_matches_prefill(dev)
     torch.cuda.empty_cache()
     serving = run_serving(dev)
-    for name in ("recovery_scan", "hash_probe"):
+    for name in ("recovery_scan", "table_probe"):
         print(f"{name}: {serving[name]} launches on the serving path "
               f"(registry inserts, contains and recovery)")
 
@@ -929,7 +1196,16 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/hash_probe.cu",
          "replaces": "src/repro/kernels/hash_probe/kernel.py:64",
          "launches": launches["hash_probe"], **probe,
-         "bound_by": "bytes", "library_ms": None},
+         "bound_by": "bytes", "library_ms": None,
+         # the second route of probe_pallas (the probe backend's
+         # table_lookup), the entry table_probe of the same source
+         "probe_window": {
+             "entry": "table_probe",
+             "replaces": "src/repro/kernels/hash_probe/ops.py:157",
+             "launches": probe_launches["table_probe"],
+             "launches_serving": serving["table_probe"], **window,
+             "bound_by": "bytes", "library_ms": None,
+             "table_build_ms_2e21": probe_build_ms}},
         {"name": "gqa_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gqa_decode.cu",
          "replaces": "src/repro/kernels/gqa_decode/kernel.py:62",

@@ -22,9 +22,16 @@ backend-owned ``index_update`` hook over :class:`IndexFields`.
 Every function returns the same values, at the same dtypes, as its JAX
 counterpart; the counters are saturating int32, as JAX keeps them in its
 default 32-bit mode.  Functions build new tensors and leave their inputs
-unchanged.  The linear-probe table functions (``table_claim`` /
-``table_release`` / ``_table_write_ref`` and the probe and scan lookups) and
-the legacy string-index wrappers are not ported yet.
+unchanged.  The legacy jitted string-index wrappers (``insert_batch`` /
+``remove_batch`` / ``contains_batch``) are not ported yet.
+
+The linear-probe table's searches evaluate each lane's whole probe window
+in one pass, where the JAX package walks it in chunks of 16 slots
+inside a ``lax.while_loop`` that stops once every lane has resolved: the
+first event of the whole window is the one the chunked walk finds, and on
+the card every extra round would be a dozen more launches on a path the
+host's launches already bound.  ``table_claim`` keeps its data-dependent
+loop and reads one flag per round on the host.
 """
 from __future__ import annotations
 
@@ -34,8 +41,8 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.core.drop import set_drop
-from repro_torch.core.nvm import (FREE, VALID, DELETED, EMPTY,
-                                  crash_persisted_stage)
+from repro_torch.core.nvm import (FREE, VALID, DELETED, EMPTY, TOMB,
+                                  hash32, crash_persisted_stage)
 
 MODES = ("linkfree", "soft", "logfree")
 
@@ -116,6 +123,17 @@ def make_state(capacity: int, table_factor: int = 4, n_buckets: int = 0,
     )
 
 
+# ---------------------------------------------------------------------------
+# Volatile index: linear-probe lookup, sequential-scan variant, and the
+# probe table's writers.
+# ---------------------------------------------------------------------------
+
+MAX_PROBE = 128
+
+# Member ids per table_claim call when recovery rebuilds the probe table:
+# each claim round builds B x B conflict matrices, 16 M entries at 4096.
+REBUILD_CHUNK = 4096
+
 LookupFn = Callable[[SetState, torch.Tensor], torch.Tensor]
 
 
@@ -153,6 +171,189 @@ class MutationPlan(NamedTuple):
     targets: torch.Tensor   # i32[B] node id committed (alloc slot / existing)
     count: torch.Tensor     # i32[]  number of winning lanes
     overflow: torch.Tensor  # bool[] node-pool exhaustion (insert plans only)
+
+
+def _home(keys: torch.Tensor, t: int) -> torch.Tensor:
+    """Home slot i32 of each key in a table of ``t`` (a power of two)
+    slots: ``hash32(keys) & (t - 1)``."""
+    return (hash32(keys) & (t - 1)).to(_I32)
+
+
+def _window(keys: torch.Tensor, t: int, max_probe: int) -> torch.Tensor:
+    """(B, max_probe) int64 slot of each probe step d: (home + d) & (t-1)."""
+    d = torch.arange(max_probe, dtype=torch.int64, device=keys.device)
+    return (_home(keys, t).to(torch.int64)[:, None] + d) & (t - 1)
+
+
+def _first(mask: torch.Tensor) -> torch.Tensor:
+    """(B, 1) column of the first True of each row (0 when none), as
+    ``jnp.argmax`` of a bool plane: argmax returns the first maximum."""
+    return torch.argmax(mask.to(torch.uint8), dim=1, keepdim=True)
+
+
+def _lookup_probe(state: SetState, keys: torch.Tensor,
+                  max_probe: int = MAX_PROBE) -> torch.Tensor:
+    """Windowed linear-probe lookup -> node id or EMPTY per lane: the first
+    match-or-EMPTY event in probe order decides, as the sequential probe
+    does."""
+    n = state.keys.shape[0]
+    ids = state.table[_window(keys, state.table.shape[0], max_probe)]
+    match = (ids >= 0) & (state.keys[ids.clamp(0, n - 1)] == keys[:, None])
+    event = match | (ids == EMPTY)
+    fd = _first(event)
+    hit = event.any(dim=1) & match.gather(1, fd)[:, 0]
+    return _where_i32(hit, ids.gather(1, fd)[:, 0], EMPTY)
+
+
+def _lookup_scan(state: SetState, keys: torch.Tensor) -> torch.Tensor:
+    """O(N)-traversal lookup: models the paper's *list* experiments, where
+    operation cost is dominated by walking the linked structure.  Builds a
+    B x N plane."""
+    live = state.cur == VALID
+    eq = live[None, :] & (keys[:, None] == state.keys[None, :])
+    return _where_i32(eq.any(dim=1), _first(eq)[:, 0], EMPTY)
+
+
+def _table_write_ref(table: torch.Tensor, keys: torch.Tensor,
+                     ids: torch.Tensor, do: torch.Tensor,
+                     max_probe: int = MAX_PROBE
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """REFERENCE sequential writer: insert (key -> id) pairs for lanes with
+    do[i] into the first EMPTY/TOMB slot of the key's window, lane by lane.
+    The lane loop *is* the linearization order that :func:`table_claim`
+    reproduces.  It reads each lane's flags on the host: tests only."""
+    t = table.shape[0]
+    pos = _window(keys, t, max_probe)
+    table = table.clone()
+    ovf = False
+    for i in range(keys.shape[0]):
+        if not bool(do[i]):
+            continue
+        free = table[pos[i]] < 0
+        if bool(free.any()):
+            table[pos[i, _first(free[None])[0, 0]]] = ids[i]
+        else:
+            ovf = True
+    return table, torch.tensor(ovf, device=table.device)
+
+
+def _table_delete_ref(table: torch.Tensor, keys: torch.Tensor,
+                      ids: torch.Tensor, do: torch.Tensor,
+                      max_probe: int = MAX_PROBE) -> torch.Tensor:
+    """REFERENCE sequential deleter: tombstone the slot holding id for lanes
+    with do[i], lane by lane; a lane's search stops at the first slot that
+    holds its id or is EMPTY.  Host reads per lane: tests only."""
+    t = table.shape[0]
+    pos = _window(keys, t, max_probe)
+    table = table.clone()
+    for i in range(keys.shape[0]):
+        if not bool(do[i]):
+            continue
+        window = table[pos[i]]
+        hit = window == ids[i]
+        fd = _first((hit | (window == EMPTY))[None])[0, 0]
+        if bool(hit[fd]):
+            table[pos[i, fd]] = TOMB
+    return table
+
+
+def table_claim(table: torch.Tensor, keys: torch.Tensor, ids: torch.Tensor,
+                do: torch.Tensor, max_probe: int = MAX_PROBE
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Parallel first-free slot claiming, equal to the sequential
+    ``_table_write_ref`` (and to the JAX package's ``table_claim``).
+
+    Each round every pending lane finds its candidate, the first free
+    (EMPTY or TOMB) slot of its whole window.  Lane i commits only when no
+    earlier pending lane's window covers i's candidate: s_i is free, so an
+    earlier lane can land on it only if its window covers it, and slots
+    are only consumed within a call.  The round's commits are therefore
+    placements the sequential writer makes; they land in ONE scatter, to
+    distinct slots (a later lane with the same candidate is blocked).  A
+    lane with no free slot in its window fails and latches the overflow.
+    Each round the lowest pending lane commits or fails, so the loop ends
+    within B rounds (1 in the uncontended common case).  The loop's
+    condition is one host read per round.  Returns (table, overflow)."""
+    t = table.shape[0]
+    b = keys.shape[0]
+    h = _home(keys, t)
+    pos = _window(keys, t, max_probe)
+    lane = torch.arange(b, device=keys.device)
+    j_before_i = lane[:, None] < lane[None, :]             # [j, i]: j < i
+    pending = do
+    ovf = torch.zeros((), dtype=torch.bool, device=table.device)
+    while True:
+        free = table[pos] < 0                              # (B, P)
+        has = free.any(dim=1)
+        s = pos.gather(1, _first(free))[:, 0].to(_I32)     # candidate slot
+        ovf = ovf | (pending & ~has).any()
+        contender = pending & has
+        # reach[j, i]: does contender j's window cover lane i's slot?
+        reach = ((s[None, :] - h[:, None]) & (t - 1)) < max_probe
+        blocked = (contender[:, None] & j_before_i & reach).any(dim=0)
+        commit = contender & ~blocked
+        table = set_drop(table, _where_i32(commit, s, t), ids)
+        pending = contender & ~commit
+        if not bool(pending.any()):
+            return table, ovf
+
+
+def table_release(table: torch.Tensor, keys: torch.Tensor, ids: torch.Tensor,
+                  do: torch.Tensor, max_probe: int = MAX_PROBE
+                  ) -> torch.Tensor:
+    """Parallel tombstoning, equal to ``_table_delete_ref``: each lane's
+    first hit-or-EMPTY event in its window, and all trims in ONE scatter
+    against the pre-call table (delete searches never interact: a TOMB is
+    neither EMPTY nor another lane's id, and do-lanes carry distinct
+    ids)."""
+    t = table.shape[0]
+    pos = _window(keys, t, max_probe)
+    window = table[pos]                                    # (B, P)
+    hit = window == ids[:, None]
+    event = hit | (window == EMPTY)
+    fd = _first(event)
+    ok = do & event.any(dim=1) & hit.gather(1, fd)[:, 0]
+    return set_drop(table, _where_i32(ok, pos.gather(1, fd)[:, 0], t), TOMB)
+
+
+def probe_index_update(phase: str, max_probe: int = MAX_PROBE
+                       ) -> IndexUpdateFn:
+    """The linear-probe table's commit hook: claim on insert, release on
+    remove.  Bound by ``ProbeBackend.update_index``."""
+    if phase == "insert":
+        def update(f: IndexFields, keys, ids, do):
+            table, ovf = table_claim(f.table, keys, ids, do, max_probe)
+            return f._replace(table=table), ovf
+    else:
+        def update(f: IndexFields, keys, ids, do):
+            table = table_release(f.table, keys, ids, do, max_probe)
+            return f._replace(table=table), torch.zeros(
+                (), dtype=torch.bool, device=keys.device)
+    return update
+
+
+def table_build(table: torch.Tensor, keys: torch.Tensor,
+                member: torch.Tensor, max_probe: int = MAX_PROBE,
+                chunk: Optional[int] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Recovery's bulk build of the probe table: ``_table_write_ref`` over
+    every node id with do = member, which the JAX package runs as one
+    sequential loop over the pool.  Here the member ids, in id order, go
+    through ``table_claim`` in chunks of ``chunk`` (``REBUILD_CHUNK`` when
+    None) with the overflow latches OR-ed: non-members write nothing, each
+    claim equals the sequential writer over its chunk, and chunks applied
+    in turn equal it over their concatenation.  Compacting the member ids
+    is one host read.  Returns (table, overflow)."""
+    chunk = REBUILD_CHUNK if chunk is None else chunk
+    ids = torch.nonzero(member).flatten().to(_I32)
+    ovf = torch.zeros((), dtype=torch.bool, device=table.device)
+    for s in range(0, ids.shape[0], chunk):
+        c = ids[s:s + chunk]
+        table, o = table_claim(table, keys[c], c,
+                               torch.ones_like(c, dtype=torch.bool),
+                               max_probe)
+        ovf = ovf | o
+    return table, ovf
 
 
 def _alloc(state: SetState, need: torch.Tensor, count: torch.Tensor):
@@ -407,16 +608,18 @@ def crash(state: SetState, u: torch.Tensor):
 
 def _rebuild_from_member(member: torch.Tensor, keys: torch.Tensor,
                          values: torch.Tensor, table_factor: int = 4,
-                         n_buckets: int = 0, bucket_width: int = 0,
-                         stash_size: int = 0,
+                         max_probe: int = MAX_PROBE, n_buckets: int = 0,
+                         bucket_width: int = 0, stash_size: int = 0,
+                         build_table: bool = True,
                          index_init: Optional[Callable[[SetState], SetState]]
                          = None,
                          stamp: Optional[torch.Tensor] = None) -> SetState:
     """Shared recovery rebuild: member mask -> fresh SetState (free list +
     volatile-index reconstruction) on the device of ``keys``.
     ``index_init`` is the backend's bulk index build (``bucket_init`` for
-    the bucket backend).  The linear-probe table build of the JAX version
-    waits for the probe backend; the bucket backend never reads it."""
+    the bucket backend); ``build_table`` is False for backends that never
+    read the linear-probe table, which is otherwise rebuilt by
+    :func:`table_build`."""
     n = keys.shape[0]
     state = make_state(n, table_factor, n_buckets, bucket_width, stash_size,
                        device=keys.device)
@@ -433,6 +636,9 @@ def _rebuild_from_member(member: torch.Tensor, keys: torch.Tensor,
         # the next generation starts strictly above every durable stamp.
         state = state._replace(
             stamp=stamp, epoch=stamp.max().clamp(min=0) + 1)
+    if build_table:
+        table, ovf = table_build(state.table, state.keys, member, max_probe)
+        state = state._replace(table=table, overflow=state.overflow | ovf)
     if index_init is not None:
         state = index_init(state)
     return state

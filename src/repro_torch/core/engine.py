@@ -1,9 +1,17 @@
 """DurableMap engine: SetSpec config + pluggable volatile-index backends.
 
-PyTorch port of ``repro.core.engine`` for the bucket backend.  The paper's
-central idea is the split between a durable node pool and a *volatile*
-index that is rebuilt on recovery; the index is a swappable backend:
+PyTorch port of ``repro.core.engine``.  The paper's central idea is the
+split between a durable node pool and a *volatile* index that is rebuilt
+on recovery; the index is a swappable backend:
 
+  probe    linear probing over ``SetState.table`` (the default; the
+           paper's hash-set runs).  On the card a lookup is the CUDA kernel
+           ``hash_probe.table_probe_cuda``, one warp per query over its
+           whole probe window; writes claim and release slots with
+           ``table_claim`` / ``table_release``; recovery runs
+           ``recovery_scan.scan_cuda`` and rebuilds the table.
+  scan     O(N) traversal lookup (the paper's linked-list runs); recovery
+           runs ``recovery_scan.scan_cuda``.
   bucket   set-associative (NB buckets x W ways) index carried in
            ``SetState``: built once at make_state/recovery, updated
            incrementally by the op bodies (O(B*W) scatter), and probed by
@@ -11,9 +19,6 @@ index that is rebuilt on recovery; the index is a swappable backend:
            CUDA kernel ``recovery_scan.scan_cuda``.  Live nodes that
            overflow a bucket land in an exact dense stash the lookup also
            reads, so the backend is correct at any load factor.
-
-The probe and scan backends are not ported yet (ROADMAP queue A, item 5):
-a spec naming them raises ``NotImplementedError``.
 
 Everything is configured by one frozen :class:`SetSpec`.  The serving-shaped
 entry point is :func:`apply_batch`: a mixed contains/insert/remove lane
@@ -39,6 +44,7 @@ from repro_torch.core import durable_set as DS
 from repro_torch.core.device import resolve_device
 from repro_torch.core.durable_set import SetState, MODES
 from repro_torch.kernels.hash_probe import ops as hp_ops
+from repro_torch.kernels.hash_probe.kernel import table_probe_cuda
 from repro_torch.kernels.recovery_scan import ops as rs_ops
 
 # Mixed-batch op codes for apply_batch.  OP_NOP matches no phase, so a lane
@@ -80,10 +86,6 @@ def warn_structure(message: str, stacklevel: int = 3) -> None:
 # and refuse the same specs.
 _F32_EXACT = 1 << 24
 
-# Backends of the JAX package that this package does not have yet.
-_NOT_PORTED = {"probe": "ROADMAP queue A, item 5 (probe backend)",
-               "scan": "ROADMAP queue A, item 5 (scan backend)"}
-
 
 @dataclasses.dataclass(frozen=True)
 class SetSpec:
@@ -101,8 +103,13 @@ class SetSpec:
                   overflow spill (overflowing past S latches
                   ``state.overflow``)
     use_kernels   run the CUDA kernels where the backend has them (the
-                  bucket lookup and recovery paths); else the plain
-                  PyTorch versions
+                  bucket and probe lookups, every backend's recovery scan);
+                  else the plain PyTorch versions.  The JAX package's
+                  ``probe_pallas_lookup`` has no counterpart: its gates
+                  (batch % 8, % 4096 past 4096 lanes, capacity < 2^24 for
+                  the f32 one-hot gather) come from the TPU's tiles, and
+                  the CUDA probe-window kernel takes any batch and any
+                  node id, so a probe map on the card always runs it
     """
     capacity: int
     mode: str = "soft"
@@ -129,10 +136,6 @@ class SetSpec:
         if self.backend == "bucket" and self.capacity >= _F32_EXACT:
             raise ValueError("bucket backend: capacity exceeds the f32-exact "
                              f"node-id budget ({_F32_EXACT})")
-        if self.backend in _NOT_PORTED:
-            raise NotImplementedError(
-                f"backend {self.backend!r} is not ported yet "
-                f"({_NOT_PORTED[self.backend]}); use backend='bucket'")
 
     def bucket_geometry(self) -> Tuple[int, int]:
         """Resolved (NB, W) for the bucket backend."""
@@ -180,6 +183,55 @@ class IndexBackend(Protocol):
         when the mutation commits with no index maintenance.  The ONLY path
         by which the op bodies touch a volatile-index structure."""
         ...
+
+
+class _NullIndexMixin:
+    """Lifecycle defaults for backends without a carried bucket index."""
+
+    def state_geometry(self, spec):
+        return (0, 0, 0)
+
+    def init_index(self, spec, state):
+        return state
+
+    def update_index(self, spec, phase):
+        return None
+
+    def recover_scan(self, spec, persisted):
+        # The JAX package takes the plain version here; on the card that
+        # is the CUDA kernel, which returns the same integers.
+        return rs_ops.recovery_scan(persisted, use_kernels=spec.use_kernels)
+
+
+class ProbeBackend(_NullIndexMixin):
+    """The paper's hash-set experiments: linear probing over SetState.table.
+
+    Lookups run the CUDA kernel ``table_probe_cuda`` when ``use_kernels``
+    is set and the state is on CUDA, else the windowed PyTorch lookup; both
+    return the first match before an EMPTY slot on the tables the ops
+    build.  Writes commit through
+    :func:`DS.probe_index_update` (``table_claim`` / ``table_release``);
+    recovery rebuilds the table with :func:`DS.table_build`."""
+    name = "probe"
+    builds_probe_table = True
+
+    def lookup(self, spec, state, keys):
+        if spec.use_kernels and state.table.is_cuda:
+            return table_probe_cuda(state.table, state.keys, keys,
+                                    spec.max_probe)
+        return DS._lookup_probe(state, keys, max_probe=spec.max_probe)
+
+    def update_index(self, spec, phase):
+        return DS.probe_index_update(phase, spec.max_probe)
+
+
+class ScanBackend(_NullIndexMixin):
+    """The paper's list experiments: cost dominated by full traversal."""
+    name = "scan"
+    builds_probe_table = False     # _lookup_scan reads cur/keys directly
+
+    def lookup(self, spec, state, keys):
+        return DS._lookup_scan(state, keys)
 
 
 class BucketBackend:
@@ -250,6 +302,8 @@ def get_backend(name: str) -> IndexBackend:
                        f"{sorted(BACKENDS)}") from None
 
 
+register_backend(ProbeBackend())
+register_backend(ScanBackend())
 register_backend(BucketBackend())
 
 
@@ -365,14 +419,12 @@ def recover_impl(persisted: torch.Tensor, keys: torch.Tensor,
     carried: the rebuilt state starts from a fresh ``make_state`` and
     ``state.overflow`` is re-derived from the rebuilt index alone."""
     backend = get_backend(spec.backend)
-    if backend.builds_probe_table:
-        raise NotImplementedError("the probe-table rebuild is not ported "
-                                  "yet (ROADMAP queue A, item 5)")
     member, hist = backend.recover_scan(spec, persisted)
     nb, w, s = backend.state_geometry(spec)
     state = DS._rebuild_from_member(
-        member, keys, values, spec.table_factor,
+        member, keys, values, spec.table_factor, spec.max_probe,
         n_buckets=nb, bucket_width=w, stash_size=s,
+        build_table=backend.builds_probe_table,
         index_init=functools.partial(backend.init_index, spec),
         stamp=stamp)
     return state, hist
@@ -383,9 +435,9 @@ def recover(persisted: torch.Tensor, keys: torch.Tensor,
             spec: SetSpec) -> Tuple[SetState, torch.Tensor]:
     """Rebuild from the durable areas (Sections 3.5 / 4.6) on their device
     through the spec's backend: classification via backend.recover_scan
-    (the recovery_scan kernel for the bucket backend), then the index bulk
-    build.  Returns (state, stage histogram i32[5]).  No psync is ever
-    issued: payloads are already durable."""
+    (the recovery_scan kernel), then the index bulk build.  Returns (state,
+    stage histogram i32[5]).  Recovery pays no psync: payloads are already
+    durable."""
     return recover_impl(persisted, keys, values, stamp, spec=spec)
 
 

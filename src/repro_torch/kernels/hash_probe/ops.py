@@ -14,7 +14,9 @@ Two regimes:
 ``lookup`` is then a pure read of the carried table through the CUDA kernel
 ``probe_cuda`` (or the plain reference).  Every function returns the same
 values, at the same dtypes, as its counterpart in
-``repro.kernels.hash_probe.ops``.
+``repro.kernels.hash_probe.ops``.  The JAX package's ``table_lookup`` (the
+probe backend's read) is ``kernel.table_probe_cuda`` here, with its plain
+version ``ref.table_lookup_ref``.
 """
 from __future__ import annotations
 

@@ -7,7 +7,9 @@ loses the volatile index but not the registry, so after recovery the
 server knows exactly which requests had completed.  Each completion costs
 one psync; recovery costs none.  Prefill attention runs the port's
 ``flash_prefill`` kernel and decode attention its ``gqa_decode`` kernel;
-the registry runs ``hash_probe`` and, on ``--crash``, ``recovery_scan``.
+the registry (the probe backend by default, as in ``repro.launch.serve``)
+runs ``hash_probe``'s probe-window kernel and, on ``--crash``,
+``recovery_scan``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b-smoke \\
       --requests 8 --prompt-len 32 --gen 16 [--crash] [--device cpu]
@@ -57,7 +59,7 @@ def _sync(dev: torch.device) -> None:
 
 
 def run(cfg: ModelConfig, requests: int = 8, prompt_len: int = 32,
-        gen: int = 16, crash: bool = False, backend: str = "bucket",
+        gen: int = 16, crash: bool = False, backend: str = "probe",
         device="cuda", params=None) -> dict:
     """Serve ``requests`` prompts of ``prompt_len`` tokens for ``gen``
     tokens each, record the completions in the registry, and with
@@ -137,13 +139,13 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--crash", action="store_true")
-    ap.add_argument("--backend", default="bucket",
+    ap.add_argument("--backend", default="probe",
                     choices=("probe", "scan", "bucket"),
-                    help="registry index backend (bucket = the CUDA "
-                         "hash_probe / recovery_scan kernels).  The default "
-                         "is bucket, where repro.launch.serve's is probe, "
-                         "until the probe and scan backends are ported "
-                         "(ROADMAP queue A, item 5a)")
+                    help="registry index backend: probe = linear probing "
+                         "(hash_probe's probe-window kernel), scan = full "
+                         "traversal, bucket = set-associative buckets "
+                         "(hash_probe's bucket kernel); every backend "
+                         "recovers through recovery_scan")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: the GPU)")
     args = ap.parse_args(argv)

@@ -18,10 +18,16 @@ from repro_torch.kernels.flash_prefill.ref import (  # noqa: E402
     flash_prefill_ref)
 from repro_torch.kernels.gqa_decode.kernel import gqa_decode_cuda  # noqa: E402
 from repro_torch.kernels.gqa_decode.ref import gqa_decode_ref  # noqa: E402
-from repro_torch.kernels.hash_probe.kernel import probe_cuda  # noqa: E402
+from repro_torch.core import durable_set as DS  # noqa: E402
+from repro_torch.core.convert import state_to_numpy  # noqa: E402
+from repro_torch.core.durable_set import MODES  # noqa: E402
+from repro_torch.core.nvm import EMPTY, TOMB, np_hash32  # noqa: E402
+from repro_torch.kernels.hash_probe.kernel import (  # noqa: E402
+    probe_cuda, table_probe_cuda)
 from repro_torch.kernels.hash_probe.ops import (bucket_of,  # noqa: E402
                                                 build_buckets)
-from repro_torch.kernels.hash_probe.ref import probe_ref  # noqa: E402
+from repro_torch.kernels.hash_probe.ref import (probe_ref,  # noqa: E402
+                                                table_lookup_ref)
 from repro_torch.kernels.recovery_scan.kernel import scan_cuda  # noqa: E402
 from repro_torch.kernels.recovery_scan.ref import scan_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -72,6 +78,105 @@ def test_probe_kernel_matches_plain(cuda, nb, w, b):
     assert probe_cuda.launches == before + 1
     torch.cuda.synchronize()
     assert torch.equal(got, probe_ref(bk, bi, qb, q))
+
+
+def _probe_table(rng, t, n, fill, tomb=0.0, dense=0, wrap=False, b=8):
+    """An arbitrary linear-probe table over a pool of n keys (ids past the
+    pool too) and b queries, half of them pool keys: ``dense`` slots from 0
+    hold no EMPTY (chains that reach max_probe); ``wrap`` draws half the
+    queries from keys whose home slot is among the last 16."""
+    pool = rng.choice(10 ** 8, n, replace=False).astype(np.int32)
+    table = np.full(t, EMPTY, np.int32)
+    slots = rng.choice(t, int(t * fill), replace=False)
+    table[slots] = rng.integers(0, n + 4, slots.size)
+    table[:dense] = rng.integers(0, n, dense)
+    table[rng.random(t) < tomb] = TOMB
+    q = np.where(rng.random(b) < 0.5, rng.choice(pool, b),
+                 rng.integers(2 * 10 ** 8, 3 * 10 ** 8, b)).astype(np.int32)
+    if wrap:
+        cand = rng.choice(pool, min(n, 64 * b))
+        late = cand[(np_hash32(cand) & np.uint32(t - 1)) >= t - 16]
+        q[: min(b // 2, late.size)] = late[: b // 2]
+    return table, pool, q
+
+
+# (T, N, fill, TOMB share, dense slots, wrap) of chip_smoke.py's phase: the
+# 2^21-slot map's table, wrapping windows, TOMBs and full chains, and the
+# serving registry's table
+PROBE_TABLES = {"map": (1 << 23, 1 << 21, 1 / 16, 0.0, 0, False),
+                "wrap": (256, 64, 0.5, 0.1, 0, True),
+                "tombs-chains": (1024, 256, 0.3, 0.3, 512, False),
+                "registry": (4096, 1024, 0.25, 0.0, 0, False)}
+
+
+@pytest.mark.parametrize("b", (0, 1, 7, 8, 1024, 65536))
+@pytest.mark.parametrize("max_probe", (5, 128, 200))
+@pytest.mark.parametrize("kind", sorted(PROBE_TABLES))
+def test_table_probe_kernel_matches_plain(cuda, kind, max_probe, b):
+    t, n, fill, tomb, dense, wrap = PROBE_TABLES[kind]
+    rng = np.random.default_rng(b + max_probe)
+    table, pool, q = _probe_table(rng, t, n, fill, tomb, dense, wrap, b)
+    table, pool, q = (torch.from_numpy(a).to(cuda) for a in (table, pool, q))
+    before = table_probe_cuda.launches
+    got = table_probe_cuda(table, pool, q, max_probe)
+    assert table_probe_cuda.launches == before + (b > 0)
+    want = table_lookup_ref(table, pool, q, max_probe)
+    torch.cuda.synchronize()
+    assert got.shape == (b,) and torch.equal(got, want)
+
+
+def test_table_probe_kernel_reads_an_unaligned_table(cuda):
+    """A table that does not start on 16 bytes is copied to an aligned one
+    before the kernel's 16-byte loads; a table under 4 slots is refused."""
+    rng = np.random.default_rng(1)
+    table, pool, q = _probe_table(rng, 1024, 256, 0.5, 0.2, 300, True, 512)
+    base = torch.from_numpy(np.concatenate([[0], table]).astype(
+        np.int32)).to(cuda)
+    pool, q = torch.from_numpy(pool).to(cuda), torch.from_numpy(q).to(cuda)
+    got = table_probe_cuda(base[1:], pool, q)
+    torch.cuda.synchronize()
+    assert torch.equal(got, table_lookup_ref(base[1:], pool, q))
+    with pytest.raises(ValueError, match="power of two from 4"):
+        table_probe_cuda(base[:2], pool, q)
+
+
+def test_argmax_of_a_bool_plane_is_its_first_true_on_cuda(cuda):
+    """The port reads jnp.argmax of a bool plane ("first True") as
+    torch.argmax of its uint8 cast; on the card too."""
+    rng = np.random.default_rng(2)
+    plane = rng.random((512, 4096)) < 0.01
+    plane[:, -1] |= ~plane.any(axis=1)
+    first = torch.from_numpy(plane).to(cuda)
+    got = DS._first(first)[:, 0].cpu().numpy()
+    np.testing.assert_array_equal(got, plane.argmax(axis=1))
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("backend", ("probe", "scan"))
+def test_probe_and_scan_maps_on_the_card_match_the_cpu(cuda, backend, mode):
+    """The same batches and crash on the card and on the CPU: the same
+    results and every SetState leaf; the card's probe lookups go through
+    the probe-window kernel and every recovery through recovery_scan."""
+    rng = np.random.default_rng(7)
+    maps = [DurableMap(SetSpec(capacity=1 << 12, mode=mode, backend=backend),
+                       device=dev) for dev in (cuda, "cpu")]
+    table_probe_cuda.launches = scan_cuda.launches = 0
+    for step in range(8):
+        ops = rng.choice(3, 256, p=[0.5, 0.3, 0.2]).astype(np.int32)
+        keys = rng.integers(0, 3000, 256).astype(np.int32)
+        res = [m.apply(ops, keys).cpu().numpy() for m in maps]
+        np.testing.assert_array_equal(res[0], res[1])
+        if step == 4:
+            u = rng.random(1 << 12, dtype=np.float32)
+            for m in maps:
+                m.crash_and_recover(u)
+            np.testing.assert_array_equal(maps[0].last_recovery_hist,
+                                          maps[1].last_recovery_hist)
+    got, want = (state_to_numpy(m.state) for m in maps)
+    for f in got:
+        np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+    assert scan_cuda.launches == 1
+    assert (table_probe_cuda.launches > 0) == (backend == "probe")
 
 
 def test_map_on_the_card_uses_both_kernels(cuda):
@@ -282,14 +387,16 @@ def test_flash_prefill_kernel_copies_unaligned_bf16(cuda):
 
 
 def test_serve_on_the_card_uses_every_kernel(cuda):
-    """The serving path at smoke size on the card: each of its four
-    kernels launched as often as the path says."""
+    """The serving path at smoke size on the card, on the default (probe)
+    registry: each of its four kernels launched as often as the path
+    says."""
     cfg = get_config("qwen3-32b-smoke")
-    for fn in (scan_cuda, probe_cuda, gqa_decode_cuda, flash_prefill_cuda):
+    for fn in (scan_cuda, table_probe_cuda, gqa_decode_cuda,
+               flash_prefill_cuda):
         fn.launches = 0
     res = serve.run(cfg, requests=4, prompt_len=8, gen=4, crash=True,
                     device=cuda)
     assert res["registered_after_recovery"] == 4 and res["psyncs"] == 4
     assert flash_prefill_cuda.launches == cfg.n_layers
     assert gqa_decode_cuda.launches == cfg.n_layers * 3
-    assert probe_cuda.launches > 0 and scan_cuda.launches == 1
+    assert table_probe_cuda.launches > 0 and scan_cuda.launches == 1
