@@ -44,6 +44,26 @@ Phases, each of which exits non-zero on failure:
    rebuild is timed alone; link-free and log-free at 2^16 slots.  Then
    the paper's list experiment (``LIST_LONG``: 2048 slots, key range 1024,
    64 lanes, 90% reads) on the scan backend in all three modes.
+3b. Snapshot + delta-log hybrid recovery: ``recovery_scan`` against its
+   plain version at the padded delta lengths 8, 64, 4096 and 2^16; then
+   the hash-1M bucket map (2^21 slots, SOFT, NB 2^19, W 8, stash 128):
+   prefill 2^19 keys, a snapshot through ``Snapshotter`` into a temporary
+   directory (its capture timed on the hot path, 20 batches timed while
+   its build and save run in the background), 200 mixed batches in all,
+   a crash, and ``Snapshotter.recover``, held leaf for leaf and by
+   histogram against ``crash_and_recover`` of a copy of the same
+   pre-crash state, the whole key range against the host reference, and
+   20 more batches; host syncs by site in the recovery; recovery psyncs
+   0; ``recovery_scan`` launched once by the recovery; then each piece
+   of the recovery timed alone (store read, H2D of the planes, delta
+   discovery, ``recovery_scan`` on the delta, ``hybrid_recover``, the
+   bucket patch, the histogram).  The same with the snapshot taken
+   before the prefill (the delta most of the pool, the patch's
+   whole-pool branch), and the list-1024 scan map once.  Then the
+   port's serve CLI on the card with ``--backend bucket --snapshot-every
+   1 --crash`` at qwen3-32b-smoke.  The kernels' launch counts are
+   zeroed before the hash-1M hybrid run and read after it
+   (``launches_hybrid`` in the JSON record).
 
 4. Attention kernels against their plain versions on the card, in f32 and
    bf16 at the JAX tests' tolerances: ``gqa_decode`` at qwen3-32b's decode
@@ -87,9 +107,12 @@ carries its probe-window route under ``probe_window``) and
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -106,6 +129,7 @@ from repro_torch.core import (DurableMap, SetSpec, OP_CONTAINS,  # noqa: E402
                               OP_INSERT, OP_REMOVE, VALID, EMPTY, TOMB,
                               hash32)
 from repro_torch.core import durable_set as DS  # noqa: E402
+from repro_torch.core import engine as TE  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_prefill.kernel import (  # noqa: E402
     flash_prefill_cuda)
@@ -125,6 +149,7 @@ from repro_torch.kernels.recovery_scan.ref import scan_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.params import tree_leaves  # noqa: E402
+from repro_torch.store.snapshot import Snapshotter  # noqa: E402
 from repro_torch.train import steps as TS  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
@@ -134,6 +159,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 SEED = 0
 KERNELS = ("recovery_scan", "hash_probe", "gqa_decode", "flash_prefill")
 SPIN_CYCLES = 2_000_000            # ~1 ms of device spin ahead of a timed call
+N_INFLIGHT = 20                    # batches timed while a snapshot builds
 
 
 def expect(ok, what: str) -> None:
@@ -591,39 +617,52 @@ def profile(m, ref, dev, batches, label):
         print(f"  {us:12.1f} us {n:6d}x  {key[:90]}")
 
 
-def count_syncs(m, ref, dev, batches, label):
-    """Host synchronizations per ``m.apply`` call made by the port's code
-    (warning sites under ``repro_torch/``), read from
-    ``torch.cuda.set_sync_debug_mode``'s warnings over ``batches``; sites
-    outside the port are printed apart and not counted.  The results are
-    checked against the reference after the count."""
-    ops, keys, vals = batches
-    d_ops, d_keys, d_vals = (torch.from_numpy(a).to(dev) for a in batches)
-    sync(dev)
+@contextlib.contextmanager
+def sync_sites():
+    """Host synchronizations inside the block, read from
+    ``torch.cuda.set_sync_debug_mode``'s warnings: yields two dicts,
+    filled on exit, of ``file:line -> count`` for the sites in the port's
+    code (under ``repro_torch/``) and for the other sites."""
+    sites, other = {}, {}
     with warnings.catch_warnings(record=True) as rec:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            out = [m.apply(d_ops[i], d_keys[i], d_vals[i])
-                   for i in range(len(ops))]
+            yield sites, other
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    got = torch.stack(out).cpu().numpy()
-    for i in range(len(ops)):
-        expect((got[i] == ref.apply(ops[i], keys[i], vals[i])).all(),
-               f"{label} sync count: batch {i} differs from the reference")
-    sites, other = {}, {}
     for w in rec:
         if "synchroniz" in str(w.message):
             path = Path(w.filename)
             into = sites if "repro_torch" in path.parts else other
             site = f"{path.name}:{w.lineno}"
             into[site] = into.get(site, 0) + 1
+
+
+def print_sites(label, over, sites, other):
     for name, found in (("the port's", sites), ("other", other)):
-        print(f"{label}: host syncs by site over {len(ops)} batches, "
-              f"{name} code: " + (", ".join(
-                  f"{k} x{v}" for k, v in
-                  sorted(found.items(), key=lambda kv: -kv[1])) or "none"))
+        print(f"{label}: host syncs by site over {over}, {name} code: "
+              + (", ".join(f"{k} x{v}" for k, v in
+                           sorted(found.items(), key=lambda kv: -kv[1]))
+                 or "none"))
+
+
+def count_syncs(m, ref, dev, batches, label):
+    """Host synchronizations per ``m.apply`` call made by the port's code
+    over ``batches`` (``sync_sites``); sites outside the port are printed
+    apart and not counted.  The results are checked against the reference
+    after the count."""
+    ops, keys, vals = batches
+    d_ops, d_keys, d_vals = (torch.from_numpy(a).to(dev) for a in batches)
+    sync(dev)
+    with sync_sites() as (sites, other):
+        out = [m.apply(d_ops[i], d_keys[i], d_vals[i])
+               for i in range(len(ops))]
+    got = torch.stack(out).cpu().numpy()
+    for i in range(len(ops)):
+        expect((got[i] == ref.apply(ops[i], keys[i], vals[i])).all(),
+               f"{label} sync count: batch {i} differs from the reference")
+    print_sites(label, f"{len(ops)} batches", sites, other)
     return sum(sites.values()) / len(ops)
 
 
@@ -680,6 +719,221 @@ def run_map(dev, mode, capacity, key_range, prefill, n_batches, n_after, b,
           f"mixed batches {ops_s:.1f} ops/s; recovery {rec_ms:.3f} ms"
           f"{rebuild}; histogram {hist.tolist()}")
     return ops_s, rec_ms
+
+
+# ---------------------------------------------------------------------------
+# 3b. snapshot + delta-log hybrid recovery
+# ---------------------------------------------------------------------------
+
+def clone_state(state):
+    return type(state)(*(t.clone() for t in state))
+
+
+def wall(fn, dev, reps: int = 3):
+    """(result, median host ms) of ``reps`` calls, each between
+    synchronizations."""
+    times = []
+    for _ in range(reps):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, float(np.median(times))
+
+
+def run_hybrid(dev, label, capacity, key_range, prefill, n_batches, n_after,
+               b, chunk, backend="bucket", snapshot_first=False):
+    """One SOFT map through prefill, a snapshot through the Snapshotter
+    into a temporary directory (before the prefill with
+    ``snapshot_first``, so that the delta is most of the pool), mixed
+    batches (the first ``N_INFLIGHT`` while the snapshot's build and save
+    run in the background), a crash under a seeded adversary, and recovery
+    through ``Snapshotter.recover``: the snapshot plus the stamp delta.
+    A copy of the pre-crash state goes through the full
+    ``crash_and_recover``; every leaf but the counters and the histogram
+    must be equal, the whole key range equal to the host reference after
+    recovery, and ``n_after`` more batches too.  Then the recovery's
+    pieces are timed one by one on the same planes.  Returns the numbers
+    and the kernels' launches on the path (the full recovery and the
+    timed pieces not counted)."""
+    rng = np.random.default_rng([SEED, capacity, int(snapshot_first)])
+    spec = SetSpec(capacity=capacity, mode="soft", backend=backend)
+    m = DurableMap(spec, device=dev)
+    ref = Reference(key_range, "soft")
+    pre = rng.choice(key_range, prefill, replace=False).astype(np.int32)
+    pre = pre.reshape(-1, b)
+    pre_vals = rng.integers(0, 1 << 31, pre.shape, dtype=np.int32)
+    ops, keys, vals = traffic(rng, n_batches, b, key_range)
+    u = torch.from_numpy(rng.random(capacity, dtype=np.float32)).to(dev)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_snap_") as tmp:
+        scan_cuda.launches = probe_cuda.launches = 0
+        sn = Snapshotter(m, tmp)
+        if not snapshot_first:
+            drive(m, ref, dev, np.full(pre.shape, OP_INSERT, np.int32), pre,
+                  pre_vals, f"{label} prefill")
+        sync(dev)
+        t0 = time.perf_counter()
+        build = sn.snapshot()
+        out["capture_ms"] = (time.perf_counter() - t0) * 1e3
+        k = N_INFLIGHT
+        out["inflight_ops_s"] = drive(m, ref, dev, ops[:k], keys[:k],
+                                      vals[:k], f"{label} build in flight")
+        out["overlapped"] = not build.done()
+        sn.wait()
+        out["build_save_ms"] = sn.last_duration * 1e3
+        out["bytes_written"] = sn.store.bytes_written
+        if snapshot_first:
+            drive(m, ref, dev, np.full(pre.shape, OP_INSERT, np.int32), pre,
+                  pre_vals, f"{label} prefill")
+        out["ops_s"] = drive(m, ref, dev, ops[k:], keys[k:], vals[k:],
+                             f"{label} traffic")
+        expect(not m.overflowed, f"{label}: overflow latched")
+        w = int(sn.store.extra()["watermark"])
+        pre_crash = clone_state(m.state)
+
+        n_scan = scan_cuda.launches
+        sync(dev)
+        with sync_sites() as (sites, other):
+            t0 = time.perf_counter()
+            sn.recover(u)
+            sync(dev)
+            out["snapshotter_recover_ms"] = (time.perf_counter() - t0) * 1e3
+        expect(scan_cuda.launches == n_scan + 1,
+               f"{label}: the hybrid recovery launched recovery_scan "
+               f"{scan_cuda.launches - n_scan} times, expected 1")
+        out["hybrid_ms"] = m.last_recovery_seconds * 1e3
+        out["syncs"] = sum(sites.values())
+        print_sites(f"{label} hybrid recovery", "Snapshotter.recover",
+                    sites, other)
+        recovered = clone_state(m.state)
+        recovered_hist = m.last_recovery_hist.copy()
+        out["recovery_psyncs"] = m.psyncs
+        expect(m.psyncs == 0 and m.ops == 0,
+               f"{label}: recovery paid psyncs")
+        ref.psyncs = ref.ops = 0
+        check_membership(m, ref, dev, chunk, f"{label} after recovery")
+        drive(m, ref, dev, *traffic(rng, n_after, b, key_range),
+              f"{label} after recovery")
+        launches = {"recovery_scan": scan_cuda.launches,
+                    "hash_probe": probe_cuda.launches}
+
+        # the full rebuild of the same pre-crash state, after the counted
+        # run: a comparison
+        full = DurableMap(spec, device=dev)
+        full.state = clone_state(pre_crash)
+        full.crash_and_recover(u)
+        out["full_ms"] = full.last_recovery_seconds * 1e3
+        for f in recovered._fields:
+            if f in ("n_psync", "n_ops"):
+                continue
+            expect(torch.equal(getattr(recovered, f),
+                               getattr(full.state, f)),
+                   f"{label}: leaf {f} differs between hybrid and full "
+                   "recovery")
+        expect((recovered_hist == full.last_recovery_hist).all(),
+               f"{label}: histogram {recovered_hist.tolist()} != full "
+               f"{full.last_recovery_hist.tolist()}")
+
+        # the pieces, each timed alone on the same planes
+        step = sn.store.latest_step()
+        (planes, meta), out["read_ms"] = wall(
+            lambda: (sn.store.restore(step), sn.store.extra(step)), dev)
+        snap, out["h2d_ms"] = wall(lambda: m._snapshot_state(planes), dev)
+        crashed = DS.crash(pre_crash, u)
+        (delta_idx, slots, stages), out["find_delta_ms"] = wall(
+            lambda: TE.find_delta(crashed[0], crashed[3], w), dev)
+        out["delta"], out["padded"] = int(slots.size), delta_idx.numel()
+        valid = delta_idx < capacity
+        gi = torch.where(valid, delta_idx, 0).long()
+        gathered = torch.where(valid, crashed[0][gi], 0)
+        member_d, hist_d = scan_cuda(gathered)
+        member_p, hist_p = scan_ref(gathered)
+        expect(torch.equal(member_d, member_p) and torch.equal(hist_d, hist_p),
+               f"{label}: recovery_scan differs from plain on the delta")
+        out["scan_ms"] = time_ms(lambda: scan_cuda(gathered), dev)
+        st, out["hybrid_recover_ms"] = wall(
+            lambda: TE.hybrid_recover(snap, *crashed, delta_idx, spec=spec),
+            dev)
+        expect(all(torch.equal(a, b) for a, b in zip(st, full.state)),
+               f"{label}: hybrid_recover alone differs from full recovery")
+        out["patch_ms"] = None
+        if backend == "bucket":
+            _, out["patch_ms"] = wall(lambda: TE._delta_bucket_patch(
+                snap, st.keys, st.cur, delta_idx, gi, valid,
+                member_d & valid, spec=spec), dev)
+        _, out["hist_ms"] = wall(lambda: TE.hybrid_hist(
+            meta, planes["raw_stage"], slots, stages), dev)
+        sn.close()
+        # both recoveries again on copies of the same pre-crash state, in
+        # turns (the planes held in memory: no store read)
+        samples = {"full": [], "hybrid": []}
+        for kind in ("full", "hybrid", "hybrid", "full", "full", "hybrid"):
+            x = DurableMap(spec, device=dev)
+            x.state = clone_state(pre_crash)
+            if kind == "full":
+                x.crash_and_recover(u)
+            else:
+                x.hybrid_crash_and_recover(planes, meta, u)
+            samples[kind].append(round(x.last_recovery_seconds * 1e3, 3))
+            del x
+    print(f"{label}: {backend}, SOFT, {capacity} slots, {len(m)} live; "
+          f"snapshot capture {out['capture_ms']:.3f} ms on the hot path, "
+          f"build + save {out['build_save_ms']:.3f} ms in the background "
+          f"({out['bytes_written']} bytes written); {N_INFLIGHT} batches "
+          f"with the build in flight {out['inflight_ops_s']:.1f} ops/s "
+          f"(still in flight after them: {out['overlapped']}), the rest "
+          f"{out['ops_s']:.1f} ops/s")
+    print(f"{label}: delta {out['delta']} slots, padded {out['padded']}; "
+          f"hybrid recovery {out['hybrid_ms']:.3f} ms, full recovery of "
+          f"the same planes {out['full_ms']:.3f} ms, Snapshotter.recover "
+          f"(store read included) {out['snapshotter_recover_ms']:.3f} ms; "
+          f"{out['syncs']} host syncs in the port's code; recovery psyncs "
+          f"{out['recovery_psyncs']}; again in turns on the same planes "
+          f"(in memory): full {samples['full']} ms, hybrid "
+          f"{samples['hybrid']} ms")
+    patch = ("n/a (scan backend)" if out["patch_ms"] is None
+             else f"{out['patch_ms']:.3f} ms")
+    print(f"{label}: split, each alone (median of 3): store read "
+          f"{out['read_ms']:.3f} "
+          f"ms, H2D of the planes {out['h2d_ms']:.3f} ms, delta discovery "
+          f"{out['find_delta_ms']:.3f} ms, recovery_scan on the delta "
+          f"{out['scan_ms']:.6f} ms (device), hybrid_recover "
+          f"{out['hybrid_recover_ms']:.3f} ms, of it the bucket patch "
+          f"{patch}, histogram {out['hist_ms']:.3f} ms")
+    print(f"{label}: launches {launches}")
+    return out, launches
+
+
+def check_serve_snapshots(dev):
+    """The port's serve CLI on the card with the bucket registry
+    snapshotted every step: the snapshotter line, every completion after
+    the crash, recovered through the snapshot (zero delta)."""
+    scan_cuda.launches = probe_cuda.launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = serve.main(["--device", str(dev), "--arch",
+                             "qwen3-32b-smoke", "--backend",
+                             "bucket", "--snapshot-every", "1", "--crash",
+                             "--requests", "4", "--prompt-len", "8",
+                             "--gen", "4", "--snapshot-dir", tmp])
+        text = buf.getvalue()
+        print(text, end="")
+        expect(rc == 0
+               and f"snapshotter: every 1 step(s) -> {tmp}" in text
+               and "after crash+recovery: all 4 completions still "
+                   "registered" in text
+               and "hybrid recovery: 0 delta slot(s) re-scanned, 1024 "
+                   "restored from the snapshot" in text,
+               "serve --snapshot-every 1 --crash did not print its lines")
+    launches = {"recovery_scan": scan_cuda.launches,
+                "hash_probe": probe_cuda.launches}
+    print(f"serve --snapshot-every 1 launches: {launches}")
+    expect(launches["recovery_scan"] == 2 and launches["hash_probe"] > 0,
+           "serve with snapshots: expected recovery_scan twice (the "
+           "snapshot's build, the hybrid recovery) and hash_probe")
 
 
 # ---------------------------------------------------------------------------
@@ -1175,6 +1429,30 @@ def main() -> int:
                "launch recovery_scan")
     torch.cuda.empty_cache()
 
+    # 3b. snapshot + delta-log hybrid recovery: recovery_scan at the padded
+    # delta lengths, then the hash-1M bucket map through the Snapshotter
+    check_scan(dev, [8, 64, 4096, 1 << 16])
+    _, hybrid_launches = run_hybrid(
+        dev, "hybrid hash-1M", capacity=1 << 21, key_range=1 << 20,
+        prefill=1 << 19, n_batches=200, n_after=20, b=1024, chunk=4096)
+    expect(all(v > 0 for v in hybrid_launches.values()),
+           "a kernel of the hybrid path was never launched")
+    large, _ = run_hybrid(
+        dev, "hybrid hash-1M large delta", capacity=1 << 21,
+        key_range=1 << 20, prefill=1 << 19, n_batches=200, n_after=20,
+        b=1024, chunk=4096, snapshot_first=True)
+    spec = SetSpec(capacity=1 << 21, backend="bucket")
+    nb, w = spec.bucket_geometry()
+    d = large["padded"]
+    expect(2 * d * w + spec.stash_size + d >= spec.capacity,
+           "the large delta did not reach the whole-pool candidate bound")
+    run_hybrid(dev, f"hybrid {lc.name}", capacity=lc.capacity,
+               key_range=lc.key_range, prefill=lc.key_range // 2,
+               n_batches=100, n_after=20, b=lc.batch, chunk=lc.key_range,
+               backend=lc.index)
+    check_serve_snapshots(dev)
+    torch.cuda.empty_cache()
+
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
     attn = check_attention_kernels(dev)
@@ -1191,12 +1469,14 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/recovery_scan.cu",
          "replaces": "src/repro/kernels/recovery_scan/kernel.py:42",
          "launches": launches["recovery_scan"], **scan,
-         "bound_by": "bytes", "library_ms": None},
+         "bound_by": "bytes", "library_ms": None,
+         "launches_hybrid": hybrid_launches["recovery_scan"]},
         {"name": "hash_probe", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hash_probe.cu",
          "replaces": "src/repro/kernels/hash_probe/kernel.py:64",
          "launches": launches["hash_probe"], **probe,
          "bound_by": "bytes", "library_ms": None,
+         "launches_hybrid": hybrid_launches["hash_probe"],
          # the second route of probe_pallas (the probe backend's
          # table_lookup), the entry table_probe of the same source
          "probe_window": {

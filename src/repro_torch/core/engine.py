@@ -20,6 +20,11 @@ on recovery; the index is a swappable backend:
            overflow a bucket land in an exact dense stash the lookup also
            reads, so the backend is correct at any load factor.
 
+The bucket and scan backends also recover from a snapshot plus the stamp
+delta (:func:`hybrid_recover`, ``DurableMap.hybrid_crash_and_recover``,
+driven by ``repro_torch.store.snapshot.Snapshotter``): ``recovery_scan``
+classifies only the delta, and the bucket rows it touches are rebuilt.
+
 Everything is configured by one frozen :class:`SetSpec`.  The serving-shaped
 entry point is :func:`apply_batch`: a mixed contains/insert/remove lane
 vector.  Mixed batches linearize phase by phase (all contains, then all
@@ -42,7 +47,9 @@ import torch
 
 from repro_torch.core import durable_set as DS
 from repro_torch.core.device import resolve_device
+from repro_torch.core.drop import set_drop, where_sized
 from repro_torch.core.durable_set import SetState, MODES
+from repro_torch.core.nvm import EMPTY, FREE, VALID
 from repro_torch.kernels.hash_probe import ops as hp_ops
 from repro_torch.kernels.hash_probe.kernel import table_probe_cuda
 from repro_torch.kernels.recovery_scan import ops as rs_ops
@@ -447,6 +454,242 @@ def crash_and_recover(state: SetState, u: torch.Tensor, *, spec: SetSpec
 
 
 # ---------------------------------------------------------------------------
+# Snapshot + delta-log hybrid recovery (DESIGN.md §11).
+#
+# A snapshot is the CANONICAL recovered state at a watermark W: the
+# snapshotter captures the durable planes off the hot path, runs the normal
+# ``recover`` on them (so the stored index is exactly what a full rebuild
+# would produce), and persists the result.  Every durable commit stamps its
+# slot with the current epoch inside the SAME scatter that moves the stage
+# word, so ``stamp > W`` is a complete delta log that costs the mutation
+# path zero extra psyncs.  Hybrid recovery merges the crash-time planes
+# into the snapshot at the delta slots only, and re-canonicalizes exactly
+# the bucket rows those slots touch: O(delta) classification and index
+# patch, bit-identical to the full-pool rebuild (bucket rows and the stash
+# are pure functions of the member set in node-id order, see
+# ``build_buckets``).
+# ---------------------------------------------------------------------------
+
+
+def supports_hybrid_recovery(spec: SetSpec) -> bool:
+    """The probe backend's recovery table is built by sequential first-free
+    claiming over the whole pool: a slot's final probe position depends on
+    every earlier slot, so no O(delta) patch can be bit-identical.  Hybrid
+    recovery supports the bucket and scan backends; probe falls back to
+    the full rebuild."""
+    return not get_backend(spec.backend).builds_probe_table
+
+
+def _delta_bucket_patch(snap: SetState, keys2, cur2, delta_idx, gi, valid,
+                        member_d, *, spec: SetSpec):
+    """Re-canonicalize exactly the bucket rows affected by the delta.
+
+    Candidates = every live node hashing to an affected bucket (the buckets
+    of the delta slots' snapshot-time AND crash-time keys), gathered in
+    ascending node-id order, so rank-within-bucket among the candidates
+    equals rank-within-bucket in the full ``build_buckets`` repack.  The
+    dense stash is globally id-ordered, so it is recomputed from (kept
+    unaffected spills) + (affected-bucket spills) with the same sized pack
+    ``bucket_init`` uses."""
+    n = spec.capacity
+    nb, w = spec.bucket_geometry()
+    s = spec.stash_size
+    d = delta_idx.shape[0]
+    dev = keys2.device
+
+    # affected buckets: where the delta slots' old and new keys hash
+    old_member = valid & (snap.cur[gi] == VALID)
+    new_member = valid & member_d
+    aff = torch.zeros((nb + 1,), dtype=torch.bool, device=dev)
+    for member, k_at in ((old_member, snap.keys[gi]),
+                         (new_member, keys2[gi])):
+        aff.index_fill_(0, torch.where(member, hp_ops.bucket_of(k_at, nb),
+                                       nb).long(), True)
+    aff = aff[:nb]
+
+    # candidates: all live members of affected buckets, ascending node id.
+    # k bounds them: <= w per affected bucket row (<= 2 buckets per delta
+    # slot) + every pre-existing stash spill + the delta slots themselves;
+    # past k the stash has overflowed (> s spills) and the latch fires.
+    h2 = hp_ops.bucket_of(keys2, nb)
+    cand_mask = (cur2 == VALID) & aff[h2.long()]
+    k = min(n, 2 * d * w + s + d)
+    cand = where_sized(cand_mask, k, n)
+    cvalid = cand < n
+    cg = torch.where(cvalid, cand, 0).long()
+    ck = torch.where(cvalid, keys2[cg], 0)
+    cb = torch.where(cvalid, h2[cg], nb)
+
+    # rank within bucket among candidates (== rank in the full repack: the
+    # stable sort groups buckets preserving ascending-id order; a group
+    # starts at its bucket's first position in the sorted run)
+    order = torch.argsort(cb, stable=True)
+    sb = cb[order]
+    rank = torch.arange(k, device=dev) - torch.searchsorted(sb, sb)
+    ok = (sb < nb) & (rank < w)
+
+    # clear affected rows, rebuild them canonically
+    flat = torch.where(ok, sb.long() * w + rank, nb * w)
+    bkeys = set_drop(torch.where(aff[:, None], 0, snap.bkeys).reshape(-1),
+                     flat, ck[order]).reshape(nb, w)
+    bids = set_drop(torch.where(aff[:, None], EMPTY, snap.bids).reshape(-1),
+                    flat, cand[order]).reshape(nb, w)
+
+    # stash: spills = kept unaffected spills + affected-bucket overflow,
+    # re-packed in ascending node-id order exactly like bucket_init
+    keep = (snap.sids >= 0) & ~aff[hp_ops.bucket_of(snap.skeys, nb).long()]
+    spilled = ~ok & (sb < nb)
+    spill_mask = torch.zeros((n,), dtype=torch.int32, device=dev)
+    spill_mask = DS._max_at(spill_mask, torch.where(keep, snap.sids, 0),
+                            keep)
+    spill_mask = DS._max_at(spill_mask,
+                            torch.where(spilled, cand[order], 0),
+                            spilled) > 0
+    spill = DS._count(spill_mask)
+    idx = where_sized(spill_mask, s, -1)
+    got = idx >= 0
+    sids = torch.where(got, idx, EMPTY)
+    skeys = torch.where(got, keys2[idx.clamp(min=0).long()], 0)
+    return bkeys, bids, skeys, sids, spill.clamp(max=s), spill > s
+
+
+def hybrid_recover(snap: SetState, persisted: torch.Tensor,
+                   keys: torch.Tensor, values: torch.Tensor,
+                   stamp: torch.Tensor, delta_idx: torch.Tensor, *,
+                   spec: SetSpec) -> SetState:
+    """Snapshot + delta-log recovery on the planes' device: O(delta) work
+    on top of the restored snapshot, bit-identical to ``recover`` on the
+    same crash planes.  The JAX package donates ``snap``: callers must not
+    use it afterwards.
+
+    ``snap`` is the canonical snapshot state at watermark W;
+    ``persisted``/``keys``/``values``/``stamp`` are the crash-time durable
+    planes; ``delta_idx`` i32[D] lists the slots with ``stamp > W`` (padded
+    with ``capacity``, see :func:`pad_delta`).  Slots outside the delta are
+    bit-identical between capture and crash (every durable mutation stamps
+    its slot inside the commit scatter), so classification -- the
+    ``recovery_scan`` kernel on the card -- runs over the gathered delta
+    only.  No psync is ever issued."""
+    backend = get_backend(spec.backend)
+    if backend.builds_probe_table:
+        raise ValueError(
+            f"backend {spec.backend!r} does not support hybrid recovery "
+            "(sequential probe-table build has no canonical delta patch); "
+            "use the full recover()")
+    n = spec.capacity
+    valid = delta_idx < n
+    gi = torch.where(valid, delta_idx, 0).long()
+    # classification over the compacted delta only (padding -> stage FREE)
+    member_d, _ = backend.recover_scan(
+        spec, torch.where(valid, persisted[gi], 0))
+    member_d = member_d & valid
+
+    scat = torch.where(valid, delta_idx, n).long()   # n => dropped lane
+    keys2 = set_drop(snap.keys, scat, torch.where(member_d, keys[gi], 0))
+    values2 = set_drop(snap.values, scat,
+                       torch.where(member_d, values[gi], 0))
+    cur2 = set_drop(snap.cur, scat, DS._where_i32(member_d, VALID, FREE))
+    stamp2 = set_drop(snap.stamp, scat, stamp[gi])
+    was_member = valid & (snap.cur[gi] == VALID)
+    state = snap._replace(
+        keys=keys2, values=values2, cur=cur2, flushed=cur2, stamp=stamp2,
+        size=snap.size + DS._count(member_d) - DS._count(was_member),
+        epoch=stamp2.max().clamp(min=0) + 1,
+    )
+    if backend.state_geometry(spec)[0] > 0:   # bucket: O(delta) index patch
+        bkeys, bids, skeys, sids, stash_n, ovf = _delta_bucket_patch(
+            snap, keys2, cur2, delta_idx, gi, valid, member_d, spec=spec)
+        return state._replace(bkeys=bkeys, bids=bids, skeys=skeys,
+                              sids=sids, stash_n=stash_n, overflow=ovf)
+    # scan backend: no volatile index to patch
+    return state._replace(overflow=torch.zeros((), dtype=torch.bool,
+                                               device=keys2.device))
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` that owns its memory: ``.numpy()`` of a CPU
+    tensor is a view, which a later in-place update would change."""
+    return t.detach().to("cpu", copy=True).numpy()
+
+
+def _on_device(a, device, dtype=None) -> torch.Tensor:
+    """A tensor on ``device`` that owns its memory, from host data:
+    ``torch.as_tensor`` of a CPU array would share the array's memory."""
+    return torch.tensor(np.asarray(a, dtype), device=device)
+
+
+def export_pool(state: SetState) -> dict:
+    """Host copies of the DURABLE node-pool planes at a dispatch boundary
+    (``cur == flushed`` holds there): the exact NVM content a migration,
+    resharding, or snapshot reads.  Zero psyncs -- a pure read of already
+    persisted planes.  The copies own their memory, so later batches never
+    change them."""
+    return {"stage": _host(state.flushed), "keys": _host(state.keys),
+            "values": _host(state.values), "stamp": _host(state.stamp)}
+
+
+def import_pool(planes: dict, *, spec: SetSpec, device="cuda"
+                ) -> Tuple[SetState, torch.Tensor]:
+    """Recovery-class bulk rebuild from raw pool planes (the
+    :func:`export_pool` layout) on ``device``: classification scan +
+    volatile-index build, exactly like crash recovery -- and like it, zero
+    psyncs.  The state owns its memory.  Returns ``(state, stage histogram
+    i32[5])``."""
+    dev = resolve_device(device)
+    return recover(*(_on_device(planes[f], dev, np.int32)
+                     for f in ("stage", "keys", "values", "stamp")),
+                   spec=spec)
+
+
+def _padded_len(size: int) -> int:
+    return max(8, 1 << max(0, int(size) - 1).bit_length())
+
+
+def pad_delta(idx: np.ndarray, capacity: int) -> np.ndarray:
+    """Pad a host-side delta slot list to a power-of-two length >= 8 with
+    ``capacity`` (the dropped-lane sentinel), so that the number of
+    distinct delta shapes is O(log N) and both packages see the same
+    ones."""
+    idx = np.asarray(idx, np.int32)
+    out = np.full((_padded_len(idx.size),), capacity, np.int32)
+    out[:idx.size] = idx
+    return out
+
+
+def hybrid_hist(meta: dict, raw_stage: np.ndarray, slots: np.ndarray,
+                stages: np.ndarray) -> np.ndarray:
+    """The stage histogram i32[5] a full scan of the crash planes would
+    count, corrected in O(delta) from the snapshot's (``meta["hist"]``,
+    over the capture's raw stages): the canonical snapshot collapsed
+    DELETED slots to FREE, so the stored capture-time raw stages of the
+    delta ``slots`` go out and their crash-time ``stages`` come in."""
+    hist = (np.asarray(meta["hist"], np.int64)
+            - np.bincount(np.clip(np.asarray(raw_stage)[slots], 0, 4),
+                          minlength=5)
+            + np.bincount(np.clip(stages, 0, 4), minlength=5))
+    return hist.astype(np.int32)
+
+
+def find_delta(persisted: torch.Tensor, stamp: torch.Tensor,
+               watermark: int):
+    """The delta of a crash, found on the planes' device: the slots whose
+    stamp is newer than ``watermark``.  Returns ``(delta_idx, slots,
+    stages)``: ``delta_idx`` i32 on the device, equal to
+    ``pad_delta(slots, N)``; the slots in ascending order and their
+    persisted stages, as host int32 arrays.  Two host syncs (the size of
+    the nonzero, and one copy of the delta and its stages), and the whole
+    stamp and stage planes never cross to the host."""
+    n = stamp.shape[0]
+    delta = torch.nonzero(stamp > watermark).flatten().to(torch.int32)
+    size = delta.numel()
+    host = torch.stack([delta, persisted[delta.long()]]).cpu().numpy()
+    delta_idx = torch.full((_padded_len(size),), n, dtype=torch.int32,
+                           device=stamp.device)
+    delta_idx[:size] = delta
+    return delta_idx, host[0], host[1]
+
+
+# ---------------------------------------------------------------------------
 # Object facade
 # ---------------------------------------------------------------------------
 
@@ -635,14 +878,19 @@ class DurableMap(MetricsMixin):
         self._check_overflow()
         return res
 
+    def _adversary(self, u) -> torch.Tensor:
+        """The crash adversary on the state's device: float32 in [0, 1) per
+        node, zeros when ``u`` is None."""
+        if u is None:
+            return torch.zeros_like(self.state.cur, dtype=torch.float32)
+        if not isinstance(u, torch.Tensor):
+            u = np.asarray(u, np.float32)
+        return torch.as_tensor(u, dtype=torch.float32, device=self.device)
+
     def crash_and_recover(self, u=None):
         """Crash under the adversary ``u`` (float32 in [0, 1) per node;
         zeros by default) and rebuild from the durable planes."""
-        if u is None:
-            u = torch.zeros_like(self.state.cur, dtype=torch.float32)
-        elif not isinstance(u, torch.Tensor):
-            u = np.asarray(u, np.float32)
-        u = torch.as_tensor(u, dtype=torch.float32, device=self.device)
+        u = self._adversary(u)
         self._metrics_pre_recovery()     # device counters are about to reset
         self._sync()
         t0 = time.perf_counter()
@@ -652,6 +900,92 @@ class DurableMap(MetricsMixin):
         self.last_recovery_hist = hist.cpu().numpy()
         self._metrics_post_recovery(scanned_slots=self.spec.capacity)
         self._post_recovery_overflow()   # latch recomputed; warning re-armed
+        return self
+
+    # --- snapshot + delta-log hybrid recovery (DESIGN.md §11) -----------
+
+    _SNAP_FIELDS = ("keys", "values", "cur", "stamp", "bkeys", "bids",
+                    "skeys", "sids", "stash_n", "size", "overflow")
+
+    @property
+    def supports_hybrid(self) -> bool:
+        return supports_hybrid_recovery(self.spec)
+
+    def snapshot_capture(self) -> dict:
+        """Cheap synchronous phase: host-copy the durable planes at a
+        dispatch boundary and open a new stamp generation.  Every commit
+        from here on stamps ``> W``, so the op stream IS the delta log on
+        top of this capture.  Zero psyncs: every plane copied is already
+        durable (``cur == flushed`` at each dispatch boundary), so this is
+        a pure read of NVM."""
+        w = int(self.state.epoch)
+        pool = export_pool(self.state)
+        cap = {"watermark": w, "raw_stage": pool["stage"],
+               "keys": pool["keys"], "values": pool["values"],
+               "stamp": pool["stamp"]}
+        self.state = self.state._replace(epoch=torch.full(
+            (), w + 1, dtype=torch.int32, device=self.device))
+        return cap
+
+    def snapshot_build(self, cap: dict):
+        """Expensive phase, safe in a background thread (a pure function of
+        the captured host copies; it runs on the device's default stream):
+        canonicalize the capture by running the normal ``recover`` on it,
+        so the stored snapshot is exactly the full-rebuild state at
+        watermark W and hybrid recovery can patch it in O(delta).  Returns
+        (planes, meta) for the store."""
+        st, hist = import_pool({"stage": cap["raw_stage"],
+                                "keys": cap["keys"],
+                                "values": cap["values"],
+                                "stamp": cap["stamp"]},
+                               spec=self.spec, device=self.device)
+        planes = {f: _host(getattr(st, f)) for f in self._SNAP_FIELDS}
+        planes["raw_stage"] = cap["raw_stage"]
+        meta = {"kind": "map", "watermark": cap["watermark"],
+                "hist": hist.tolist()}
+        return planes, meta
+
+    def _snapshot_state(self, planes: dict) -> SetState:
+        """The canonical snapshot state on the map's device from stored
+        planes (the probe ``table`` is all-EMPTY for hybrid-capable
+        backends, so ``make_state`` provides it; counters restart at zero
+        exactly as full recovery's do).  Every leaf owns its memory, so
+        the planes never change under later batches."""
+        def leaf(f):
+            return _on_device(planes[f], self.device)
+        cur = leaf("cur")
+        return make_state(self.spec, device=self.device)._replace(
+            keys=leaf("keys"), values=leaf("values"), cur=cur, flushed=cur,
+            stamp=leaf("stamp"), bkeys=leaf("bkeys"), bids=leaf("bids"),
+            skeys=leaf("skeys"), sids=leaf("sids"), stash_n=leaf("stash_n"),
+            size=leaf("size"), overflow=leaf("overflow"))
+
+    def hybrid_crash_and_recover(self, planes: dict, meta: dict, u=None):
+        """Crash (losing the volatile index) and recover from the stored
+        snapshot + the stamp delta instead of the full pool: O(delta)
+        classification and index patch, bit-identical to
+        ``crash_and_recover`` under the same adversary ``u``.  The delta is
+        found and gathered on the device (:func:`find_delta`).  Recovery
+        psyncs: exactly 0, as always."""
+        u = self._adversary(u)
+        n = self.spec.capacity
+        self._metrics_pre_recovery()
+        self._sync()
+        t0 = time.perf_counter()
+        crashed = DS.crash(self.state, u)
+        delta_idx, delta, stage_d = find_delta(crashed[0], crashed[3],
+                                               int(meta["watermark"]))
+        snap = self._snapshot_state(planes)
+        self.state = hybrid_recover(snap, *crashed, delta_idx,
+                                    spec=self.spec)
+        self.last_recovery_hist = hybrid_hist(meta, planes["raw_stage"],
+                                              delta, stage_d)
+        self._sync()
+        self.last_recovery_seconds = time.perf_counter() - t0
+        self._metrics_post_recovery(scanned_slots=int(delta.size),
+                                    from_snapshot=n - int(delta.size),
+                                    from_delta=int(delta.size))
+        self._post_recovery_overflow()
         return self
 
     @property

@@ -24,7 +24,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.core.drop import set_drop
+from repro_torch.core.drop import set_drop, where_sized
 from repro_torch.core.nvm import hash32, EMPTY, VALID
 from repro_torch.kernels.hash_probe.kernel import probe_cuda
 from repro_torch.kernels.hash_probe.ref import probe_ref
@@ -87,13 +87,7 @@ def bucket_init(keys: torch.Tensor, cur: torch.Tensor, *, nb: int, w: int,
                                     torch.full_like(flat, n)), True)
     stashed = (cur == VALID) & ~in_table
     spill = stashed.sum().to(_I32)
-    # the first s stashed node ids in ascending order (JAX's sized
-    # ``jnp.where(stashed, size=s, fill_value=-1)``): each stashed node's
-    # rank scattered into a fixed buffer, with no host sync
-    rank = torch.cumsum(stashed.to(torch.int64), 0) - 1
-    tgt = torch.where(stashed & (rank < s), rank, torch.full_like(rank, s))
-    idx = set_drop(torch.full((s,), -1, dtype=_I32, device=dev), tgt,
-                   torch.arange(n, dtype=_I32, device=dev))
+    idx = where_sized(stashed, s, -1)    # the first s stashed ids, ascending
     got = idx >= 0
     sids = torch.where(got, idx, torch.full_like(idx, EMPTY))
     skeys = torch.where(got, keys[idx.clamp(min=0)], torch.zeros_like(idx))

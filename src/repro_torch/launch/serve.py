@@ -9,10 +9,14 @@ one psync; recovery costs none.  Prefill attention runs the port's
 ``flash_prefill`` kernel and decode attention its ``gqa_decode`` kernel;
 the registry (the probe backend by default, as in ``repro.launch.serve``)
 runs ``hash_probe``'s probe-window kernel and, on ``--crash``,
-``recovery_scan``.
+``recovery_scan``.  ``--snapshot-every N`` snapshots the registry in the
+background every N serving steps (``repro_torch.store.snapshot``); a crash
+then recovers from the latest snapshot and the stamp delta, where the
+backend supports it (bucket and scan), and from the full pool otherwise.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b-smoke \\
-      --requests 8 --prompt-len 32 --gen 16 [--crash] [--device cpu]
+      --requests 8 --prompt-len 32 --gen 16 [--crash] [--device cpu] \\
+      [--snapshot-every 1 [--snapshot-dir DIR]]
 
 It runs on the GPU unless given ``--device cpu``.  ``run`` is the same path
 for a caller that holds a config object.
@@ -20,8 +24,11 @@ for a caller that holds a config object.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
+import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -31,6 +38,7 @@ from repro_torch.core import DurableMap, SetSpec
 from repro_torch.core.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.obs import MetricsRegistry
+from repro_torch.store.snapshot import SnapshotPolicy, Snapshotter
 from repro_torch.train import steps as TS
 
 # Options of repro.launch.serve that wait for their slices.
@@ -42,8 +50,6 @@ NOT_PORTED = {
     "--placement": "ROADMAP queue A, item 7 (sharded runtime)",
     "--max-lane-budget": "ROADMAP queue A, item 7 (sharded runtime)",
     "--pipeline": "ROADMAP queue A, item 7 (sharded runtime)",
-    "--snapshot-every": "ROADMAP queue A, item 9 (snapshot store)",
-    "--snapshot-dir": "ROADMAP queue A, item 9 (snapshot store)",
     "--autosplit": "ROADMAP queue A, item 10 (online resize)",
     "--open-loop": "ROADMAP queue A, item 11 (bench_serve)",
 }
@@ -60,13 +66,17 @@ def _sync(dev: torch.device) -> None:
 
 def run(cfg: ModelConfig, requests: int = 8, prompt_len: int = 32,
         gen: int = 16, crash: bool = False, backend: str = "probe",
-        device="cuda", params=None) -> dict:
+        device="cuda", params=None, snapshot_every: int = 0,
+        snapshot_dir: Optional[str] = None) -> dict:
     """Serve ``requests`` prompts of ``prompt_len`` tokens for ``gen``
     tokens each, record the completions in the registry, and with
     ``crash`` crash and recover it.  ``params`` defaults to
-    ``init_params(cfg, seed=0)``.  Returns the generated tokens, the
-    registry's counts and the timings (the device synchronized around
-    prefill and around the decode loop)."""
+    ``init_params(cfg, seed=0)``.  ``snapshot_every`` > 0 snapshots the
+    registry every that many serving steps into ``snapshot_dir`` (a fresh
+    temporary directory by default), and the crash recovers through the
+    snapshotter.  Returns the generated tokens, the registry's counts and
+    the timings (the device synchronized around prefill and around the
+    decode loop)."""
     dev = resolve_device(device)
     if params is None:
         params = M.init_params(cfg, seed=0, device=dev)
@@ -76,6 +86,15 @@ def run(cfg: ModelConfig, requests: int = 8, prompt_len: int = 32,
     registry = DurableMap(SetSpec(capacity=REGISTRY_CAPACITY, mode="soft",
                                   backend=backend),
                           metrics=m, metrics_name="registry", device=dev)
+    # background snapshots: the capture is a host copy of already-durable
+    # planes at the dispatch boundary, the build and save run off the hot
+    # path, so the serving loop's psync bill is unchanged
+    snapshotter = None
+    if snapshot_every > 0:
+        base = snapshot_dir or tempfile.mkdtemp(prefix="serve_snap_")
+        snapshotter = Snapshotter(registry, os.path.join(base, "registry"),
+                                  SnapshotPolicy(every_steps=snapshot_every))
+        print(f"snapshotter: every {snapshot_every} step(s) -> {base}")
     b = requests
     req_ids = np.arange(1000, 1000 + b, dtype=np.int32)
     max_seq = prompt_len + gen
@@ -105,6 +124,8 @@ def run(cfg: ModelConfig, requests: int = 8, prompt_len: int = 32,
 
     # durably record completions: one psync per request (SOFT bound)
     registry.insert(req_ids, tokens[:, -1])
+    if snapshotter is not None:
+        snapshotter.maybe_snapshot(1)     # the wave is serving step 1
     reg = m.snapshot()["collected"]["registry"]
     print(f"registry[{backend}]: {reg['size']} completed, "
           f"psyncs={reg['psyncs']} (== #requests)")
@@ -115,16 +136,29 @@ def run(cfg: ModelConfig, requests: int = 8, prompt_len: int = 32,
               "decode_ms_per_step": (t3 - t2) * 1e3 / max(gen - 1, 1)}
 
     if crash:
-        registry.crash_and_recover()
+        if snapshotter is None:
+            registry.crash_and_recover()
+        else:   # hybrid recovery where the backend supports it
+            snapshotter.wait()    # the build commits, as it would live
+            snapshotter.recover()
         done = registry.contains(req_ids).cpu().numpy()
         if not done.all():
             raise RuntimeError(f"registry lost {int((~done).sum())} of {b} "
                                "completions in crash and recovery")
         print(f"after crash+recovery: all {b} completions still registered")
+        if snapshotter is not None:
+            g = m.snapshot()["gauges"]
+            print("hybrid recovery: "
+                  f"{int(g['registry.last_recovery_from_delta_slots'])} "
+                  "delta slot(s) re-scanned, "
+                  f"{int(g['registry.last_recovery_from_snapshot_slots'])} "
+                  "restored from the snapshot")
         reg = m.snapshot()["collected"]["registry"]
         result.update(registered_after_recovery=int(done.sum()),
                       recovery_psyncs=reg["recovery_psyncs"],
                       psyncs_after_recovery=reg["psyncs"])
+    if snapshotter is not None:
+        snapshotter.close()
     return result
 
 
@@ -148,10 +182,20 @@ def main(argv=None):
                          "recovers through recovery_scan")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: the GPU)")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="background-snapshot the registry every N serving "
+                         "steps; --crash then recovers from the latest "
+                         "snapshot + the stamp delta (bucket and scan "
+                         "backends; probe falls back to the full-pool "
+                         "scan).  0 disables")
+    ap.add_argument("--snapshot-dir", default=None,
+                    help="snapshot store directory (default: a fresh "
+                         "temp dir)")
     args = ap.parse_args(argv)
     run(get_config(args.arch), requests=args.requests,
         prompt_len=args.prompt_len, gen=args.gen, crash=args.crash,
-        backend=args.backend, device=args.device)
+        backend=args.backend, device=args.device,
+        snapshot_every=args.snapshot_every, snapshot_dir=args.snapshot_dir)
     return 0
 
 

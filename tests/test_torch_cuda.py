@@ -31,6 +31,8 @@ from repro_torch.kernels.hash_probe.ref import (probe_ref,  # noqa: E402
 from repro_torch.kernels.recovery_scan.kernel import scan_cuda  # noqa: E402
 from repro_torch.kernels.recovery_scan.ref import scan_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.core import engine as TE  # noqa: E402
+from repro_torch.store.snapshot import Snapshotter  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -188,6 +190,68 @@ def test_map_on_the_card_uses_both_kernels(cuda):
     got = m.contains(np.arange(2000, dtype=np.int32)).cpu().numpy()
     np.testing.assert_array_equal(np.flatnonzero(got), keys)
     assert scan_cuda.launches == 1 and probe_cuda.launches == 2
+
+
+@pytest.mark.parametrize("d", (8, 64, 4096, 1 << 16))
+def test_scan_kernel_on_a_padded_delta(cuda, d):
+    """recovery_scan over the gathered delta of a hybrid recovery at each
+    padded length: the delta's stages, then stage FREE in the padding."""
+    rng = np.random.default_rng(d)
+    n = 1 << 17
+    persisted = torch.from_numpy(
+        rng.integers(0, 5, n).astype(np.int32)).to(cuda)
+    slots = np.sort(rng.choice(n, d * 3 // 4 + 1, replace=False))
+    delta_idx = torch.from_numpy(TE.pad_delta(slots, n)).to(cuda)
+    assert delta_idx.numel() == d
+    valid = delta_idx < n
+    gathered = torch.where(valid, persisted[torch.where(valid, delta_idx, 0)
+                                            .long()], 0)
+    before = scan_cuda.launches
+    mask, hist = scan_cuda(gathered)
+    assert scan_cuda.launches == before + 1
+    mask_p, hist_p = scan_ref(gathered)
+    torch.cuda.synchronize()
+    assert torch.equal(mask, mask_p) and torch.equal(hist, hist_p)
+
+
+def _clone(state):
+    return type(state)(*(t.clone() for t in state))
+
+
+@pytest.mark.parametrize("backend", ("bucket", "scan"))
+def test_hybrid_recovery_on_the_card_equals_full(cuda, backend, tmp_path):
+    """2^16 slots on the card: a snapshot through the Snapshotter, a delta
+    of mixed batches, a crash; recovery through the snapshot and the stamp
+    delta equals the full rebuild under the same adversary, every leaf and
+    the histogram, and classifies the delta with one recovery_scan
+    launch."""
+    rng = np.random.default_rng(5)
+    n = 1 << 16
+    spec = SetSpec(capacity=n, backend=backend)
+    m = DurableMap(spec, device=cuda)
+    keys = (rng.choice(4 * n, n // 2, replace=False) + 1).astype(np.int32)
+    for chunk in np.split(keys[: n // 4], 16):
+        assert m.insert(chunk).all()
+    sn = Snapshotter(m, str(tmp_path / "snap"))
+    sn.snapshot()
+    sn.wait()
+    for _ in range(20):
+        m.apply(rng.choice(3, 1024, p=[0.5, 0.3, 0.2]).astype(np.int32),
+                rng.choice(keys, 1024))
+    ref = DurableMap(spec, device=cuda)
+    ref.state = _clone(m.state)
+    u = rng.random(n, dtype=np.float32)
+    ref.crash_and_recover(u)
+    scan_cuda.launches = 0
+    sn.recover(u)
+    assert scan_cuda.launches == 1
+    got, want = state_to_numpy(m.state), state_to_numpy(ref.state)
+    for f in got:
+        np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+    np.testing.assert_array_equal(m.last_recovery_hist,
+                                  ref.last_recovery_hist)
+    assert m.psyncs == 0
+    sn.close()
 
 
 # the JAX tests' tolerances: decode test_kernels.py:53-54, prefill

@@ -201,11 +201,9 @@ def test_setspec_accepts_and_refuses_the_same_specs(kw):
             TE.DurableMap(ts, device="cpu")
 
 
-def test_unported_backends_name_their_roadmap_item():
-    """A backend of the JAX package that the port lacks would have to name
-    its ROADMAP item; since the probe and scan backends were ported, no
-    backend is left unported, and none of the port's specs raises
-    NotImplementedError."""
+def test_every_jax_backend_is_registered_in_the_port():
+    """Every backend of the JAX package is registered in the port, and a
+    spec naming it constructs without raising."""
     assert set(JE.BACKENDS) - set(TE.BACKENDS) == set()
     for backend in sorted(JE.BACKENDS):
         TE.SetSpec(capacity=8, backend=backend)

@@ -1,7 +1,10 @@
 """The port's serve entry point against the JAX package's, on the CPU: the
 registry lines each prints (its backend, completions and psyncs, and the
 completions still registered after ``--crash``) are the same, for the
-default backend and for each backend named."""
+default backend and for each backend named, and with background
+snapshots of the registry."""
+import os
+
 import pytest
 
 pytest.importorskip("torch")
@@ -28,3 +31,48 @@ def test_serve_prints_the_registry_lines_of_jax_serve(backend, capsys):
     got = _registry_lines(serve.main, ["--device", "cpu"] + argv, capsys)
     assert got == want and len(got) == 2
     assert got[0].startswith(f"registry[{backend or 'probe'}]: 2 completed")
+
+
+@pytest.mark.parametrize("backend", ("probe", "bucket"))
+def test_serve_with_snapshots_prints_the_lines_of_jax_serve(backend, capsys,
+                                                           tmp_path):
+    """``--snapshot-every 1 --crash``: the same snapshotter, registry and
+    recovery lines as the JAX driver -- hybrid recovery through the
+    snapshot on the bucket registry, the full-pool fallback on probe."""
+    lines = {}
+    for name, main in (("jax", jserve.main), ("torch", serve.main)):
+        d = tmp_path / name
+        argv = ARGS + ["--backend", backend, "--snapshot-every", "1",
+                       "--snapshot-dir", str(d)]
+        if name == "torch":
+            argv = ["--device", "cpu"] + argv
+        assert main(argv) == 0
+        lines[name] = [line.replace(str(d), "DIR") for line in
+                       capsys.readouterr().out.splitlines()
+                       if line.startswith(("snapshotter:", "registry[",
+                                           "after crash+recovery",
+                                           "hybrid recovery:"))]
+    assert lines["torch"] == lines["jax"] and len(lines["torch"]) == 4
+    assert lines["torch"][0] == "snapshotter: every 1 step(s) -> DIR"
+    restored = {"bucket": "0 delta slot(s) re-scanned, 1024 restored",
+                "probe": "1024 delta slot(s) re-scanned, 0 restored"}
+    assert restored[backend] in lines["torch"][3]
+    # the bucket registry's snapshot was committed and read back
+    assert os.listdir(tmp_path / "torch" / "registry") == (
+        ["step_000000000001"] if backend == "bucket" else [])
+
+
+@pytest.mark.parametrize("form", ["separate", "joined"])
+@pytest.mark.parametrize("flag", ["--snapshot-every", "--snapshot-dir"])
+def test_snapshot_flags_run(flag, form, capsys, tmp_path):
+    """The two snapshot options run (they raised NotImplementedError before
+    the snapshot store was ported), as ``--flag value`` and as
+    ``--flag=value``."""
+    value = "1" if flag == "--snapshot-every" else str(tmp_path / "s")
+    args = [flag, value] if form == "separate" else [f"{flag}={value}"]
+    assert serve.main(["--device", "cpu", *ARGS, "--backend", "bucket",
+                       *args]) == 0
+    out = capsys.readouterr().out
+    assert "after crash+recovery: all 2 completions" in out
+    assert ("snapshotter: every 1 step(s)" in out) == \
+        (flag == "--snapshot-every")
