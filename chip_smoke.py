@@ -64,6 +64,32 @@ Phases, each of which exits non-zero on failure:
    1 --crash`` at qwen3-32b-smoke.  The kernels' launch counts are
    zeroed before the hash-1M hybrid run and read after it
    (``launches_hybrid`` in the JSON record).
+3c. The sharded map, ``ShardedDurableMap`` with 8 shards at the hash-1M
+   geometry (2^21 slots in all, 2^18 per shard; key range 2^20, 2^19 keys
+   prefilled in batches of 8192, 200 mixed batches of 1024 lanes, a crash
+   under a seeded per-shard adversary, recovery, 20 more batches), on the
+   bucket backend (snapshotted through ``Snapshotter`` after the prefill
+   and recovered through it, every leaf held against the full recovery of
+   a copy of the same pre-crash state) and on the probe backend: every
+   result, the size, the psyncs and ops, the summed and per-shard
+   histograms and the whole key range against the host reference, no lane
+   dropped, ``recovery_scan`` once per shard per recovery, the lookup
+   kernel's launches per batch printed.  Before them the three kernels
+   against their plain versions at one shard's shapes (N = 2^18; NB 2^16,
+   W 8; T 2^20; B 256, the lane budget a 1024-lane batch routes to each
+   shard), timed (``shard_shape`` in the JSON record).  Then the same
+   traffic at equal total capacity (30 batches) on the flat bucket map,
+   one shard and 8 shards: ops/s, device operations per batch and busy
+   share (profiled), host syncs per batch by site, the v2 router's
+   stage-1 host ms per batch, recovery ms.
+   Then a capped v2 router (``max_lane_budget`` 64, strided, 2 groups) and
+   the v1 router over 20 batches each: drop masks equal to the host rule,
+   psyncs equal to the successful updates.  Then the serve CLI with
+   ``--shards 8 --crash``, and again with ``--backend bucket
+   --snapshot-every 1``; then the card tests of
+   ``tests/test_torch_cuda.py`` whose names hold "sharded", in a child
+   process.  Launch counts are zeroed before each sharded run and read
+   after it (``launches_sharded`` in the JSON record).
 
 4. Attention kernels against their plain versions on the card, in f32 and
    bf16 at the JAX tests' tolerances: ``gqa_decode`` at qwen3-32b's decode
@@ -110,6 +136,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -126,9 +153,11 @@ import torch  # noqa: E402
 from repro_torch.configs import paper  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import (DurableMap, SetSpec, OP_CONTAINS,  # noqa: E402
-                              OP_INSERT, OP_REMOVE, VALID, EMPTY, TOMB,
-                              hash32)
+                              OP_INSERT, OP_NOP, OP_REMOVE, VALID, EMPTY,
+                              TOMB, ShardedDurableMap, hash32)
 from repro_torch.core import durable_set as DS  # noqa: E402
+from repro_torch.core import router as RT  # noqa: E402
+from repro_torch.core import shard as SH  # noqa: E402
 from repro_torch.core import engine as TE  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_prefill.kernel import (  # noqa: E402
@@ -545,18 +574,34 @@ def traffic(rng, n_batches, b, key_range):
     return ops, keys, vals
 
 
+def lanes(m, dev, batches):
+    """The batches as ``m`` takes them: device tensors for a
+    ``DurableMap``; host arrays for a ``ShardedDurableMap``, whose stage-1
+    router runs on the host."""
+    if isinstance(m, ShardedDurableMap):
+        return batches
+    return tuple(torch.from_numpy(a).to(dev) for a in batches)
+
+
+def results(out) -> np.ndarray:
+    """Per-lane results of a run of batches as one host array (the flat
+    map's stay on the device until here; the sharded map's are host
+    arrays already)."""
+    if isinstance(out[0], torch.Tensor):
+        return torch.stack(out).cpu().numpy()
+    return np.stack([np.asarray(o) for o in out])
+
+
 def drive(m, ref, dev, ops, keys, vals, label):
     """Apply the batches, timed between synchronizations, then check every
     lane against the reference.  Returns ops/s."""
-    dops = torch.from_numpy(ops).to(dev)
-    dkeys = torch.from_numpy(keys).to(dev)
-    dvals = torch.from_numpy(vals).to(dev)
+    dops, dkeys, dvals = lanes(m, dev, (ops, keys, vals))
     sync(dev)
     t0 = time.perf_counter()
     out = [m.apply(dops[i], dkeys[i], dvals[i]) for i in range(len(ops))]
     sync(dev)
     dt = time.perf_counter() - t0
-    got = torch.stack(out).cpu().numpy()
+    got = results(out)
     for i in range(len(ops)):
         exp = ref.apply(ops[i], keys[i], vals[i])
         expect((got[i] == exp).all(),
@@ -573,14 +618,14 @@ def check_membership(m, ref, dev, chunk: int, label: str):
     the op bodies build B x B matrices) and a sample through get."""
     n = ref.present.size
     got = np.concatenate([
-        m.contains(torch.arange(s, min(s + chunk, n), dtype=torch.int32,
-                                device=dev)).cpu().numpy()
+        results([m.contains(lanes(m, dev, (np.arange(
+            s, min(s + chunk, n), dtype=np.int32),))[0])])[0]
         for s in range(0, n, chunk)])
     expect((got == ref.present).all(),
            f"{label}: membership differs for {(got != ref.present).sum()} "
            "keys")
     sample = np.flatnonzero(ref.present)[:chunk].astype(np.int32)
-    vals = m.get(torch.from_numpy(sample).to(dev)).cpu().numpy()
+    vals = results([m.get(lanes(m, dev, (sample,))[0])])[0]
     expect((vals == ref.value[sample]).all(), f"{label}: get values")
     ref.ops += n + sample.size
     expect(m.ops == ref.ops and m.psyncs == ref.psyncs,
@@ -610,11 +655,14 @@ def profile(m, ref, dev, batches, label):
         wall_us = (time.perf_counter() - t0) * 1e6
     rows, busy = device_rows(prof)
     n_batches = len(batches[0])
+    share = 100 * busy / wall_us
+    per_batch = sum(r[1] for r in rows) / n_batches
     print(f"{label} profile: {n_batches} batches, wall {wall_us:.1f} us, "
-          f"device busy {busy:.1f} us ({100 * busy / wall_us:.2f}%), "
-          f"{sum(r[1] for r in rows) / n_batches:.1f} device ops per batch")
+          f"device busy {busy:.1f} us ({share:.2f}%), "
+          f"{per_batch:.1f} device ops per batch")
     for us, n, key in rows[:10]:
         print(f"  {us:12.1f} us {n:6d}x  {key[:90]}")
+    return share, per_batch
 
 
 @contextlib.contextmanager
@@ -653,12 +701,12 @@ def count_syncs(m, ref, dev, batches, label):
     apart and not counted.  The results are checked against the reference
     after the count."""
     ops, keys, vals = batches
-    d_ops, d_keys, d_vals = (torch.from_numpy(a).to(dev) for a in batches)
+    d_ops, d_keys, d_vals = lanes(m, dev, batches)
     sync(dev)
     with sync_sites() as (sites, other):
         out = [m.apply(d_ops[i], d_keys[i], d_vals[i])
                for i in range(len(ops))]
-    got = torch.stack(out).cpu().numpy()
+    got = results(out)
     for i in range(len(ops)):
         expect((got[i] == ref.apply(ops[i], keys[i], vals[i])).all(),
                f"{label} sync count: batch {i} differs from the reference")
@@ -934,6 +982,350 @@ def check_serve_snapshots(dev):
     expect(launches["recovery_scan"] == 2 and launches["hash_probe"] > 0,
            "serve with snapshots: expected recovery_scan twice (the "
            "snapshot's build, the hybrid recovery) and hash_probe")
+
+
+# ---------------------------------------------------------------------------
+# 3c. the sharded map on one card
+# ---------------------------------------------------------------------------
+
+N_SHARDS = 8
+PREFILL_BATCH = 8192               # lanes per prefill batch, sharded runs
+MEMBER_CHUNK = 65536               # lanes per membership read of those runs
+
+
+def lookup_kernel(backend):
+    """The wrapper of the backend's lookup kernel, and its JSON name."""
+    return ((probe_cuda, "hash_probe") if backend == "bucket"
+            else (table_probe_cuda, "table_probe"))
+
+
+def prefill(m, ref, dev, rng, key_range, n, b, label):
+    pre = rng.choice(key_range, n, replace=False).astype(np.int32)
+    pre = pre.reshape(-1, b)
+    drive(m, ref, dev, np.full(pre.shape, OP_INSERT, np.int32), pre,
+          rng.integers(0, 1 << 31, pre.shape, dtype=np.int32),
+          f"{label} prefill")
+
+
+def check_recovery_hist(m, ref, label):
+    hist = np.asarray(m.last_recovery_hist)
+    expect(int(hist.sum()) == m.n_shards * m.spec.capacity,
+           f"{label}: histogram sum")
+    expect(int(hist[VALID]) == int(ref.present.sum()),
+           f"{label}: VALID bin {int(hist[VALID])} != reference size")
+    shards = m.last_recovery_hist_shards
+    expect(shards.shape == (m.n_shards, 5)
+           and (shards.sum(axis=0) == hist).all()
+           and (shards.sum(axis=1) == m.spec.capacity).all(),
+           f"{label}: per-shard histograms")
+    live = np.bincount(SH.np_shard_of(np.flatnonzero(ref.present),
+                                      m.n_shards), minlength=m.n_shards)
+    expect((shards[:, VALID] == live).all(),
+           f"{label}: per-shard VALID bins {shards[:, VALID].tolist()} != "
+           f"the reference's {live.tolist()}")
+
+
+def run_sharded(dev, backend, capacity, key_range, prefill_keys, n_batches,
+                n_after, b, snapshot=False, label="sharded"):
+    """A SOFT ``ShardedDurableMap`` of ``N_SHARDS`` shards through prefill,
+    mixed traffic, crash + recovery and more traffic, every step against
+    the host reference, the whole key range read back after the recovery
+    and at the end.  With ``snapshot``, a ``Snapshotter`` snapshots the
+    map after the prefill and the crash recovers through it (hybrid),
+    every leaf held against the full ``crash_and_recover`` of a copy of
+    the same pre-crash state under the same per-shard adversary.  Returns
+    the numbers and the kernels' launches on the path."""
+    rng = np.random.default_rng([SEED, capacity, N_SHARDS])
+    spec = SetSpec(capacity=capacity, mode="soft", backend=backend)
+    m = ShardedDurableMap(spec, n_shards=N_SHARDS, device=dev)
+    ref = Reference(key_range, "soft")
+    lookup, lname = lookup_kernel(backend)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shard_") as tmp:
+        scan_cuda.launches = lookup.launches = 0
+        prefill(m, ref, dev, rng, key_range, prefill_keys,
+                min(PREFILL_BATCH, prefill_keys), label)
+        sn = None
+        if snapshot:
+            sn = Snapshotter(m, tmp)
+            sn.snapshot()
+            sn.wait()
+        n0 = lookup.launches
+        out["ops_s"] = drive(m, ref, dev, *traffic(rng, n_batches, b,
+                                                   key_range),
+                             f"{label} traffic")
+        out["lookups_per_batch"] = (lookup.launches - n0) / n_batches
+        expect(not m.overflowed, f"{label}: overflow latched")
+        expect(m.router_dropped == 0, f"{label}: v2 uncapped dropped lanes")
+        u = np.random.default_rng([SEED, 7]).random(
+            tuple(m.state.cur.shape)).astype(np.float32)
+        pre_crash = clone_state(m.state) if snapshot else None
+        n_scan = scan_cuda.launches
+        if snapshot:
+            sn.recover(u)
+            sn.close()
+        else:
+            m.crash_and_recover(u)
+        out["scans_per_recovery"] = scan_cuda.launches - n_scan
+        out["recovery_ms"] = m.last_recovery_seconds * 1e3
+        check_recovery_hist(m, ref, label)
+        expect(m.psyncs == 0 and m.ops == 0,
+               f"{label}: counters after recovery (recovery psyncs)")
+        recovered = clone_state(m.state)
+        ref.psyncs = ref.ops = 0
+        check_membership(m, ref, dev, MEMBER_CHUNK, f"{label} after recovery")
+        drive(m, ref, dev, *traffic(rng, n_after, b, key_range),
+              f"{label} after recovery")
+        check_membership(m, ref, dev, MEMBER_CHUNK, f"{label} end")
+        launches = {"recovery_scan": scan_cuda.launches,
+                    lname: lookup.launches}
+        if snapshot:
+            # the full rebuild of the same pre-crash state: a comparison
+            full = ShardedDurableMap(spec, n_shards=N_SHARDS, device=dev)
+            full.state = pre_crash
+            full.crash_and_recover(u)
+            out["full_ms"] = full.last_recovery_seconds * 1e3
+            for f in recovered._fields:
+                if f in ("n_psync", "n_ops"):
+                    continue
+                expect(torch.equal(getattr(recovered, f),
+                                   getattr(full.state, f)),
+                       f"{label}: leaf {f} differs between hybrid and full "
+                       "recovery")
+            del full
+    print(f"{label}: {backend}, SOFT, {N_SHARDS} shards x "
+          f"{m.spec.capacity} slots, {len(m)} live; mixed batches "
+          f"{out['ops_s']:.1f} ops/s; {out['lookups_per_batch']:.2f} "
+          f"{lname} launches per batch "
+          f"({out['lookups_per_batch'] / N_SHARDS:.2f} per shard); "
+          f"recovery {out['recovery_ms']:.3f} ms"
+          + (f" through the snapshot (full rebuild of the same planes "
+             f"{out['full_ms']:.3f} ms, every leaf equal)" if snapshot
+             else "")
+          + f", recovery_scan {out['scans_per_recovery']} launches; "
+          f"histogram {m.last_recovery_hist.tolist()}")
+    print(f"{label}: launches {launches}")
+    expect(out["scans_per_recovery"] == N_SHARDS,
+           f"{label}: recovery_scan launched {out['scans_per_recovery']} "
+           f"times by the recovery, expected {N_SHARDS} (one per shard)")
+    expect(all(v > 0 for v in launches.values()),
+           f"{label}: a kernel of the sharded path was never launched")
+    return out, launches
+
+
+def stage1_ms(sspec, batches):
+    """Host milliseconds per batch of the v2 router's stage 1 alone."""
+    ops, keys, vals = batches
+    t0 = time.perf_counter()
+    for i in range(len(ops)):
+        RT.release_plan(RT.host_route(sspec, ops[i], keys[i], vals[i]))
+    return (time.perf_counter() - t0) * 1e3 / len(ops)
+
+
+def compare_sharding(dev, capacity, key_range, prefill_keys, n_batches, b,
+                     n_profiled):
+    """The same traffic at equal total capacity on the flat bucket
+    ``DurableMap``, a ``ShardedDurableMap`` of one shard and one of
+    ``N_SHARDS``: ops/s, device operations per batch and the device's busy
+    share (profiled batches), host syncs per batch by site, stage-1 router
+    ms per batch, recovery ms."""
+    rows = {}
+    for name, n_shards in (("flat", 0), ("s1", 1), (f"s{N_SHARDS}",
+                                                    N_SHARDS)):
+        rng = np.random.default_rng([SEED, capacity, 3])
+        spec = SetSpec(capacity=capacity, mode="soft", backend="bucket")
+        m = (DurableMap(spec, device=dev) if not n_shards else
+             ShardedDurableMap(spec, n_shards=n_shards, device=dev))
+        ref = Reference(key_range, "soft")
+        label = f"compare {name}"
+        prefill(m, ref, dev, rng, key_range, prefill_keys,
+                min(PREFILL_BATCH if n_shards else b, prefill_keys), label)
+        batches = traffic(rng, n_batches, b, key_range)
+        ops_s = drive(m, ref, dev, *batches, label)
+        busy, dev_ops = profile(m, ref, dev, traffic(rng, n_profiled, b,
+                                                     key_range), label)
+        syncs = count_syncs(m, ref, dev, traffic(rng, n_profiled, b,
+                                                 key_range), label)
+        s1 = stage1_ms(m.sspec, batches) if n_shards else None
+        m.crash_and_recover(np.random.default_rng([SEED, 7]).random(
+            tuple(m.state.cur.shape)).astype(np.float32))
+        if n_shards:
+            check_recovery_hist(m, ref, label)
+        rows[name] = dict(ops_s=ops_s, dev_ops=dev_ops, busy=busy,
+                          syncs=syncs, stage1_ms=s1,
+                          recovery_ms=m.last_recovery_seconds * 1e3)
+        print(f"{label}: {ops_s:.1f} ops/s, {dev_ops:.1f} device ops per "
+              f"batch, device busy {busy:.2f}%, {syncs:.2f} host syncs per "
+              f"batch in the port's code, recovery "
+              f"{rows[name]['recovery_ms']:.3f} ms"
+              + (f"; stage-1 router {s1:.3f} ms per batch on the host"
+                 if s1 is not None else ""))
+        del m
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return rows
+
+
+def host_kept(sspec, ops, keys):
+    """The v2 drop rule on the host (tests/test_durability_property.py):
+    per storage row, the first L real lanes in batch order are kept, L the
+    adaptive budget of the batch's realized occupancy."""
+    d = RT.resolve_groups(sspec)
+    rows = RT._np_row_of(keys, sspec, d)
+    real = ops != OP_NOP
+    budget = RT.adaptive_lane_budget(
+        sspec, keys.size, int(np.bincount(rows[real],
+                                          minlength=sspec.n_shards).max()))
+    kept = np.ones(keys.size, bool)
+    taken = np.zeros(sspec.n_shards, np.int64)
+    for j in np.flatnonzero(real):
+        taken[rows[j]] += 1
+        kept[j] = taken[rows[j]] <= budget
+    return kept
+
+
+def run_routed(dev, capacity, key_range, n_batches, b, label, **kw):
+    """A SOFT sharded map under a router setting that drops lanes: every
+    drop mask equal to the host rule (v2) or ``np_v1_drop_mask`` (v1),
+    every kept lane's result equal to the reference fed the kept lanes
+    only, and psyncs equal to the successful updates exactly."""
+    rng = np.random.default_rng([SEED, capacity, 11])
+    m = ShardedDurableMap(SetSpec(capacity=capacity, mode="soft",
+                                  backend="bucket"),
+                          n_shards=N_SHARDS, device=dev, **kw)
+    ref = Reference(key_range, "soft")
+    ops, keys, vals = traffic(rng, n_batches, b, key_range)
+    dropped = 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        for i in range(n_batches):
+            got = m.apply(ops[i], keys[i], vals[i])
+            if m.sspec.router == "v1":
+                kept = ~SH.np_v1_drop_mask(
+                    keys[i], n_shards=N_SHARDS,
+                    lane_budget=m.sspec.lane_budget(b))
+            else:
+                kept = host_kept(m.sspec, ops[i], keys[i])
+            expect((m.last_drop_mask == ~kept).all(),
+                   f"{label}: batch {i} drop mask differs from the host rule")
+            ops_k = np.where(kept, ops[i], OP_NOP).astype(np.int32)
+            exp = ref.apply(ops_k, keys[i], vals[i])
+            ref.ops -= int((~kept).sum())
+            expect((got == exp).all(), f"{label}: batch {i} results")
+            dropped += int((~kept).sum())
+    expect(m.router_dropped == dropped and dropped > 0,
+           f"{label}: {m.router_dropped} lanes dropped, host rule "
+           f"{dropped}")
+    expect(m.psyncs == ref.psyncs and m.ops == ref.ops,
+           f"{label}: psyncs {m.psyncs} (reference {ref.psyncs}), ops "
+           f"{m.ops} ({ref.ops})")
+    print(f"{label}: {n_batches} batches of {b}, {dropped} lanes dropped "
+          f"as the host rule says, psyncs {m.psyncs} == successful updates")
+
+
+def check_serve_shards(dev):
+    """The port's serve CLI on the card with an 8-shard registry, plain and
+    with the bucket registry snapshotted every step."""
+    for extra in ([], ["--backend", "bucket", "--snapshot-every", "1"]):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = serve.main(["--device", str(dev), "--arch",
+                                 "qwen3-32b-smoke", "--shards",
+                                 str(N_SHARDS), "--crash", "--requests", "4",
+                                 "--prompt-len", "8", "--gen", "4",
+                                 "--snapshot-dir", tmp, *extra])
+            text = buf.getvalue()
+        print(text, end="")
+        backend = "bucket" if extra else "probe"
+        expect(rc == 0
+               and f"registry[{backend} x{N_SHARDS} shards]: 4 completed, "
+                   "psyncs=4 (== #requests)" in text
+               and "after crash+recovery: all 4 completions still "
+                   "registered" in text
+               and (not extra or "hybrid recovery: 0 delta slot(s) "
+                    "re-scanned, 1024 restored from the snapshot" in text),
+               f"serve --shards {N_SHARDS} {' '.join(extra)} did not print "
+               "its lines")
+
+
+def run_card_tests(label, select):
+    """The card tests of tests/test_torch_cuda.py that ``select`` picks,
+    in a child process (waited for)."""
+    test = ROOT / "tests" / "test_torch_cuda.py"
+    if not test.exists():
+        expect(False, f"{label}: {test} is missing")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "--noconftest", "-m", "cuda",
+         "-p", "no:cacheprovider", "-k", select, str(test)],
+        capture_output=True, text=True, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    tail = proc.stdout.strip().splitlines()[-1:] or [""]
+    print(f"{label}: {tail[0]} ({time.perf_counter() - t0:.1f} s)")
+    expect(proc.returncode == 0,
+           f"{label}: card tests failed:\n{proc.stdout[-4000:]}")
+
+
+def check_shard_kernels(dev, cap, key_range, b):
+    """The three kernels against their plain versions at the shapes one
+    shard gives them: ``recovery_scan`` over a shard's pool, the bucket
+    ``hash_probe`` and ``table_probe`` over a shard's index holding its
+    share of the prefill, at the lane budget a ``b``-lane batch routes to
+    each shard (the next power of two above ``b / S``, here 2b/S).
+    Returns their JSON fields."""
+    per, per_range = cap // N_SHARDS, key_range // N_SHARDS
+    lanes_per_shard = 2 * b // N_SHARDS
+    rows = {"recovery_scan": check_scan(dev, [per])}
+    nb, w = SetSpec(capacity=per, backend="bucket").bucket_geometry()
+    rows["hash_probe"] = check_probe(dev, capacity=per, key_range=per_range,
+                                     live=per // 4, nb=nb, w=w,
+                                     batches=[lanes_per_shard])
+    keys, member, live_keys = probe_pool(dev, per, per_range, per // 4)
+    table, ovf, _ = build_probe_table(dev, keys, member)
+    expect(not ovf, "a shard's probe table overflowed")
+    q = _queries(np.random.default_rng(SEED), live_keys, per_range,
+                 lanes_per_shard, dev)
+    rows["table_probe"] = check_table_probe(
+        dev, f"shard T={table.shape[0]} B={lanes_per_shard}", table, keys,
+        q, pool_member=member)
+    return {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms")}
+            for k, v in rows.items()}
+
+
+def run_sharded_phase(dev):
+    """Phase 3c.  Returns the sharded launches and the kernels' times at
+    a shard's shapes for the JSON record."""
+    t0 = time.perf_counter()
+    cap, kr = 1 << 21, 1 << 20
+    print(f"phase 3c: ShardedDurableMap, {N_SHARDS} shards of "
+          f"{cap // N_SHARDS} slots (hash-1M geometry), key range 2^20")
+    shapes = check_shard_kernels(dev, cap, kr, 1024)
+    _, bucket = run_sharded(dev, "bucket", cap, kr, 1 << 19, 200, 20, 1024,
+                            snapshot=True, label="sharded bucket")
+    _, probe = run_sharded(dev, "probe", cap, kr, 1 << 19, 200, 20, 1024,
+                           label="sharded probe")
+    rows = compare_sharding(dev, cap, kr, 1 << 19, 30, 1024, 10)
+    flat, s8 = rows["flat"], rows[f"s{N_SHARDS}"]
+    print(f"sharding at equal total capacity (bucket, SOFT): ops/s flat "
+          f"{flat['ops_s']:.1f}, s1 {rows['s1']['ops_s']:.1f}, s{N_SHARDS} "
+          f"{s8['ops_s']:.1f} ({s8['ops_s'] / flat['ops_s']:.3f}x flat); "
+          f"device ops per batch {flat['dev_ops']:.1f} / "
+          f"{rows['s1']['dev_ops']:.1f} / {s8['dev_ops']:.1f}; host syncs "
+          f"per batch {flat['syncs']:.2f} / {rows['s1']['syncs']:.2f} / "
+          f"{s8['syncs']:.2f}; recovery ms {flat['recovery_ms']:.3f} / "
+          f"{rows['s1']['recovery_ms']:.3f} / {s8['recovery_ms']:.3f}")
+    run_routed(dev, cap, kr, 20, 1024, "capped v2 (max_lane_budget 64, "
+               "strided, 2 groups)", max_lane_budget=64,
+               placement="strided", n_device_groups=2)
+    run_routed(dev, cap, kr, 20, 1024, "v1 router", router="v1",
+               lane_factor=1)
+    check_serve_shards(dev)
+    run_card_tests("sharded card tests", "sharded")
+    print(f"phase 3c: {time.perf_counter() - t0:.1f} s")
+    return {"recovery_scan": bucket["recovery_scan"],
+            "hash_probe": bucket["hash_probe"],
+            "table_probe": probe["table_probe"], "shapes": shapes}
 
 
 # ---------------------------------------------------------------------------
@@ -1453,6 +1845,10 @@ def main() -> int:
     check_serve_snapshots(dev)
     torch.cuda.empty_cache()
 
+    # 3c. the sharded map: 8 shards at the hash-1M geometry
+    sharded = run_sharded_phase(dev)
+    torch.cuda.empty_cache()
+
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
     attn = check_attention_kernels(dev)
@@ -1470,20 +1866,26 @@ def main() -> int:
          "replaces": "src/repro/kernels/recovery_scan/kernel.py:42",
          "launches": launches["recovery_scan"], **scan,
          "bound_by": "bytes", "library_ms": None,
-         "launches_hybrid": hybrid_launches["recovery_scan"]},
+         "launches_hybrid": hybrid_launches["recovery_scan"],
+         "launches_sharded": sharded["recovery_scan"],
+         "shard_shape": sharded["shapes"]["recovery_scan"]},
         {"name": "hash_probe", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hash_probe.cu",
          "replaces": "src/repro/kernels/hash_probe/kernel.py:64",
          "launches": launches["hash_probe"], **probe,
          "bound_by": "bytes", "library_ms": None,
          "launches_hybrid": hybrid_launches["hash_probe"],
+         "launches_sharded": sharded["hash_probe"],
+         "shard_shape": sharded["shapes"]["hash_probe"],
          # the second route of probe_pallas (the probe backend's
          # table_lookup), the entry table_probe of the same source
          "probe_window": {
              "entry": "table_probe",
              "replaces": "src/repro/kernels/hash_probe/ops.py:157",
              "launches": probe_launches["table_probe"],
-             "launches_serving": serving["table_probe"], **window,
+             "launches_serving": serving["table_probe"],
+             "launches_sharded": sharded["table_probe"],
+             "shard_shape": sharded["shapes"]["table_probe"], **window,
              "bound_by": "bytes", "library_ms": None,
              "table_build_ms_2e21": probe_build_ms}},
         {"name": "gqa_decode", "route": "cuda",

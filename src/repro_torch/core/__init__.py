@@ -1,6 +1,8 @@
 """Durable lock-free sets (link-free / SOFT / log-free) in PyTorch.
 
-Public surface: ``SetSpec`` + ``DurableMap`` (see repro_torch.core.engine).
+Public surface: ``SetSpec`` + ``DurableMap`` (see repro_torch.core.engine),
+``ShardedDurableMap`` (repro_torch.core.shard) and the sequential oracles
+``OracleSet`` / ``OracleQueue`` (repro_torch.core.oracle).
 """
 from repro_torch.core.nvm import (FREE, INVALID, PAYLOAD, VALID, DELETED,
                                   EMPTY, TOMB, hash32, crash_persisted_stage)
@@ -10,3 +12,8 @@ from repro_torch.core.engine import (SetSpec, DurableMap, IndexBackend,
                                      apply_batch, OP_CONTAINS, OP_INSERT,
                                      OP_REMOVE, OP_NOP)
 from repro_torch.core.convert import state_from_numpy, state_to_numpy
+from repro_torch.core.shard import (ShardSpec, ShardedDurableMap, shard_of,
+                                   np_shard_of)
+from repro_torch.core.router import (PLACEMENTS, adaptive_lane_budget,
+                                    budget_candidates, np_storage_rows)
+from repro_torch.core.oracle import OracleSet, OracleQueue

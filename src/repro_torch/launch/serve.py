@@ -13,10 +13,15 @@ runs ``hash_probe``'s probe-window kernel and, on ``--crash``,
 background every N serving steps (``repro_torch.store.snapshot``); a crash
 then recovers from the latest snapshot and the stamp delta, where the
 backend supports it (bucket and scan), and from the full pool otherwise.
+``--shards N`` (N > 1) swaps in the hash-partitioned ``ShardedDurableMap``
+(``repro_torch.core.shard``) with its ``--router``, ``--placement`` and
+``--max-lane-budget``; each shard's lookups and recovery run the same
+kernels, once per shard.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b-smoke \\
       --requests 8 --prompt-len 32 --gen 16 [--crash] [--device cpu] \\
-      [--snapshot-every 1 [--snapshot-dir DIR]]
+      [--snapshot-every 1 [--snapshot-dir DIR]] [--shards 8 [--router v1]
+      [--placement strided] [--max-lane-budget L]]
 
 It runs on the GPU unless given ``--device cpu``.  ``run`` is the same path
 for a caller that holds a config object.
@@ -34,22 +39,19 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, get_config
-from repro_torch.core import DurableMap, SetSpec
+from repro_torch.core import DurableMap, SetSpec, ShardedDurableMap
 from repro_torch.core.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.obs import MetricsRegistry
 from repro_torch.store.snapshot import SnapshotPolicy, Snapshotter
 from repro_torch.train import steps as TS
 
-# Options of repro.launch.serve that wait for their slices.
+# Options of repro.launch.serve that wait for their slices.  ``--pipeline``
+# raises only above 1: depth 1 is the single wave served here.
 NOT_PORTED = {
     "--queue": "ROADMAP queue A, item 8 (durable queue)",
     "--queue-capacity": "ROADMAP queue A, item 8 (durable queue)",
-    "--shards": "ROADMAP queue A, item 7 (sharded runtime)",
-    "--router": "ROADMAP queue A, item 7 (sharded runtime)",
-    "--placement": "ROADMAP queue A, item 7 (sharded runtime)",
-    "--max-lane-budget": "ROADMAP queue A, item 7 (sharded runtime)",
-    "--pipeline": "ROADMAP queue A, item 7 (sharded runtime)",
+    "--pipeline": "ROADMAP queue A, item 11 (pipelined serving waves)",
     "--autosplit": "ROADMAP queue A, item 10 (online resize)",
     "--open-loop": "ROADMAP queue A, item 11 (bench_serve)",
 }
@@ -67,25 +69,39 @@ def _sync(dev: torch.device) -> None:
 def run(cfg: ModelConfig, requests: int = 8, prompt_len: int = 32,
         gen: int = 16, crash: bool = False, backend: str = "probe",
         device="cuda", params=None, snapshot_every: int = 0,
-        snapshot_dir: Optional[str] = None) -> dict:
+        snapshot_dir: Optional[str] = None, shards: int = 1,
+        router: str = "v2", placement: str = "contiguous",
+        max_lane_budget: int = 0) -> dict:
     """Serve ``requests`` prompts of ``prompt_len`` tokens for ``gen``
     tokens each, record the completions in the registry, and with
     ``crash`` crash and recover it.  ``params`` defaults to
     ``init_params(cfg, seed=0)``.  ``snapshot_every`` > 0 snapshots the
     registry every that many serving steps into ``snapshot_dir`` (a fresh
     temporary directory by default), and the crash recovers through the
-    snapshotter.  Returns the generated tokens, the registry's counts and
-    the timings (the device synchronized around prefill and around the
-    decode loop)."""
+    snapshotter.  ``shards`` > 1 makes the registry a ``ShardedDurableMap``
+    with that router, placement and lane cap.  Returns the generated
+    tokens, the registry's counts and the timings (the device synchronized
+    around prefill and around the decode loop)."""
     dev = resolve_device(device)
     if params is None:
         params = M.init_params(cfg, seed=0, device=dev)
     prefill_step, decode_step = TS.make_serve_steps(cfg)
 
     m = MetricsRegistry()     # one snapshot() reaches every structure
-    registry = DurableMap(SetSpec(capacity=REGISTRY_CAPACITY, mode="soft",
-                                  backend=backend),
-                          metrics=m, metrics_name="registry", device=dev)
+    spec = SetSpec(capacity=REGISTRY_CAPACITY, mode="soft", backend=backend)
+    if shards > 1:            # same facade API, hash-partitioned runtime
+        registry = ShardedDurableMap(spec, n_shards=shards, router=router,
+                                     placement=placement,
+                                     max_lane_budget=max_lane_budget,
+                                     metrics=m, metrics_name="registry",
+                                     device=dev)
+        budgets = registry.precompile(requests)
+        if budgets:
+            print(f"registry router v2: pre-compiled lane budgets "
+                  f"{budgets} ({placement} placement)")
+    else:
+        registry = DurableMap(spec, metrics=m, metrics_name="registry",
+                              device=dev)
     # background snapshots: the capture is a host copy of already-durable
     # planes at the dispatch boundary, the build and save run off the hot
     # path, so the serving loop's psync bill is unchanged
@@ -127,8 +143,13 @@ def run(cfg: ModelConfig, requests: int = 8, prompt_len: int = 32,
     if snapshotter is not None:
         snapshotter.maybe_snapshot(1)     # the wave is serving step 1
     reg = m.snapshot()["collected"]["registry"]
-    print(f"registry[{backend}]: {reg['size']} completed, "
+    shard_tag = f" x{shards} shards" if shards > 1 else ""
+    print(f"registry[{backend}{shard_tag}]: {reg['size']} completed, "
           f"psyncs={reg['psyncs']} (== #requests)")
+    if shards > 1 and reg.get("last_route"):
+        lr = reg["last_route"]
+        print(f"router: lane_budget={lr['lane_budget']} "
+              f"groups={lr['groups']} dropped={reg['router_dropped']}")
     result = {"tokens": tokens, "logits": logits, "params": params,
               "registered": reg["size"], "psyncs": reg["psyncs"],
               "seconds": dt, "tok_per_s": b * gen / dt,
@@ -141,7 +162,9 @@ def run(cfg: ModelConfig, requests: int = 8, prompt_len: int = 32,
         else:   # hybrid recovery where the backend supports it
             snapshotter.wait()    # the build commits, as it would live
             snapshotter.recover()
-        done = registry.contains(req_ids).cpu().numpy()
+        done = registry.contains(req_ids)     # host array when sharded
+        if isinstance(done, torch.Tensor):
+            done = done.cpu().numpy()
         if not done.all():
             raise RuntimeError(f"registry lost {int((~done).sum())} of {b} "
                                "completions in crash and recovery")
@@ -165,6 +188,8 @@ def run(cfg: ModelConfig, requests: int = 8, prompt_len: int = 32,
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     for flag, item in NOT_PORTED.items():
+        if flag == "--pipeline":
+            continue                      # checked on its value below
         if any(a == flag or a.startswith(flag + "=") for a in argv):
             raise NotImplementedError(f"{flag} is not ported yet ({item})")
     ap = argparse.ArgumentParser()
@@ -191,11 +216,37 @@ def main(argv=None):
     ap.add_argument("--snapshot-dir", default=None,
                     help="snapshot store directory (default: a fresh "
                          "temp dir)")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="hash-partition the registry over N shards "
+                         "(N > 1 = ShardedDurableMap; each shard's lookups "
+                         "and recovery run the kernels)")
+    ap.add_argument("--router", default="v2", choices=("v1", "v2"),
+                    help="sharded registry router: v2 = two-stage with "
+                         "adaptive lane budgets (default), v1 = "
+                         "single-stage lane_factor router")
+    ap.add_argument("--placement", default="contiguous",
+                    choices=("contiguous", "strided"),
+                    help="shard storage order across the router's groups "
+                         "(v2)")
+    ap.add_argument("--max-lane-budget", type=int, default=0,
+                    help="cap the v2 adaptive lane budget (0 = uncapped; "
+                         "a cap drops + counts over-budget lanes)")
+    ap.add_argument("--pipeline", type=int, default=1,
+                    help="registry pipeline depth; only 1 (one wave) is "
+                         "ported")
     args = ap.parse_args(argv)
+    if args.pipeline < 1:
+        ap.error("--pipeline must be >= 1")
+    if args.pipeline > 1:
+        raise NotImplementedError(
+            f"--pipeline {args.pipeline} is not ported yet "
+            f"({NOT_PORTED['--pipeline']})")
     run(get_config(args.arch), requests=args.requests,
         prompt_len=args.prompt_len, gen=args.gen, crash=args.crash,
         backend=args.backend, device=args.device,
-        snapshot_every=args.snapshot_every, snapshot_dir=args.snapshot_dir)
+        snapshot_every=args.snapshot_every, snapshot_dir=args.snapshot_dir,
+        shards=args.shards, router=args.router, placement=args.placement,
+        max_lane_budget=args.max_lane_budget)
     return 0
 
 

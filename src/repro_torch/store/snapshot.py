@@ -27,11 +27,11 @@ called once per serving batch.  Works with any facade exposing the
 snapshot hooks.  Backends without a canonical O(delta) index patch
 (probe) fall back to the full rebuild transparently.
 
-PyTorch port of ``repro.store.snapshot``.  The port's ``DurableMap`` has
-the hooks; the sharded map and the durable queue wait for their slices
-(ROADMAP queue A, items 7 and 8), and so does ``load_resharded`` (items 7
-and 10).  The store layout is the JAX package's, so either package
-restores the other's snapshots.
+PyTorch port of ``repro.store.snapshot``.  The port's ``DurableMap`` and
+``ShardedDurableMap`` (per-shard watermark vector) have the hooks; the
+durable queue waits for its slice (ROADMAP queue A, item 8), and
+``load_resharded`` for online resize (item 10).  The store layout is the
+JAX package's, so either package restores the other's snapshots.
 """
 from __future__ import annotations
 
@@ -258,8 +258,8 @@ class Snapshotter:
 def load_resharded(directory: str, spec, n_shards: int, elastic: bool = True,
                    **shard_kwargs):
     """Restore a sharded-map snapshot at another shard count (the JAX
-    package's ``repro.store.snapshot.load_resharded``).  It needs the
-    sharded runtime and online resize, which are not ported yet."""
+    package's ``repro.store.snapshot.load_resharded``).  It needs online
+    resize's resharding of the planes, which is not ported yet."""
     raise NotImplementedError(
-        "load_resharded is not ported yet (ROADMAP queue A, items 7 and 10: "
-        "sharded runtime and online resize)")
+        "load_resharded is not ported yet (ROADMAP queue A, item 10: "
+        "online resize)")

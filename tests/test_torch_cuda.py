@@ -11,7 +11,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs.base import get_config  # noqa: E402
-from repro_torch.core import DurableMap, SetSpec  # noqa: E402
+from repro_torch.core import (DurableMap, SetSpec,  # noqa: E402
+                              ShardedDurableMap)
 from repro_torch.kernels.flash_prefill.kernel import (  # noqa: E402
     flash_prefill_cuda)
 from repro_torch.kernels.flash_prefill.ref import (  # noqa: E402
@@ -32,6 +33,7 @@ from repro_torch.kernels.recovery_scan.kernel import scan_cuda  # noqa: E402
 from repro_torch.kernels.recovery_scan.ref import scan_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.core import engine as TE  # noqa: E402
+from repro_torch.core import shard as TS  # noqa: E402
 from repro_torch.store.snapshot import Snapshotter  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -464,3 +466,97 @@ def test_serve_on_the_card_uses_every_kernel(cuda):
     assert flash_prefill_cuda.launches == cfg.n_layers
     assert gqa_decode_cuda.launches == cfg.n_layers * 3
     assert table_probe_cuda.launches > 0 and scan_cuda.launches == 1
+
+
+_LOOKUP = {"bucket": probe_cuda, "probe": table_probe_cuda}
+
+
+def _shard_traffic(rng, n, b, key_range):
+    return [(rng.choice(3, b, p=[0.6, 0.25, 0.15]).astype(np.int32),
+             rng.integers(0, key_range, b).astype(np.int32))
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("router", ("v1", "v2"))
+@pytest.mark.parametrize("backend", ("probe", "scan", "bucket"))
+def test_sharded_map_on_the_card_matches_the_cpu(cuda, backend, router):
+    """A sharded map of 8 shards on the card and on the CPU under the same
+    batches, crash and per-shard adversary: the same results, drop masks,
+    per-shard histograms and every stacked leaf, bit for bit.  Each shard
+    runs its backend's lookup kernel as often as the flat map on the card
+    runs it for the same batch, and every recovery runs recovery_scan
+    once per shard."""
+    rng = np.random.default_rng(11)
+    spec = SetSpec(capacity=1 << 14, backend=backend)
+    maps = [ShardedDurableMap(spec, n_shards=8, router=router, device=dev)
+            for dev in (cuda, "cpu")]
+    batches = _shard_traffic(rng, 6, 512, 12000)
+    flat = DurableMap(spec, device=cuda)
+    lookup = _LOOKUP.get(backend)
+    if lookup is not None:
+        lookup.launches = 0
+        flat.apply(*batches[0], batches[0][1])
+        per_batch_flat = lookup.launches
+        lookup.launches = 0
+    scan_cuda.launches = 0
+    for step, (ops, keys) in enumerate(batches):
+        res = [m.apply(ops, keys, keys * 3) for m in maps]
+        assert isinstance(res[0], np.ndarray)
+        np.testing.assert_array_equal(res[0], res[1])
+        np.testing.assert_array_equal(maps[0].last_drop_mask,
+                                      maps[1].last_drop_mask)
+        if lookup is not None and step == 0:
+            assert lookup.launches == 8 * per_batch_flat
+        if step == 3:
+            u = rng.random((8, spec.capacity // 8), dtype=np.float32)
+            for m in maps:
+                m.crash_and_recover(u)
+            np.testing.assert_array_equal(maps[0].last_recovery_hist_shards,
+                                          maps[1].last_recovery_hist_shards)
+            assert scan_cuda.launches == 8
+    q = np.arange(12000, dtype=np.int32)
+    np.testing.assert_array_equal(*(m.get(q, default=-1) for m in maps))
+    got, want = (state_to_numpy(m.state) for m in maps)
+    for f in got:
+        np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+    assert maps[0].router_dropped == maps[1].router_dropped
+
+
+def test_sharded_hybrid_recovery_on_the_card_equals_full(cuda, tmp_path):
+    """8 bucket shards of 2^13 slots on the card: recovery through a
+    Snapshotter equals the full rebuild of a copy of the same pre-crash
+    state, every leaf and per-shard histogram; recovery_scan runs once per
+    shard on each shard's delta."""
+    rng = np.random.default_rng(12)
+    spec = SetSpec(capacity=1 << 16, backend="bucket")
+    m = ShardedDurableMap(spec, n_shards=8, device=cuda)
+    keys = (rng.choice(1 << 18, 1 << 14, replace=False) + 1).astype(np.int32)
+    for chunk in np.split(keys[: 1 << 13], 8):
+        assert m.insert(chunk).all()
+    sn = Snapshotter(m, str(tmp_path / "snap"))
+    sn.snapshot()
+    sn.wait()
+    for ops, k in _shard_traffic(rng, 10, 1024, 1 << 18):
+        m.apply(ops, k)
+    ref = ShardedDurableMap(spec, n_shards=8, device=cuda)
+    ref.state = _clone(m.state)
+    u = rng.random((8, spec.capacity // 8), dtype=np.float32)
+    ref.crash_and_recover(u)
+    scan_cuda.launches = 0
+    sn.recover(u)
+    assert scan_cuda.launches == 8
+    got, want = state_to_numpy(m.state), state_to_numpy(ref.state)
+    for f in got:
+        np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+    np.testing.assert_array_equal(m.last_recovery_hist_shards,
+                                  ref.last_recovery_hist_shards)
+    assert m.psyncs == 0
+    sn.close()
+
+
+def test_sharded_state_rows_are_separate_on_the_card(cuda):
+    st = TS.make_state(TS.ShardSpec(base=SetSpec(capacity=64,
+                                                 backend="bucket"),
+                                    n_shards=4), device=cuda)
+    st.bids[1, 0, 0] = 5
+    assert int(st.bids[0, 0, 0]) == EMPTY and int(st.bids[2, 0, 0]) == EMPTY

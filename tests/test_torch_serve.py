@@ -76,3 +76,74 @@ def test_snapshot_flags_run(flag, form, capsys, tmp_path):
     assert "after crash+recovery: all 2 completions" in out
     assert ("snapshotter: every 1 step(s)" in out) == \
         (flag == "--snapshot-every")
+
+
+SHARD_ARGS = ["--arch", "qwen3-32b-smoke", "--requests", "4", "--prompt-len",
+              "4", "--gen", "2", "--crash", "--backend", "bucket"]
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--router", "v1"], ["--placement", "strided"],
+    ["--max-lane-budget", "4"], ["--snapshot-every", "1"]],
+    ids=["v2", "v1", "strided", "cap", "snapshots"])
+def test_serve_shards_prints_the_lines_of_jax_serve(extra, capsys,
+                                                    tmp_path):
+    """``--shards 4`` with each router, placement, a lane cap and
+    background snapshots: the same router, registry, recovery and
+    snapshot lines as the JAX driver's."""
+    lines = {}
+    for name, main in (("jax", jserve.main), ("torch", serve.main)):
+        d = tmp_path / name
+        argv = SHARD_ARGS + ["--shards", "4", "--snapshot-dir", str(d)] + \
+            extra
+        if name == "torch":
+            argv = ["--device", "cpu"] + argv
+        assert main(argv) == 0
+        lines[name] = [line.replace(str(d), "DIR") for line in
+                       capsys.readouterr().out.splitlines()
+                       if line.startswith(("registry", "router:",
+                                           "after crash+recovery",
+                                           "hybrid recovery:",
+                                           "snapshotter:"))]
+    assert lines["torch"] == lines["jax"]
+    assert "registry[bucket x4 shards]: 4 completed, psyncs=4 " \
+        "(== #requests)" in lines["torch"]
+    assert "after crash+recovery: all 4 completions still registered" in \
+        lines["torch"]
+    # v2 prints its route (v1 keeps no stage-1 plan, as in the JAX driver)
+    assert any(line.startswith("router: ") and line.endswith("dropped=0")
+               for line in lines["torch"]) == ("v1" not in extra)
+
+
+@pytest.mark.parametrize("kw", [dict(shards=4), dict(shards=4, router="v1"),
+                                dict(shards=4, placement="strided",
+                                     max_lane_budget=4),
+                                dict(shards=4, snapshot_every=1)])
+def test_sharded_registry_serves_what_the_flat_one_serves(kw, tmp_path):
+    """``run`` with a sharded registry: the same generated tokens, the same
+    registry counts (1 psync per completion, every completion after the
+    crash, 0 recovery psyncs) as with the flat registry."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config("qwen3-32b-smoke")
+    common = dict(requests=4, prompt_len=4, gen=2, crash=True,
+                  backend="bucket", device="cpu")
+    flat = serve.run(cfg, **common)
+    if "snapshot_every" in kw:
+        kw = dict(kw, snapshot_dir=str(tmp_path))
+    got = serve.run(cfg, params=flat["params"], **common, **kw)
+    assert got["tokens"].equal(flat["tokens"])
+    for k in ("registered", "psyncs", "registered_after_recovery",
+              "recovery_psyncs", "psyncs_after_recovery"):
+        assert got[k] == flat[k], k
+    assert (got["registered"], got["psyncs"],
+            got["registered_after_recovery"], got["recovery_psyncs"]) == \
+        (4, 4, 4, 0)
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--pipeline", "2"], "item 11"), (["--pipeline=3"], "item 11"),
+    (["--queue"], "item 8"), (["--queue-capacity", "64"], "item 8"),
+    (["--autosplit", "0.5"], "item 10"), (["--open-loop"], "item 11")])
+def test_options_still_waiting_name_their_item(argv, item):
+    with pytest.raises(NotImplementedError, match=item):
+        serve.main(["--device", "cpu", "--shards", "4", *argv])

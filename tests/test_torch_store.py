@@ -180,7 +180,7 @@ def test_elastic_restore_new_sharding_names_its_roadmap_item(tmp_path):
         m.restore(like=t, shardings={"w": object()})
     np.testing.assert_array_equal(m.restore(like=t)["w"], t["w"])
     m.close()
-    with pytest.raises(NotImplementedError, match="items 7 and 10"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         load_resharded(str(tmp_path), TE.SetSpec(capacity=8), n_shards=2)
 
 
