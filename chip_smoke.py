@@ -90,6 +90,32 @@ Phases, each of which exits non-zero on failure:
    ``tests/test_torch_cuda.py`` whose names hold "sharded", in a child
    process.  Launch counts are zeroed before each sharded run and read
    after it (``launches_sharded`` in the JSON record).
+3d. The durable queue (``DurableQueue``): ``recovery_scan`` against its
+   plain version at N = 2^16 and 2^21, timed; ``bench_queue.py``'s steady
+   state, a 65536-slot ring with 1024-lane batches in each of SOFT,
+   link-free and log-free: 50 rounds of one enqueue and one dequeue
+   through the facade (ops/s, every dequeued value against a host
+   ``collections.deque``, psyncs per successful op exactly 1, 1 and 2),
+   the same rounds through the functional ops with no host read (ops/s),
+   host syncs per round by site and device operations per round from a
+   profiled window; ``bench_queue.py``'s failed-op probe (0 psyncs).
+   Then a backlog of 2^21 slots (8192-lane batches: the ring filled,
+   half drained, enqueued past N, drained again), a crash under a
+   seeded float32 adversary and recovery: every leaf against the plain
+   path's recovery of the same planes, the histogram, head and tail,
+   recovery psyncs 0, ``recovery_scan`` launched once, recovery ms (first
+   call and warm repeats); a snapshot through ``Snapshotter``, more
+   traffic, a crash and ``Snapshotter.recover`` against the full recovery
+   of a copy of the same state (``recovery_scan`` once, on the delta;
+   the delta's size and both recoveries' ms); every surviving value
+   drained and checked.  Then the serve CLI's spine at qwen3-32b-smoke:
+   ``--queue --crash``, ``--queue --backend bucket --snapshot-every 1
+   --crash`` and ``--shards 8 --pipeline 2 --queue --crash``, each with 3
+   spine psyncs per request plus the registry's 1 and ``recovery_scan``
+   once per recovered structure (and per snapshot build); then the card
+   tests whose names hold "queue", in a child process.  Launch counts are
+   zeroed before each queue run and read after it (``launches_queue`` in
+   the JSON record).
 
 4. Attention kernels against their plain versions on the card, in f32 and
    bf16 at the JAX tests' tolerances: ``gqa_decode`` at qwen3-32b's decode
@@ -125,7 +151,16 @@ Phases, each of which exits non-zero on failure:
    decode ms per step, tok/s, peak memory, the device's busy share of a
    warm profiled prefill with ``flash_prefill``'s share of it, and the
    busy share over a profiled window of decode steps with
-   ``gqa_decode``'s microseconds per step.
+   ``gqa_decode``'s microseconds per step.  Then the same model with the
+   durable request/completion spine (``serve.run(..., queue=True)``, the
+   first run's weights, ``--crash``): 4 psyncs per completion (ack,
+   response, registry, commit), the late acks redelivered and committed
+   after the crash, recovery psyncs 0 in all three structures,
+   ``recovery_scan`` once per recovered structure, and the spine's ack,
+   record and commit host ms beside generation; and once more in 4
+   pipelined waves over an 8-shard registry (``shards=8, pipeline=2``),
+   printing whether each wave's ack finished while the previous wave
+   still generated (``launches_serving_spine`` in the JSON record).
 
 The last two lines are the per-kernel JSON record (``hash_probe``'s entry
 carries its probe-window route under ``probe_window``) and
@@ -133,6 +168,7 @@ carries its probe-window route under ``probe_window``) and
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
@@ -154,8 +190,10 @@ from repro_torch.configs import paper  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import (DurableMap, SetSpec, OP_CONTAINS,  # noqa: E402
                               OP_INSERT, OP_NOP, OP_REMOVE, VALID, EMPTY,
-                              TOMB, ShardedDurableMap, hash32)
+                              TOMB, DurableQueue, QueueSpec,
+                              ShardedDurableMap, hash32)
 from repro_torch.core import durable_set as DS  # noqa: E402
+from repro_torch.core import queue as TQ  # noqa: E402
 from repro_torch.core import router as RT  # noqa: E402
 from repro_torch.core import shard as SH  # noqa: E402
 from repro_torch.core import engine as TE  # noqa: E402
@@ -1329,6 +1367,351 @@ def run_sharded_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# 3d. the durable queue
+# ---------------------------------------------------------------------------
+
+QUEUE_MODES = ("soft", "linkfree", "logfree")
+BACKLOG_BATCH = 8192               # lanes per batch of the 2^21 backlog
+
+
+def queue_rounds(q, vals, b):
+    """One enqueue of each row of ``vals`` and one ``b``-lane dequeue after
+    it: the per-round enqueue oks (on the device) and the dequeues' host
+    (values, ok)."""
+    out = []
+    for row in vals:
+        out.append((q.enqueue(row), q.dequeue(b)))
+    return out
+
+
+def check_rounds(out, vals, ref, label):
+    """Every enqueue succeeded and every dequeued value equals the host
+    reference (a ``collections.deque``) in FIFO order."""
+    oks = torch.stack([o[0] for o in out]).cpu().numpy()
+    expect(oks.all(), f"{label}: an enqueue failed")
+    for row, (_, (got, ok)) in zip(vals.cpu().numpy(), out):
+        ref.extend(row.tolist())
+        want = [ref.popleft() for _ in range(int(ok.sum()))]
+        expect(ok.all() and got.tolist() == want,
+               f"{label}: dequeued values differ from the host reference")
+
+
+def run_queue(dev, mode, capacity=1 << 16, b=1024, rounds=50, n_probe=10):
+    """bench_queue.py's steady state through the facade: ``rounds`` of one
+    ``b``-lane enqueue and one ``b``-lane dequeue, every value against a
+    host deque; psyncs per successful op exact; then the same rounds
+    through the functional API with no host read (bench_queue's own
+    loop), host syncs by site and a profiled window of ``n_probe``
+    rounds each.  Returns (facade ops/s, functional ops/s, syncs per
+    round, device ops per round)."""
+    rng = np.random.default_rng([SEED, capacity, QUEUE_MODES.index(mode)])
+    spec = QueueSpec(capacity=capacity, mode=mode)
+    q = DurableQueue(spec, device=dev)
+    ref = collections.deque()
+    label = f"queue {mode}"
+
+    def batches(n):
+        return torch.from_numpy(rng.integers(0, 1 << 30, (n, b),
+                                             dtype=np.int32)).to(dev)
+
+    warm = batches(1)
+    check_rounds(queue_rounds(q, warm, b), warm, ref, f"{label} warm-up")
+    vals = batches(rounds)
+    p0, o0 = q.psyncs, q.ops
+    sync(dev)
+    t0 = time.perf_counter()
+    out = queue_rounds(q, vals, b)
+    sync(dev)
+    ops_s = 2 * b * rounds / (time.perf_counter() - t0)
+    check_rounds(out, vals, ref, label)
+    d_ops, d_psync = q.ops - o0, q.psyncs - p0
+    per_op = d_psync / d_ops
+    expect(d_ops == 2 * b * rounds and per_op == spec.psync_per_success(),
+           f"{label}: {per_op} psyncs per successful op, expected "
+           f"{spec.psync_per_success()}")
+    expect(not q.overflowed and len(q) == len(ref) == 0,
+           f"{label}: the ring is not empty at the end")
+
+    # bench_queue's loop: the functional ops, no host read inside
+    state = q.state
+    want = torch.ones((b,), dtype=torch.bool, device=dev)
+    vals = batches(rounds)
+    sync(dev)
+    t0 = time.perf_counter()
+    got = []
+    for row in vals:
+        state, _, _ = TQ.enqueue(state, row, spec=spec)
+        state, v, _, _ = TQ.dequeue(state, want, spec=spec)
+        got.append(v)
+    sync(dev)
+    fn_ops_s = 2 * b * rounds / (time.perf_counter() - t0)
+    expect(torch.equal(torch.stack(got), vals),
+           f"{label}: the functional rounds dequeued other values")
+    q.state = state
+
+    probe = batches(n_probe)
+    sync(dev)
+    with sync_sites() as (sites, other):
+        out = queue_rounds(q, probe, b)
+    check_rounds(out, probe, ref, f"{label} sync count")
+    print_sites(label, f"{n_probe} rounds", sites, other)
+    syncs = sum(sites.values()) / n_probe
+
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    probe = batches(n_probe)
+    sync(dev)
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = queue_rounds(q, probe, b)
+        sync(dev)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    check_rounds(out, probe, ref, f"{label} profiled")
+    rows, busy = device_rows(prof)
+    dev_ops = sum(r[1] for r in rows) / n_probe
+    print(f"{label}: {capacity} slots, {b}-lane batches, {rounds} rounds; "
+          f"facade {ops_s:.1f} ops/s, functional (no host read) "
+          f"{fn_ops_s:.1f} ops/s; psyncs per successful op {per_op:.3f}; "
+          f"{syncs:.2f} host syncs per round in the port's code; profile "
+          f"of {n_probe} rounds: {dev_ops:.1f} device ops per round, busy "
+          f"{busy:.1f} of {wall_us:.1f} us ({100 * busy / wall_us:.2f}%)")
+    for us, n, key in rows[:6]:
+        print(f"  {us:12.1f} us {n:6d}x  {key[:90]}")
+    return ops_s, fn_ops_s, syncs, dev_ops
+
+
+def failed_op_psyncs(dev, b=1024):
+    """bench_queue.py's probe: psyncs charged to FAILED lanes (a 2b-lane
+    enqueue into a b-slot ring, a 2b-lane dequeue, a dequeue on empty)."""
+    spec = QueueSpec(capacity=b)
+    state = TQ.make_state(spec, device=dev)
+    state, ok, _ = TQ.enqueue(state, torch.arange(2 * b, dtype=torch.int32,
+                                                  device=dev), spec=spec)
+    extra = int(state.n_psync) - int(ok.sum())
+    want = torch.ones((2 * b,), dtype=torch.bool, device=dev)
+    p0 = int(state.n_psync)
+    state, _, ok, _ = TQ.dequeue(state, want, spec=spec)
+    extra += int(state.n_psync) - p0 - int(ok.sum())
+    p0 = int(state.n_psync)
+    state, _, ok, _ = TQ.dequeue(state, want, spec=spec)
+    expect(not bool(ok.any()), "failed-op probe: a dequeue on empty won")
+    return extra + int(state.n_psync) - p0
+
+
+def backlog_traffic(q, rng, dev, ref, enq, deq):
+    """``enq`` values in, then ``deq`` out, in batches of BACKLOG_BATCH,
+    tracked in ``ref`` (a numpy list of every value and the head index)."""
+    for s in range(0, enq, BACKLOG_BATCH):
+        v = rng.integers(0, 1 << 30, min(BACKLOG_BATCH, enq - s),
+                         dtype=np.int32)
+        ref["vals"].append(v)
+        expect(bool(q.enqueue(torch.from_numpy(v).to(dev)).all()),
+               "backlog: an enqueue failed")
+    for s in range(0, deq, BACKLOG_BATCH):
+        _, ok = q.dequeue(min(BACKLOG_BATCH, deq - s))
+        expect(ok.all(), "backlog: a dequeue failed")
+    ref["head"] += deq
+
+
+def check_backlog(q, ref, label):
+    """Drain ``q`` and hold every value against the reference."""
+    want = np.concatenate(ref["vals"])[ref["head"]:]
+    got = []
+    while len(q):
+        v, ok = q.dequeue(BACKLOG_BATCH)
+        got.append(v[ok])
+    got = np.concatenate(got) if got else np.zeros(0, np.int32)
+    expect(np.array_equal(got, want),
+           f"{label}: {got.size} values drained, {want.size} expected, or "
+           "they differ")
+
+
+def run_queue_backlog(dev, n=1 << 21):
+    """The 2^21-slot backlog: fill the ring, drain half, enqueue past N
+    (the ring wraps), drain some more; crash under a seeded float32
+    adversary and recover (every leaf against the plain path, the
+    histogram, head and tail; recovery psyncs 0; recovery_scan once).
+    Then a snapshot through the Snapshotter, more traffic, a crash and
+    ``Snapshotter.recover`` against the full recovery of a copy of the
+    same state (recovery_scan once, on the delta).  Returns the numbers."""
+    rng = np.random.default_rng([SEED, n])
+    spec = QueueSpec(capacity=n)
+    q = DurableQueue(spec, device=dev)
+    ref = {"vals": [], "head": 0}
+    out = {}
+    sync(dev)
+    t0 = time.perf_counter()
+    backlog_traffic(q, rng, dev, ref, n, n // 2)
+    backlog_traffic(q, rng, dev, ref, n // 4, n // 8)
+    sync(dev)
+    out["fill_s"] = time.perf_counter() - t0
+    tail, head = n + n // 4, n // 2 + n // 8
+    expect((int(q.state.head), int(q.state.tail)) == (head, tail)
+           and tail > n, "backlog: the cursors before the crash")
+    u = torch.from_numpy(rng.random(n, dtype=np.float32)).to(dev)
+    pre = clone_state(q.state)
+    scan_cuda.launches = 0
+    sync(dev)
+    with sync_sites() as (sites, other):
+        q.crash_and_recover(u)
+    print_sites("queue backlog recovery", "crash_and_recover", sites, other)
+    out["launches_full"] = scan_cuda.launches
+    expect(scan_cuda.launches == 1,
+           f"backlog: recovery launched recovery_scan {scan_cuda.launches} "
+           "times, expected 1")
+    out["full_ms_first"] = q.last_recovery_seconds * 1e3
+    plain, plain_hist = TQ.crash_and_recover(
+        clone_state(pre), u, spec=QueueSpec(capacity=n, use_kernels=False))
+    expect(all(torch.equal(a, b) for a, b in zip(q.state, plain)),
+           "backlog: a leaf differs from the plain path's recovery")
+    hist = q.last_recovery_hist
+    expect((hist == plain_hist.cpu().numpy()).all()
+           and int(hist.sum()) == n and int(hist[VALID]) == tail - head,
+           f"backlog: histogram {hist.tolist()}")
+    expect((int(q.state.head), int(q.state.tail)) == (head, tail)
+           and q.psyncs == 0 and not q.overflowed,
+           "backlog: cursors, psyncs or latch after recovery")
+    warm = []
+    for _ in range(3):
+        x = DurableQueue(spec, device=dev)
+        x.state = clone_state(pre)
+        x.crash_and_recover(u)
+        warm.append(round(x.last_recovery_seconds * 1e3, 3))
+        del x
+    out["full_ms_warm"] = warm
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_queue_") as tmp:
+        sn = Snapshotter(q, tmp)
+        sync(dev)
+        t0 = time.perf_counter()
+        sn.snapshot()
+        out["capture_ms"] = (time.perf_counter() - t0) * 1e3
+        sn.wait()
+        out["build_save_ms"] = sn.last_duration * 1e3
+        w = int(sn.store.extra()["watermark"])
+        backlog_traffic(q, rng, dev, ref, n // 16, n // 32)
+        pre = clone_state(q.state)
+        out["delta"] = int((pre.stamp > w).sum())
+        scan_cuda.launches = 0
+        sync(dev)
+        t0 = time.perf_counter()
+        sn.recover(u)
+        sync(dev)
+        out["snapshotter_recover_ms"] = (time.perf_counter() - t0) * 1e3
+        out["launches_hybrid"] = scan_cuda.launches
+        expect(scan_cuda.launches == 1,
+               f"queue hybrid: recovery_scan launched {scan_cuda.launches} "
+               "times, expected 1 (on the delta)")
+        out["hybrid_ms"] = q.last_recovery_seconds * 1e3
+        full = DurableQueue(spec, device=dev)
+        full.state = clone_state(pre)
+        full.crash_and_recover(u)
+        out["hybrid_full_ms"] = full.last_recovery_seconds * 1e3
+        for f in q.state._fields:
+            if f not in ("n_psync", "n_ops"):
+                expect(torch.equal(getattr(q.state, f),
+                                   getattr(full.state, f)),
+                       f"queue hybrid: leaf {f} differs from full recovery")
+        expect((q.last_recovery_hist == full.last_recovery_hist).all()
+               and q.psyncs == 0,
+               "queue hybrid: histogram or recovery psyncs")
+        sn.close()
+        del full
+    check_backlog(q, ref, "backlog after both recoveries")
+    print(f"queue backlog: {n} slots, tickets to {tail} (wrapped), "
+          f"{tail - head} live at the crash, filled in {out['fill_s']:.3f} s "
+          f"({BACKLOG_BATCH}-lane batches); full recovery "
+          f"{out['full_ms_first']:.3f} ms (first call), warm repeats "
+          f"{out['full_ms_warm']} ms; histogram {hist.tolist()}; recovery "
+          f"psyncs 0")
+    print(f"queue hybrid: capture {out['capture_ms']:.3f} ms, build + save "
+          f"{out['build_save_ms']:.3f} ms; delta {out['delta']} slots; "
+          f"hybrid recovery {out['hybrid_ms']:.3f} ms, Snapshotter.recover "
+          f"(store read included) {out['snapshotter_recover_ms']:.3f} ms, "
+          f"full recovery of the same planes {out['hybrid_full_ms']:.3f} ms")
+    return out
+
+
+QUEUE_SERVE_RUNS = (
+    ["--queue", "--crash"],
+    ["--queue", "--backend", "bucket", "--snapshot-every", "1", "--crash"],
+    ["--shards", str(N_SHARDS), "--pipeline", "2", "--queue", "--crash"])
+
+
+def check_serve_queue(dev):
+    """The serve CLI's spine on the card at smoke size: its spine lines,
+    3 spine psyncs per request plus the registry's 1, the late acks
+    redelivered, zero recovery psyncs.  Returns the launches."""
+    launches = {}
+    for extra in QUEUE_SERVE_RUNS:
+        for fn in (scan_cuda, probe_cuda, table_probe_cuda):
+            fn.launches = 0
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = serve.main(["--device", str(dev), "--arch",
+                                 "qwen3-32b-smoke", "--requests", "4",
+                                 "--prompt-len", "8", "--gen", "4",
+                                 "--snapshot-dir", tmp, *extra])
+            text = buf.getvalue()
+        print(text, end="")
+        tag = " ".join(extra)
+        shards = N_SHARDS if "--shards" in extra else 1
+        backend = "bucket" if "bucket" in extra else "probe"
+        reg = (f"registry[{backend}{f' x{shards} shards' if shards > 1 else ''}"
+               "]: 4 completed, psyncs=4 (== #requests)")
+        expect(rc == 0 and "total spine psyncs=12" in text and reg in text
+               and "spine after crash+recovery: 4 acked requests "
+                   "redelivered and committed, 8 completions survive, "
+                   "request queue drained (len=0); recovery psyncs: "
+                   "registry=0 req_queue=0 resp_queue=0" in text,
+               f"serve {tag} did not print its spine lines")
+        launches[tag] = {"recovery_scan": scan_cuda.launches,
+                         "hash_probe": probe_cuda.launches,
+                         "table_probe": table_probe_cuda.launches}
+        # the registry once per shard (hybrid: its snapshot's build too),
+        # each queue once (hybrid: its snapshot's build too)
+        n_scan = (2 * 3 if "--snapshot-every" in extra else shards + 2)
+        expect(launches[tag]["recovery_scan"] == n_scan,
+               f"serve {tag}: recovery_scan launched "
+               f"{launches[tag]['recovery_scan']} times, expected {n_scan}")
+        print(f"serve {tag} launches: {launches[tag]}")
+    return launches
+
+
+def run_queue_phase(dev):
+    """Phase 3d.  Returns the queue's launches and recovery_scan's times at
+    the queue's shapes for the JSON record."""
+    t0 = time.perf_counter()
+    print("phase 3d: DurableQueue, a 65536-slot ring with 1024-lane batches "
+          "in each mode, a 2^21-slot backlog, the serve spine")
+    shapes = {f"N={n}": {k: v for k, v in check_scan(dev, [n]).items()
+                         if k != "max_abs_err"}
+              for n in (1 << 16, 1 << 21)}
+    rows = {mode: run_queue(dev, mode) for mode in QUEUE_MODES}
+    failed = failed_op_psyncs(dev)
+    expect(failed == 0, f"failed-op probe paid {failed} psyncs")
+    print("queue summary (65536 slots, 1024 lanes): facade ops/s "
+          + " / ".join(f"{rows[m][0]:.1f}" for m in QUEUE_MODES)
+          + ", functional ops/s "
+          + " / ".join(f"{rows[m][1]:.1f}" for m in QUEUE_MODES)
+          + f" (soft / linkfree / logfree); failed-op psyncs {failed}")
+    backlog = run_queue_backlog(dev)
+    serve_launches = check_serve_queue(dev)
+    run_card_tests("queue card tests", "queue")
+    print(f"phase 3d: {time.perf_counter() - t0:.1f} s")
+    return {"recovery_scan": {"backlog_recovery": backlog["launches_full"],
+                              "hybrid_recovery": backlog["launches_hybrid"],
+                              "serve": {k: v["recovery_scan"] for k, v in
+                                        serve_launches.items()}},
+            "hash_probe": {k: v["hash_probe"]
+                           for k, v in serve_launches.items()},
+            "table_probe": {k: v["table_probe"]
+                            for k, v in serve_launches.items()},
+            "shapes": shapes}
+
+
+# ---------------------------------------------------------------------------
 # 4. attention kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -1747,7 +2130,70 @@ def run_serving(dev, arch="qwen3-32b", requests=8, prompt_len=512, gen=32):
     profile_prefill(dev, cfg, params, requests, prompt_len)
     torch.cuda.empty_cache()
     profile_decode(dev, cfg, params, requests, prompt_len, steps=4)
-    return launches
+    return launches, params
+
+
+def run_serving_spine(dev, params, arch="qwen3-32b", requests=8,
+                      prompt_len=512, gen=32, **kw):
+    """The serving path with the durable request/completion spine
+    (``queue=True``) at full width, on the first run's weights, with a
+    crash: 4 psyncs per completion, the late acks redelivered and
+    committed, zero recovery psyncs in all three structures,
+    recovery_scan once per recovered structure (the registry once per
+    shard).  Returns the launches and the result."""
+    cfg = get_config(arch)
+    fns = {"recovery_scan": scan_cuda, "table_probe": table_probe_cuda,
+           "gqa_decode": gqa_decode_cuda, "flash_prefill": flash_prefill_cuda}
+    for fn in fns.values():
+        fn.launches = 0
+    res = serve.run(cfg, requests=requests, prompt_len=prompt_len, gen=gen,
+                    crash=True, device=dev, params=params, queue=True, **kw)
+    launches = {k: fn.launches for k, fn in fns.items()}
+    shards = kw.get("shards", 1)
+    label = f"serve spine{' ' + str(kw) if kw else ''}"
+    print(f"{label} launches: {launches}")
+    expect(tuple(res["tokens"].shape) == (requests, gen)
+           and bool(torch.isfinite(res["logits"]).all()),
+           f"{label}: tokens or logits out of range")
+    expect(res["spine_psyncs"] == 3 * requests
+           and res["psyncs"] == requests
+           and res["phase_psyncs"] == {
+               "ack": requests,
+               **({"generate": 0} if kw.get("pipeline", 1) == 1 else {}),
+               "record": requests, "commit": requests},
+           f"{label}: spine psyncs {res['spine_psyncs']} by phase "
+           f"{res['phase_psyncs']} and registry psyncs {res['psyncs']}, "
+           f"expected 3 and 1 per request")
+    expect(res["redelivered"] == requests and res["req_queue_len"] == 0
+           and res["completions_after_recovery"] == 2 * requests,
+           f"{label}: the late acks were not redelivered and committed")
+    expect(res["recovery_psyncs"] == 0
+           and res["queue_recovery_psyncs"] == {"req_queue": 0,
+                                                "resp_queue": 0},
+           f"{label}: recovery paid psyncs")
+    expect(launches["recovery_scan"] == shards + 2,
+           f"{label}: recovery_scan launched {launches['recovery_scan']} "
+           f"times, expected {shards + 2} (once per recovered structure)")
+    layers = cfg.n_layers
+    depth = kw.get("pipeline", 1)
+    waves = 1 if depth == 1 else min(requests, 2 * depth)
+    expect(launches["flash_prefill"] == layers * waves
+           and launches["gqa_decode"] == layers * waves * (gen - 1)
+           and launches["table_probe"] > 0,
+           f"{label}: the attention or lookup kernels' launches")
+    ms = res["phase_ms"]
+    gen_ms = ms.get("generate")
+    print(f"{label}: {arch} {layers} layers, {requests} requests x "
+          f"{prompt_len} + {gen} tokens; spine psyncs {res['spine_psyncs']} "
+          f"+ registry {res['psyncs']} = "
+          f"{(res['spine_psyncs'] + res['psyncs']) / requests:.3f} per "
+          f"request; host ms by phase: ack {ms['ack']:.3f}, record "
+          f"{ms['record']:.3f}, commit {ms['commit']:.3f}"
+          + (f", generate {gen_ms:.3f}" if gen_ms is not None else "")
+          + f"; {res['tok_per_s']:.1f} tok/s over {res['seconds']:.3f} s"
+          + (f"; wave k+1's ack finished while wave k still generated: "
+             f"{res['ack_overlapped']}" if res["ack_overlapped"] else ""))
+    return launches, res
 
 
 def main() -> int:
@@ -1849,16 +2295,25 @@ def main() -> int:
     sharded = run_sharded_phase(dev)
     torch.cuda.empty_cache()
 
+    # 3d. the durable queue and the serve spine at smoke size
+    queue = run_queue_phase(dev)
+    torch.cuda.empty_cache()
+
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
     attn = check_attention_kernels(dev)
     torch.cuda.empty_cache()
     check_decode_matches_prefill(dev)
     torch.cuda.empty_cache()
-    serving = run_serving(dev)
+    serving, params = run_serving(dev)
     for name in ("recovery_scan", "table_probe"):
         print(f"{name}: {serving[name]} launches on the serving path "
               f"(registry inserts, contains and recovery)")
+    torch.cuda.empty_cache()
+    spine, _ = run_serving_spine(dev, params)
+    torch.cuda.empty_cache()
+    waves, _ = run_serving_spine(dev, params, shards=N_SHARDS, pipeline=2)
+    del params
 
     record = {"kernels": [
         {"name": "recovery_scan", "route": "cuda",
@@ -1868,7 +2323,11 @@ def main() -> int:
          "bound_by": "bytes", "library_ms": None,
          "launches_hybrid": hybrid_launches["recovery_scan"],
          "launches_sharded": sharded["recovery_scan"],
-         "shard_shape": sharded["shapes"]["recovery_scan"]},
+         "shard_shape": sharded["shapes"]["recovery_scan"],
+         "launches_queue": queue["recovery_scan"],
+         "launches_serving_spine": {"one_wave": spine["recovery_scan"],
+                                    "waves": waves["recovery_scan"]},
+         "queue_shape": queue["shapes"]},
         {"name": "hash_probe", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hash_probe.cu",
          "replaces": "src/repro/kernels/hash_probe/kernel.py:64",
@@ -1877,6 +2336,7 @@ def main() -> int:
          "launches_hybrid": hybrid_launches["hash_probe"],
          "launches_sharded": sharded["hash_probe"],
          "shard_shape": sharded["shapes"]["hash_probe"],
+         "launches_queue": queue["hash_probe"],
          # the second route of probe_pallas (the probe backend's
          # table_lookup), the entry table_probe of the same source
          "probe_window": {
@@ -1885,17 +2345,24 @@ def main() -> int:
              "launches": probe_launches["table_probe"],
              "launches_serving": serving["table_probe"],
              "launches_sharded": sharded["table_probe"],
+             "launches_queue": queue["table_probe"],
+             "launches_serving_spine": {"one_wave": spine["table_probe"],
+                                        "waves": waves["table_probe"]},
              "shard_shape": sharded["shapes"]["table_probe"], **window,
              "bound_by": "bytes", "library_ms": None,
              "table_build_ms_2e21": probe_build_ms}},
         {"name": "gqa_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gqa_decode.cu",
          "replaces": "src/repro/kernels/gqa_decode/kernel.py:62",
-         "launches": serving["gqa_decode"], **attn["gqa_decode"]},
+         "launches": serving["gqa_decode"], **attn["gqa_decode"],
+         "launches_serving_spine": {"one_wave": spine["gqa_decode"],
+                                    "waves": waves["gqa_decode"]}},
         {"name": "flash_prefill", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
          "replaces": "src/repro/kernels/flash_prefill/kernel.py:81",
-         "launches": serving["flash_prefill"], **attn["flash_prefill"]},
+         "launches": serving["flash_prefill"], **attn["flash_prefill"],
+         "launches_serving_spine": {"one_wave": spine["flash_prefill"],
+                                    "waves": waves["flash_prefill"]}},
     ]}
     print(smi)
     print(json.dumps(record))

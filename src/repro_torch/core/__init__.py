@@ -1,7 +1,8 @@
 """Durable lock-free sets (link-free / SOFT / log-free) in PyTorch.
 
 Public surface: ``SetSpec`` + ``DurableMap`` (see repro_torch.core.engine),
-``ShardedDurableMap`` (repro_torch.core.shard) and the sequential oracles
+``ShardedDurableMap`` (repro_torch.core.shard), ``DurableQueue`` +
+``QueueSpec`` (repro_torch.core.queue) and the sequential oracles
 ``OracleSet`` / ``OracleQueue`` (repro_torch.core.oracle).
 """
 from repro_torch.core.nvm import (FREE, INVALID, PAYLOAD, VALID, DELETED,
@@ -17,3 +18,4 @@ from repro_torch.core.shard import (ShardSpec, ShardedDurableMap, shard_of,
 from repro_torch.core.router import (PLACEMENTS, adaptive_lane_budget,
                                     budget_candidates, np_storage_rows)
 from repro_torch.core.oracle import OracleSet, OracleQueue
+from repro_torch.core.queue import DurableQueue, QueueSpec, QueueState

@@ -228,8 +228,8 @@ class OracleSet:
 
 class OracleQueue:
     """Sequential durable FIFO queue with explicit psync events -- the
-    instruction-granularity reference for the JAX package's
-    ``repro.core.queue`` (not ported yet), following the *Durable Queues:
+    instruction-granularity reference for ``repro_torch.core.queue`` (and
+    the JAX package's ``repro.core.queue``), following the *Durable Queues:
     The Second Amendment* discipline on the same stage machine (and the
     same op-trace interface as :class:`OracleSet`: every
     durable write and psync is an event, ``budget`` crashes mid-op, the

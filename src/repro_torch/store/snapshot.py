@@ -27,11 +27,11 @@ called once per serving batch.  Works with any facade exposing the
 snapshot hooks.  Backends without a canonical O(delta) index patch
 (probe) fall back to the full rebuild transparently.
 
-PyTorch port of ``repro.store.snapshot``.  The port's ``DurableMap`` and
-``ShardedDurableMap`` (per-shard watermark vector) have the hooks; the
-durable queue waits for its slice (ROADMAP queue A, item 8), and
-``load_resharded`` for online resize (item 10).  The store layout is the
-JAX package's, so either package restores the other's snapshots.
+PyTorch port of ``repro.store.snapshot``.  The port's ``DurableMap``,
+``ShardedDurableMap`` (per-shard watermark vector) and ``DurableQueue``
+have the hooks; ``load_resharded`` waits for online resize (ROADMAP
+queue A, item 10).  The store layout is the JAX package's, so either
+package restores the other's snapshots.
 """
 from __future__ import annotations
 

@@ -11,8 +11,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs.base import get_config  # noqa: E402
-from repro_torch.core import (DurableMap, SetSpec,  # noqa: E402
-                              ShardedDurableMap)
+from repro_torch.core import (DurableMap, DurableQueue,  # noqa: E402
+                              QueueSpec, SetSpec, ShardedDurableMap)
 from repro_torch.kernels.flash_prefill.kernel import (  # noqa: E402
     flash_prefill_cuda)
 from repro_torch.kernels.flash_prefill.ref import (  # noqa: E402
@@ -33,6 +33,7 @@ from repro_torch.kernels.recovery_scan.kernel import scan_cuda  # noqa: E402
 from repro_torch.kernels.recovery_scan.ref import scan_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.core import engine as TE  # noqa: E402
+from repro_torch.core import queue as TQ  # noqa: E402
 from repro_torch.core import shard as TS  # noqa: E402
 from repro_torch.store.snapshot import Snapshotter  # noqa: E402
 
@@ -560,3 +561,100 @@ def test_sharded_state_rows_are_separate_on_the_card(cuda):
                                     n_shards=4), device=cuda)
     st.bids[1, 0, 0] = 5
     assert int(st.bids[0, 0, 0]) == EMPTY and int(st.bids[2, 0, 0]) == EMPTY
+
+
+# ---------------------------------------------------------------------------
+# The durable queue: recovery through the kernel against the plain path
+# ---------------------------------------------------------------------------
+
+QN = 1 << 16
+
+
+def _queue_traffic(q, rng, rounds, b=1024):
+    """``rounds`` of one enqueue batch and one smaller dequeue batch, so the
+    ring fills, then wraps: tickets pass N."""
+    nxt = 0
+    for _ in range(rounds):
+        q.enqueue(np.arange(nxt, nxt + b, dtype=np.int32))
+        nxt += b
+        q.dequeue(int(rng.integers(b // 2, b)))
+    return nxt
+
+
+@pytest.mark.parametrize("mode", ("soft", "linkfree", "logfree"))
+def test_queue_recovery_on_the_card_matches_plain(cuda, mode):
+    """A 2^16-slot queue on the card and on the CPU under the same traffic
+    (the ring wrapped) and crash adversary: recovery through the CUDA
+    recovery_scan (launched once) equals the plain path on the card and
+    the CPU queue's recovery, leaf for leaf, histogram included."""
+    rng = np.random.default_rng(31)
+    spec = QueueSpec(capacity=QN, mode=mode)
+    qs = [DurableQueue(spec, device=dev) for dev in (cuda, "cpu")]
+    for q in qs:
+        _queue_traffic(q, np.random.default_rng(5), 96)
+    assert int(qs[0].state.tail) > QN
+    for a, b in zip(qs[0].state, qs[1].state):
+        assert torch.equal(a.cpu(), b)
+    u = rng.random(QN, dtype=np.float32)
+    plain, plain_hist = TQ.crash_and_recover(
+        _clone(qs[0].state), torch.from_numpy(u).to(cuda),
+        spec=QueueSpec(capacity=QN, mode=mode, use_kernels=False))
+    scan_cuda.launches = 0
+    for q in qs:
+        q.crash_and_recover(u)
+    assert scan_cuda.launches == 1
+    assert qs[0].psyncs == 0 and not qs[0].overflowed
+    for a, b, c in zip(qs[0].state, plain, qs[1].state):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+    np.testing.assert_array_equal(qs[0].last_recovery_hist,
+                                  plain_hist.cpu().numpy())
+    np.testing.assert_array_equal(qs[0].last_recovery_hist,
+                                  qs[1].last_recovery_hist)
+    for a, b in zip(qs[0].dequeue(1024), qs[1].dequeue(1024)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_queue_hybrid_recovery_on_the_card_equals_full(cuda, tmp_path):
+    """2^16 slots on the card: recovery through a Snapshotter equals the
+    full recovery of a copy of the same pre-crash state, and runs
+    recovery_scan once, on the delta."""
+    rng = np.random.default_rng(32)
+    q = DurableQueue(QueueSpec(capacity=QN), device=cuda)
+    _queue_traffic(q, rng, 60)
+    sn = Snapshotter(q, str(tmp_path / "snap"))
+    sn.snapshot()
+    sn.wait()
+    _queue_traffic(q, rng, 20)
+    ref = DurableQueue(q.spec, device=cuda)
+    ref.state = _clone(q.state)
+    u = rng.random(QN, dtype=np.float32)
+    ref.crash_and_recover(u)
+    scan_cuda.launches = 0
+    sn.recover(u)
+    assert scan_cuda.launches == 1
+    for f in q.state._fields:
+        if f not in ("n_psync", "n_ops"):
+            assert torch.equal(getattr(q.state, f), getattr(ref.state, f)), f
+    np.testing.assert_array_equal(q.last_recovery_hist,
+                                  ref.last_recovery_hist)
+    assert q.psyncs == 0
+    sn.close()
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(shards=8, pipeline=2)],
+                         ids=["one-wave", "waves"])
+def test_serve_queue_spine_on_the_card(cuda, kw):
+    """The spine at smoke size on the card: 4 psyncs per request, the late
+    acks redelivered, zero recovery psyncs, and recovery_scan launched once
+    per recovered structure (a queue each, the registry once per shard)."""
+    cfg = get_config("qwen3-32b-smoke")
+    scan_cuda.launches = 0
+    res = serve.run(cfg, requests=4, prompt_len=8, gen=4, crash=True,
+                    device=cuda, queue=True, **kw)
+    assert res["spine_psyncs"] + res["psyncs"] == 16
+    assert res["redelivered"] == 4 and res["req_queue_len"] == 0
+    assert res["queue_recovery_psyncs"] == {"req_queue": 0,
+                                            "resp_queue": 0}
+    assert res["recovery_psyncs"] == 0
+    assert scan_cuda.launches == 2 + kw.get("shards", 1)
+    assert len(res["ack_overlapped"]) == (3 if kw else 0)
