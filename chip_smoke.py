@@ -116,6 +116,35 @@ Phases, each of which exits non-zero on failure:
    tests whose names hold "queue", in a child process.  Launch counts are
    zeroed before each queue run and read after it (``launches_queue`` in
    the JSON record).
+3e. Online resize (``ElasticShardedMap``) at the hash-1M geometry: 4
+   bucket shards of 2^18 slots (SOFT, router v2), 2^19 keys prefilled in
+   batches of 8192 (fill 0.5), ``migrate_chunk`` 4096.  20 mixed batches
+   of 1024 lanes (90/5/5, key range 2^20), then an online split to 8
+   shards (phase 3c's 2^21 slots) with one ``step()`` per batch: 4 units
+   of 64 chunks and a commit, 260 batches, every result, the size and the
+   counters against the host reference, hot psyncs equal to the
+   successful updates, migration psyncs exactly 1 + 4*64 + 4*2 + 1 = 266,
+   each commit's moved nodes equal to its parent's live keys; 20 batches
+   after; ops/s before, during and after.  The 8-shard map snapshotted
+   through ``Snapshotter`` and loaded by ``load_resharded`` at 4 and 16
+   shards: every leaf equal to a full recovery at 8 resharded offline
+   (``reshard_planes`` + ``shard.recover``), the whole key range, recovery
+   psyncs 0, ``recovery_scan`` once per new shard, ms.  A blocking merge
+   back to 4 (content kept, ms), a blocking split of the filled map
+   against the offline ``split_planes`` + ``shard.recover`` leaf for
+   leaf (ms, migration psyncs per node), a merge, and crash drills in a
+   stepped split (right after ``begin_split``, mid-copy of unit 0, right
+   after unit 1's commit, after the finalize): recovery psyncs 0, the
+   whole key range, ``recovery_scan`` once per shard of both maps; host
+   syncs per chunk step and per commit step by site.  The probe backend:
+   a blocking split of the same filled map and 20 batches, the children's
+   table rebuild timed alone.  ``begin_merge`` refusing a pair that does
+   not fit.  The serve CLI with ``--shards 2 --autosplit 0.001 --crash``
+   (and with ``--queue``): the split fires and completes, every
+   completion survives the crash, recovery psyncs 0.  Then the card tests
+   whose names hold "resize" or "elastic".  Launch counts are zeroed
+   before each run and read after it (``launches_resize`` in the JSON
+   record).
 
 4. Attention kernels against their plain versions on the card, in f32 and
    bf16 at the JAX tests' tolerances: ``gqa_decode`` at qwen3-32b's decode
@@ -191,12 +220,15 @@ from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import (DurableMap, SetSpec, OP_CONTAINS,  # noqa: E402
                               OP_INSERT, OP_NOP, OP_REMOVE, VALID, EMPTY,
                               TOMB, DurableQueue, QueueSpec,
-                              ShardedDurableMap, hash32)
+                              ElasticShardedMap, ResizeCapacityError,
+                              ShardedDurableMap, hash32, reshard_planes,
+                              split_planes)
 from repro_torch.core import durable_set as DS  # noqa: E402
 from repro_torch.core import queue as TQ  # noqa: E402
 from repro_torch.core import router as RT  # noqa: E402
 from repro_torch.core import shard as SH  # noqa: E402
 from repro_torch.core import engine as TE  # noqa: E402
+from repro_torch.core.resize import PLANES  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_prefill.kernel import (  # noqa: E402
     flash_prefill_cuda)
@@ -216,7 +248,8 @@ from repro_torch.kernels.recovery_scan.ref import scan_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.params import tree_leaves  # noqa: E402
-from repro_torch.store.snapshot import Snapshotter  # noqa: E402
+from repro_torch.store.snapshot import (Snapshotter,  # noqa: E402
+                                        load_resharded)
 from repro_torch.train import steps as TS  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
@@ -614,9 +647,9 @@ def traffic(rng, n_batches, b, key_range):
 
 def lanes(m, dev, batches):
     """The batches as ``m`` takes them: device tensors for a
-    ``DurableMap``; host arrays for a ``ShardedDurableMap``, whose stage-1
-    router runs on the host."""
-    if isinstance(m, ShardedDurableMap):
+    ``DurableMap``; host arrays for a ``ShardedDurableMap`` or an
+    ``ElasticShardedMap``, whose stage-1 router runs on the host."""
+    if isinstance(m, (ShardedDurableMap, ElasticShardedMap)):
         return batches
     return tuple(torch.from_numpy(a).to(dev) for a in batches)
 
@@ -1712,6 +1745,410 @@ def run_queue_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# 3e. online resize
+# ---------------------------------------------------------------------------
+
+RESIZE_SHARDS = 4                  # before the split; 2x after it
+RESIZE_CHUNK = 4096                # migrate_chunk, the JAX default
+
+
+def live_per_shard(ref, n_shards):
+    """The reference's live keys per shard at ``n_shards``."""
+    live = np.flatnonzero(ref.present).astype(np.int32)
+    return np.bincount(SH.np_shard_of(live, n_shards), minlength=n_shards)
+
+
+def elastic_map(dev, backend, per_shard, key_range, rng, ref, label):
+    """A SOFT ``ElasticShardedMap`` of ``RESIZE_SHARDS`` shards of
+    ``per_shard`` slots, prefilled to half its capacity in
+    ``PREFILL_BATCH``-lane batches against ``ref``."""
+    m = ElasticShardedMap(SetSpec(capacity=per_shard * RESIZE_SHARDS,
+                                  mode="soft", backend=backend),
+                          n_shards=RESIZE_SHARDS, migrate_chunk=RESIZE_CHUNK,
+                          device=dev)
+    n = per_shard * RESIZE_SHARDS // 2
+    prefill(m, ref, dev, rng, key_range, n, min(PREFILL_BATCH, n), label)
+    return m
+
+
+def split_steps(m) -> int:
+    """Steps of an S -> 2S split: per parent, its chunks and a commit."""
+    per = m.sspec.per_shard_capacity
+    return m.n_shards * (-(-per // m.migrate_chunk) + 1)
+
+
+def live_split(m, ref, dev, rng, key_range, b, label):
+    """An online split with one ``step()`` per ``b``-lane batch of mixed
+    traffic, timed from ``begin_split`` to the finalize: every result, the
+    size and the counters against the reference, the nodes each commit
+    moved against the parent's live keys at that point, and the migration
+    psyncs against 1 + S * chunks + 2 S + 1.  Returns ops/s."""
+    s0, n = m.n_shards, split_steps(m)
+    ops, keys, vals = traffic(rng, n, b, key_range)
+    mp0, moved = m.migration_psyncs, {}
+    sync(dev)
+    t0 = time.perf_counter()
+    m.begin_split()
+    out = []
+    for i in range(n):
+        out.append(m.apply(ops[i], keys[i], vals[i]))
+        f0, n0 = m.frontier.committed, m.migrated_nodes
+        done = m.step()
+        if m.migrated_nodes != n0:
+            moved[i] = (f0, m.migrated_nodes - n0)
+        expect(done == (i == n - 1),
+               f"{label}: the split finished at step {i + 1} of {n}")
+    sync(dev)
+    dt = time.perf_counter() - t0
+    got = results(out)
+    for i in range(n):
+        expect((got[i] == ref.apply(ops[i], keys[i], vals[i])).all(),
+               f"{label}: batch {i} results differ from the reference")
+        if i in moved:
+            unit, nodes = moved[i]
+            live = int(live_per_shard(ref, s0)[unit])
+            expect(nodes == live, f"{label}: commit of unit {unit} moved "
+                   f"{nodes} nodes, the parent held {live}")
+    expect(sorted(u for u, _ in moved.values()) == list(range(s0)),
+           f"{label}: units committed {sorted(moved.values())}")
+    want = 1 + s0 * (-(-m.sspec.per_shard_capacity // m.migrate_chunk)) \
+        + 2 * s0 + 1
+    expect(m.migration_psyncs - mp0 == want,
+           f"{label}: {m.migration_psyncs - mp0} migration psyncs, "
+           f"expected {want}")
+    expect(m.n_shards == 2 * s0 and not m.migrating and m.splits >= 1,
+           f"{label}: geometry after the split")
+    expect(len(m) == int(ref.present.sum()), f"{label}: size")
+    expect(m.psyncs == ref.psyncs and m.ops == ref.ops,
+           f"{label}: hot psyncs {m.psyncs} (successful updates "
+           f"{ref.psyncs}), ops {m.ops} ({ref.ops})")
+    print(f"{label}: {n} batches of {b} with one step() each, "
+          f"{want} migration psyncs, {sum(v for _, v in moved.values())} "
+          f"nodes moved in {len(moved)} commits, each the parent's live "
+          f"count; hot psyncs == successful updates ({ref.psyncs})")
+    return ops.size / dt
+
+
+def resize_drill(m, ref, dev, label, n_scans):
+    """Crash the elastic map and recover it: recovery psyncs 0,
+    ``recovery_scan`` once per recovered shard of both maps, the whole key
+    range against the reference.  Returns the launches read."""
+    u = np.random.default_rng([SEED, 31, len(label)]).random(
+        tuple(m.map.state.cur.shape)).astype(np.float32)
+    scan_cuda.launches = 0
+    m.crash_and_recover(u, seed=SEED)
+    scans = scan_cuda.launches
+    print(f"{label}: frontier {m.frontier}, recovery "
+          f"{m.last_recovery_seconds * 1e3:.3f} ms, psyncs after it "
+          f"{m.psyncs}, recovery_scan launched {scans} times (expected "
+          f"{n_scans}: one per shard of both maps)")
+    expect(m.psyncs == 0 and m.ops == 0,
+           f"{label}: counters after recovery (recovery psyncs)")
+    expect(scans == n_scans, f"{label}: recovery_scan launched {scans} "
+           f"times, expected {n_scans}")
+    ref.psyncs = ref.ops = 0
+    check_membership(m, ref, dev, MEMBER_CHUNK, label)
+    return scans
+
+
+def step_until(m, stop, sites):
+    """Step the migration until ``stop(steps taken)`` holds, the host syncs
+    of each step added to ``sites["chunk"]`` or ``sites["commit"]`` by
+    site."""
+    n = 0
+    while not stop(n):
+        n += 1
+        n0 = m.migrated_nodes
+        with sync_sites() as (port, _):
+            m.step()
+        into = sites["commit" if m.migrated_nodes != n0 else "chunk"]
+        into["steps"] = into.get("steps", 0) + 1
+        for k, v in port.items():
+            into[k] = into.get(k, 0) + v
+
+
+def check_load_resharded(dev, m, ref, tmp, label):
+    """Snapshot the 8-shard map through ``Snapshotter`` and load it at half
+    and at twice the shard count with ``load_resharded``: each load equal,
+    leaf for leaf, to a full recovery at 8 followed by ``reshard_planes``
+    and ``shard.recover``, the whole key range against the reference,
+    recovery psyncs 0, ``recovery_scan`` once per new shard.  Returns
+    ``{new S: (ms, launches)}``."""
+    inner = m.map
+    w = int(inner.state.epoch.max())
+    sn = Snapshotter(inner, tmp)
+    sn.snapshot()
+    sn.wait()
+    sn.close()
+    pool = TE.export_pool(inner.state)         # no traffic since the capture
+    full, _ = SH.recover(*(TE._on_device(pool[f], dev, np.int32)
+                           for f in PLANES), sspec=inner.sspec)
+    canon = {"stage": TE._host(full.cur), "keys": TE._host(full.keys),
+             "values": TE._host(full.values), "stamp": TE._host(full.stamp)}
+    del full
+    per, s = inner.sspec.per_shard_capacity, inner.n_shards
+    out = {}
+    for new_s in (s // 2, 2 * s):
+        spec = SetSpec(capacity=per * new_s, mode="soft", backend="bucket")
+        scan_cuda.launches = 0
+        sync(dev)
+        t0 = time.perf_counter()
+        lm = load_resharded(tmp, spec, new_s, device=dev)
+        sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        scans = scan_cuda.launches
+        planes = reshard_planes(canon, s, new_s)
+        off, _ = SH.recover(*(TE._on_device(planes[f], dev, np.int32)
+                              for f in PLANES), sspec=lm.sspec)
+        for f in off._fields:
+            if f != "epoch":
+                expect(torch.equal(getattr(lm.map.state, f),
+                                   getattr(off, f)),
+                       f"{label} at {new_s}: leaf {f} differs from the "
+                       "offline reshard of a full recovery")
+        expect(bool((lm.map.state.epoch > w).all()),
+               f"{label} at {new_s}: epoch not above the watermark {w}")
+        expect(lm.psyncs == 0 and len(lm) == int(ref.present.sum()),
+               f"{label} at {new_s}: psyncs {lm.psyncs}, size {len(lm)}")
+        expect(scans == new_s, f"{label} at {new_s}: recovery_scan "
+               f"launched {scans} times, expected {new_s}")
+        lref = Reference(ref.present.size, "soft")
+        lref.present, lref.value = ref.present.copy(), ref.value.copy()
+        check_membership(lm, lref, dev, MEMBER_CHUNK, f"{label} at {new_s}")
+        print(f"{label}: {s} -> {new_s} shards in {ms:.3f} ms, "
+              f"recovery_scan {scans} launches, every leaf equal to the "
+              "offline reshard, recovery psyncs 0")
+        out[str(new_s)] = (ms, scans)
+        del lm, off
+        torch.cuda.empty_cache()
+    return out
+
+
+def probe_split(dev, per_shard, key_range, b):
+    """The probe backend: a blocking split of a filled 4-shard map, then
+    20 batches; ``table_probe`` and ``recovery_scan`` must launch, and the
+    children's probe-table rebuild is timed alone.  Returns the numbers
+    and the launches."""
+    rng = np.random.default_rng([SEED, 41])
+    ref = Reference(key_range, "soft")
+    m = elastic_map(dev, "probe", per_shard, key_range, rng, ref,
+                    "resize probe")
+    scan_cuda.launches = table_probe_cuda.launches = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    m.split()
+    sync(dev)
+    split_ms = (time.perf_counter() - t0) * 1e3
+    rebuild_ms = 0.0
+    st = m.map.state
+    for r in range(m.n_shards):
+        table, ovf, ms = build_probe_table(
+            dev, st.keys[r], st.cur[r] == VALID, m.spec.table_factor,
+            m.spec.max_probe)
+        expect(torch.equal(table, st.table[r]) and not ovf,
+               f"resize probe: child {r}'s table differs from a fresh build")
+        rebuild_ms += ms
+    ops_s = drive(m, ref, dev, *traffic(rng, 20, b, key_range),
+                  "resize probe after the split")
+    launches = {"recovery_scan": scan_cuda.launches,
+                "table_probe": table_probe_cuda.launches}
+    print(f"resize probe: blocking split {RESIZE_SHARDS} -> {m.n_shards} "
+          f"shards of a filled map ({len(m)} live) {split_ms:.3f} ms, the "
+          f"children's table rebuild alone {rebuild_ms:.3f} ms "
+          f"({100 * rebuild_ms / split_ms:.1f}%); 20 batches after it "
+          f"{ops_s:.1f} ops/s; launches {launches}")
+    expect(launches["recovery_scan"] == m.n_shards
+           and launches["table_probe"] > 0,
+           "resize probe: a kernel of the probe resize path was not "
+           "launched as expected")
+    return {"split_ms": split_ms, "rebuild_ms": rebuild_ms,
+            "ops_s": ops_s}, launches
+
+
+def check_merge_refusal(dev):
+    """``begin_merge`` refuses a pair that does not fit, and leaves the map
+    as it was."""
+    m = ElasticShardedMap(SetSpec(capacity=1024, mode="soft",
+                                  backend="bucket"), n_shards=2, device=dev)
+    keys = np.arange(1, 601, dtype=np.int32)
+    expect(m.insert(keys).all(), "refusal map: prefill")
+    try:
+        m.begin_merge()
+        refused = False
+    except ResizeCapacityError as e:
+        refused = True
+        print(f"merge refusal: {e}")
+    expect(refused and not m.migrating and m.n_shards == 2 and len(m) == 600
+           and m.migration_psyncs == 0,
+           "begin_merge did not refuse a pair past the per-shard capacity")
+
+
+RESIZE_SERVE_RUNS = (
+    ["--shards", "2", "--autosplit", "0.001", "--crash"],
+    ["--shards", "2", "--autosplit", "0.001", "--queue", "--crash"])
+
+
+def check_serve_autosplit(dev):
+    """The serve CLI with ``--autosplit`` on the card at smoke size: the
+    split fires after the first serving step and completes (2 -> 4
+    shards), every completion registered before and after the crash, the
+    registry's recovery psyncs 0 (printed by the spine's line), and
+    ``recovery_scan`` once per rebuilt child and per recovered shard.
+    Returns the launches."""
+    launches = {}
+    for extra in RESIZE_SERVE_RUNS:
+        for fn in (scan_cuda, probe_cuda, table_probe_cuda):
+            fn.launches = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = serve.main(["--device", str(dev), "--arch",
+                             "qwen3-32b-smoke", "--requests", "4",
+                             "--prompt-len", "8", "--gen", "4", *extra])
+        text = buf.getvalue()
+        print(text, end="")
+        tag = " ".join(extra)
+        queue = "--queue" in extra
+        expect(rc == 0
+               and "autosplit: fill 0.004 >= 0.001 -> online split S=2 -> 4"
+               in text
+               and "registry[probe x2 shards]: 4 completed, psyncs=4 "
+                   "(== #requests)" in text
+               and "elastic registry: n_shards=4 (splits=1)" in text
+               and "hot-path psyncs=4 (== #requests, unchanged)" in text
+               and "after crash+recovery: all 4 completions still "
+                   "registered" in text
+               and (not queue or "recovery psyncs: registry=0 req_queue=0 "
+                    "resp_queue=0" in text),
+               f"serve {tag} did not print its lines")
+        launches[tag] = {"recovery_scan": scan_cuda.launches,
+                         "table_probe": table_probe_cuda.launches}
+        # 2 children per unit of the split, then every shard of the 4-shard
+        # registry at the crash, and each queue
+        n_scan = 2 * 2 + 4 + (2 if queue else 0)
+        print(f"serve {tag}: registry n_shards 4, launches {launches[tag]} "
+              f"(recovery_scan expected {n_scan})")
+        expect(launches[tag]["recovery_scan"] == n_scan
+               and launches[tag]["table_probe"] > 0,
+               f"serve {tag}: launches {launches[tag]}")
+    return launches
+
+
+def run_resize_phase(dev, per=1 << 18, kr=1 << 20, b=1024):
+    """Phase 3e: ``RESIZE_SHARDS`` shards of ``per`` slots, key range
+    ``kr``, ``b``-lane batches.  Returns the launches on the resize path
+    for the JSON record."""
+    t0 = time.perf_counter()
+    print(f"phase 3e: ElasticShardedMap, {RESIZE_SHARDS} shards of {per} "
+          f"slots split online to {2 * RESIZE_SHARDS}, key range {kr}, "
+          f"{b}-lane batches, migrate_chunk {RESIZE_CHUNK}")
+    rng = np.random.default_rng([SEED, 40])
+    ref = Reference(kr, "soft")
+    m = elastic_map(dev, "bucket", per, kr, rng, ref, "resize bucket")
+    before = drive(m, ref, dev, *traffic(rng, 20, b, kr),
+                   "resize before the split")
+    scan_cuda.launches = probe_cuda.launches = 0
+    during = live_split(m, ref, dev, rng, kr, b, "resize live split")
+    live = {"recovery_scan": scan_cuda.launches,
+            "hash_probe": probe_cuda.launches}
+    print(f"resize live split launches: {live}")
+    expect(live["recovery_scan"] == 2 * RESIZE_SHARDS
+           and live["hash_probe"] > 0,
+           "resize live split: recovery_scan not once per child, or no "
+           "lookup launched")
+    after = drive(m, ref, dev, *traffic(rng, 20, b, kr),
+                  "resize after the split")
+    check_membership(m, ref, dev, MEMBER_CHUNK, "resize after the split")
+    print(f"resize ops/s (bucket, SOFT, {b} lanes): before the split "
+          f"{before:.1f} ({RESIZE_SHARDS} shards), during it {during:.1f}, "
+          f"after it {after:.1f} ({m.n_shards} shards); "
+          f"{m.migration_psyncs / m.migrated_nodes:.6f} migration psyncs "
+          "per migrated node")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resize_") as tmp:
+        loads = check_load_resharded(dev, m, ref, tmp, "load_resharded")
+
+    # blocking merge 8 -> 4, then a quiescent split against the offline
+    # rebuild, both timed on the filled map
+    sync(dev)
+    t1 = time.perf_counter()
+    m.merge()
+    sync(dev)
+    merge_ms = (time.perf_counter() - t1) * 1e3
+    expect(m.n_shards == RESIZE_SHARDS, "resize: merge geometry")
+    check_membership(m, ref, dev, MEMBER_CHUNK, "resize after the merge")
+    planes = TE.export_pool(m.map.state)
+    mp0, mn0 = m.migration_psyncs, m.migrated_nodes
+    sync(dev)
+    t1 = time.perf_counter()
+    m.split()
+    sync(dev)
+    split_ms = (time.perf_counter() - t1) * 1e3
+    per_node = (m.migration_psyncs - mp0) / (m.migrated_nodes - mn0)
+    split = split_planes(planes, RESIZE_SHARDS)
+    off, _ = SH.recover(*(TE._on_device(split[f], dev, np.int32)
+                          for f in PLANES), sspec=m.sspec)
+    for f in off._fields:
+        if f not in ("n_psync", "n_ops"):
+            expect(torch.equal(getattr(m.map.state, f), getattr(off, f)),
+                   f"resize: quiescent split leaf {f} differs from the "
+                   "offline split_planes + shard.recover")
+    del off
+    print(f"resize blocking merge {2 * RESIZE_SHARDS} -> {RESIZE_SHARDS} "
+          f"{merge_ms:.3f} ms (content kept); blocking split of the filled "
+          f"map ({len(m)} live) {split_ms:.3f} ms, every leaf equal to the "
+          f"offline rebuild, {per_node:.6f} migration psyncs per node")
+
+    # crash drills during a stepped split, with host syncs per step
+    m.merge()
+    sites = {"chunk": {}, "commit": {}}
+    drills = []
+    m.begin_split()
+    both = RESIZE_SHARDS + 2 * RESIZE_SHARDS
+    drills.append(resize_drill(m, ref, dev, "drill after begin_split", both))
+    step_until(m, lambda n: n >= 4, sites)         # 4 of unit 0's chunks
+    drills.append(resize_drill(m, ref, dev, "drill mid-copy of unit 0", both))
+    step_until(m, lambda n: m.frontier.committed >= 2, sites)
+    drills.append(resize_drill(m, ref, dev, "drill after unit 1's commit",
+                               both))
+    step_until(m, lambda n: not m.migrating, sites)
+    drills.append(resize_drill(m, ref, dev, "drill after the finalize",
+                               2 * RESIZE_SHARDS))
+    drive(m, ref, dev, *traffic(rng, 5, b, kr), "resize after the drills")
+    for kind, found in sites.items():
+        n = found.pop("steps")
+        print(f"resize host syncs per {kind} step in the port's code over "
+              f"{n} steps: {sum(found.values()) / n:.2f} ("
+              + ", ".join(f"{k} x{v}" for k, v in sorted(found.items()))
+              + ")")
+    del m
+    torch.cuda.empty_cache()
+
+    probe, probe_launches = probe_split(dev, per, kr, b)
+    torch.cuda.empty_cache()
+    check_merge_refusal(dev)
+    serve_launches = check_serve_autosplit(dev)
+    run_card_tests("resize card tests", "resize or elastic")
+    print(f"resize summary (bucket, SOFT, {RESIZE_SHARDS} -> "
+          f"{2 * RESIZE_SHARDS} shards of {per} slots): ops/s before "
+          f"{before:.1f}, during {during:.1f}, after {after:.1f}; blocking "
+          f"split {split_ms:.3f} ms, merge {merge_ms:.3f} ms; probe split "
+          f"{probe['split_ms']:.3f} ms (table rebuild "
+          f"{probe['rebuild_ms']:.3f} ms); load_resharded "
+          + ", ".join(f"to {k} shards {v[0]:.3f} ms"
+                      for k, v in loads.items()))
+    print(f"phase 3e: {time.perf_counter() - t0:.1f} s")
+    return {"recovery_scan": {
+                "live_split": live["recovery_scan"], "crash_drills": drills,
+                "load_resharded": {k: v[1] for k, v in loads.items()},
+                "probe_split": probe_launches["recovery_scan"],
+                "serve": {k: v["recovery_scan"]
+                          for k, v in serve_launches.items()}},
+            "hash_probe": {"live_split": live["hash_probe"]},
+            "table_probe": {"probe_split": probe_launches["table_probe"],
+                            "serve": {k: v["table_probe"]
+                                      for k, v in serve_launches.items()}}}
+
+
+# ---------------------------------------------------------------------------
 # 4. attention kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -2299,6 +2736,10 @@ def main() -> int:
     queue = run_queue_phase(dev)
     torch.cuda.empty_cache()
 
+    # 3e. online resize at the hash-1M geometry
+    resize = run_resize_phase(dev)
+    torch.cuda.empty_cache()
+
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
     attn = check_attention_kernels(dev)
@@ -2325,6 +2766,7 @@ def main() -> int:
          "launches_sharded": sharded["recovery_scan"],
          "shard_shape": sharded["shapes"]["recovery_scan"],
          "launches_queue": queue["recovery_scan"],
+         "launches_resize": resize["recovery_scan"],
          "launches_serving_spine": {"one_wave": spine["recovery_scan"],
                                     "waves": waves["recovery_scan"]},
          "queue_shape": queue["shapes"]},
@@ -2337,6 +2779,7 @@ def main() -> int:
          "launches_sharded": sharded["hash_probe"],
          "shard_shape": sharded["shapes"]["hash_probe"],
          "launches_queue": queue["hash_probe"],
+         "launches_resize": resize["hash_probe"],
          # the second route of probe_pallas (the probe backend's
          # table_lookup), the entry table_probe of the same source
          "probe_window": {
@@ -2346,6 +2789,7 @@ def main() -> int:
              "launches_serving": serving["table_probe"],
              "launches_sharded": sharded["table_probe"],
              "launches_queue": queue["table_probe"],
+             "launches_resize": resize["table_probe"],
              "launches_serving_spine": {"one_wave": spine["table_probe"],
                                         "waves": waves["table_probe"]},
              "shard_shape": sharded["shapes"]["table_probe"], **window,

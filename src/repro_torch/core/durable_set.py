@@ -22,8 +22,11 @@ backend-owned ``index_update`` hook over :class:`IndexFields`.
 Every function returns the same values, at the same dtypes, as its JAX
 counterpart; the counters are saturating int32, as JAX keeps them in its
 default 32-bit mode.  Functions build new tensors and leave their inputs
-unchanged.  The legacy jitted string-index wrappers (``insert_batch`` /
-``remove_batch`` / ``contains_batch``) are not ported yet.
+unchanged.  The legacy string-index wrappers (``insert_batch`` /
+``remove_batch`` / ``contains_batch`` / ``recover`` /
+``crash_and_recover``) keep the JAX package's ``index="probe"|"scan"``
+interface; a probe lookup on the card runs the ``table_probe`` kernel,
+as the engine's probe backend does.
 
 The linear-probe table's searches evaluate each lane's whole probe window
 in one pass, where the JAX package walks it in chunks of 16 slots
@@ -43,6 +46,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.drop import set_drop
 from repro_torch.core.nvm import (FREE, VALID, DELETED, EMPTY, TOMB,
                                   hash32, crash_persisted_stage)
+from repro_torch.kernels.hash_probe.kernel import table_probe_cuda
 
 MODES = ("linkfree", "soft", "logfree")
 
@@ -212,6 +216,17 @@ def _lookup_scan(state: SetState, keys: torch.Tensor) -> torch.Tensor:
     live = state.cur == VALID
     eq = live[None, :] & (keys[:, None] == state.keys[None, :])
     return _where_i32(eq.any(dim=1), _first(eq)[:, 0], EMPTY)
+
+
+def _lookup(state: SetState, keys: torch.Tensor, index: str) -> torch.Tensor:
+    """The legacy wrappers' lookup: ``"scan"`` traverses the pool, any
+    other index probes the table -- through the ``table_probe`` kernel
+    when the state is on the card, as ``engine.ProbeBackend`` does."""
+    if index == "scan":
+        return _lookup_scan(state, keys)
+    if state.table.is_cuda:
+        return table_probe_cuda(state.table, state.keys, keys, MAX_PROBE)
+    return _lookup_probe(state, keys)
 
 
 def _table_write_ref(table: torch.Tensor, keys: torch.Tensor,
@@ -595,6 +610,41 @@ def _contains_impl(state: SetState, keys: torch.Tensor, *, mode: str,
 
 
 # ---------------------------------------------------------------------------
+# Legacy string-index wrappers (see repro_torch.core.engine for the SetSpec /
+# backend-protocol surface).  Like the engine's functional API they may
+# update the state's tensors in place: callers rebind the state.
+# ---------------------------------------------------------------------------
+
+def insert_batch(state: SetState, keys: torch.Tensor, values: torch.Tensor,
+                 mode: str = "soft", index: str = "probe"
+                 ) -> Tuple[SetState, torch.Tensor]:
+    """Batched insert; returns success per lane (False == key already
+    present).  The legacy surface always maintains the probe table (scan
+    lookups simply never read it)."""
+    return _insert_impl(state, keys, values, mode=mode,
+                        lookup_fn=lambda s, k: _lookup(s, k, index),
+                        index_update=probe_index_update("insert"))
+
+
+def remove_batch(state: SetState, keys: torch.Tensor, mode: str = "soft",
+                 index: str = "probe") -> Tuple[SetState, torch.Tensor]:
+    """Batched remove; success == key was present and this lane won the
+    race."""
+    return _remove_impl(state, keys, mode=mode,
+                        lookup_fn=lambda s, k: _lookup(s, k, index),
+                        index_update=probe_index_update("remove"))
+
+
+def contains_batch(state: SetState, keys: torch.Tensor, mode: str = "soft",
+                   index: str = "probe") -> Tuple[SetState, torch.Tensor]:
+    """Batched contains (see :func:`_contains_impl` for the per-mode psync
+    story)."""
+    state, present, _ = _contains_impl(
+        state, keys, mode=mode, lookup_fn=lambda s, k: _lookup(s, k, index))
+    return state, present
+
+
+# ---------------------------------------------------------------------------
 # Crash + recovery
 # ---------------------------------------------------------------------------
 
@@ -642,3 +692,18 @@ def _rebuild_from_member(member: torch.Tensor, keys: torch.Tensor,
     if index_init is not None:
         state = index_init(state)
     return state
+
+
+def recover(persisted: torch.Tensor, keys: torch.Tensor, values: torch.Tensor,
+            stamp: Optional[torch.Tensor] = None,
+            table_factor: int = 4) -> SetState:
+    """Rebuild a fresh set from the durable areas (Sections 3.5 / 4.6) on
+    their device: persisted == VALID -> member; everything else -> free
+    list.  No psync is ever issued: payloads are already durable."""
+    return _rebuild_from_member(persisted == VALID, keys, values,
+                                table_factor, stamp=stamp)
+
+
+def crash_and_recover(state: SetState, u: torch.Tensor,
+                      table_factor: int = 4) -> SetState:
+    return recover(*crash(state, u), table_factor=table_factor)

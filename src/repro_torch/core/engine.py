@@ -31,7 +31,8 @@ vector.  Mixed batches linearize phase by phase (all contains, then all
 inserts, then all removes) with lane priority inside a phase.
 
 :class:`DurableMap` is the object facade; its state lives on the device it
-is given (``"cuda"`` by default).
+is given (``"cuda"`` by default).  :class:`DurableSet` is the JAX package's
+deprecated legacy facade over it.
 """
 from __future__ import annotations
 
@@ -1002,3 +1003,19 @@ class DurableMap(MetricsMixin):
     def __repr__(self):
         return (f"DurableMap(size={len(self)}, psyncs={self.psyncs}, "
                 f"spec={self.spec})")
+
+
+class DurableSet(DurableMap):
+    """Deprecated legacy surface: use ``DurableMap(SetSpec(...))``.
+
+    The old ``index=`` kwarg maps 1:1 onto backend names.
+    """
+
+    def __init__(self, capacity: int, mode: str = "soft",
+                 index: str = "probe", device="cuda"):
+        warnings.warn("DurableSet is deprecated; use "
+                      "DurableMap(SetSpec(capacity=..., mode=..., "
+                      "backend=...))", DeprecationWarning, stacklevel=2)
+        super().__init__(SetSpec(capacity=capacity, mode=mode, backend=index),
+                         device=device)
+        self.mode, self.index = mode, index

@@ -17,7 +17,11 @@ latest snapshot and the stamp delta, where the structure supports it
 otherwise.  ``--shards N`` (N > 1) swaps in the hash-partitioned
 ``ShardedDurableMap`` (``repro_torch.core.shard``) with its ``--router``,
 ``--placement`` and ``--max-lane-budget``; each shard's lookups and
-recovery run the same kernels, once per shard.
+recovery run the same kernels, once per shard.  ``--autosplit W`` makes
+the registry an ``ElasticShardedMap`` (``repro_torch.core.resize``) that
+starts an online S -> 2S split once its fill factor reaches W; the
+migration advances one increment per serving step and is drained at the
+end, each child rebuilt through ``recovery_scan``.
 
 ``--queue`` makes the driver the durable request/completion SPINE
 (DESIGN.md §7): arrivals are acknowledged by a durable enqueue into a
@@ -44,7 +48,7 @@ ack finished while the generation still ran (``ack_overlapped``).
       --requests 8 --prompt-len 32 --gen 16 [--crash] [--device cpu] \\
       [--snapshot-every 1 [--snapshot-dir DIR]] [--shards 8 [--router v1]
       [--placement strided] [--max-lane-budget L] [--pipeline 2]]
-      [--queue [--queue-capacity 1024]]
+      [--queue [--queue-capacity 1024]] [--autosplit 0.75]
 
 It runs on the GPU unless given ``--device cpu``.  ``run`` is the same path
 for a caller that holds a config object.
@@ -63,8 +67,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, get_config
-from repro_torch.core import (DurableMap, DurableQueue, QueueSpec, SetSpec,
-                              ShardedDurableMap)
+from repro_torch.core import (DurableMap, DurableQueue, ElasticShardedMap,
+                              QueueSpec, SetSpec, ShardedDurableMap)
 from repro_torch.core.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.obs import MetricsRegistry
@@ -73,7 +77,6 @@ from repro_torch.train import steps as TS
 
 # Options of repro.launch.serve that wait for their slices.
 NOT_PORTED = {
-    "--autosplit": "ROADMAP queue A, item 10 (online resize)",
     "--open-loop": "ROADMAP queue A, item 11 (bench_serve)",
 }
 
@@ -83,6 +86,9 @@ REGISTRY_CAPACITY = 1024
 PIPELINE_NEEDS_SHARDS = ("--pipeline > 1 requires --shards > 1 (the "
                          "pipelined dispatch path lives in the sharded "
                          "registry router)")
+AUTOSPLIT_RANGE = "--autosplit must be a fill factor in (0, 1]"
+AUTOSPLIT_NEEDS = ("--autosplit requires --router v2 and --pipeline 1 (the "
+                   "split frontier commits at dispatch boundaries)")
 
 
 def _sync(dev: torch.device) -> None:
@@ -109,7 +115,8 @@ def run(cfg: ModelConfig, requests: int = 8, prompt_len: int = 32,
         snapshot_dir: Optional[str] = None, shards: int = 1,
         router: str = "v2", placement: str = "contiguous",
         max_lane_budget: int = 0, queue: bool = False,
-        queue_capacity: int = 1024, pipeline: int = 1) -> dict:
+        queue_capacity: int = 1024, pipeline: int = 1,
+        autosplit: float = 0.0) -> dict:
     """Serve ``requests`` prompts of ``prompt_len`` tokens for ``gen``
     tokens each, record the completions in the registry, and with
     ``crash`` crash and recover it.  ``params`` defaults to
@@ -120,13 +127,22 @@ def run(cfg: ModelConfig, requests: int = 8, prompt_len: int = 32,
     registry a ``ShardedDurableMap`` with that router, placement, lane cap
     and ``pipeline`` depth; ``pipeline`` > 1 serves in waves.  ``queue``
     runs the request/completion spine through two ``queue_capacity``-slot
-    SOFT queues.  Returns the generated tokens, the structures' counts and
-    the timings (for one wave, the device synchronized around prefill and
-    around the decode loop)."""
+    SOFT queues.  ``autosplit`` > 0 makes the registry an
+    ``ElasticShardedMap`` of ``max(1, shards)`` shards that begins an
+    online split when its fill factor reaches ``autosplit``, advances it
+    one ``step()`` per serving step and drains it before the summary.
+    Returns the generated tokens, the structures' counts and the timings
+    (for one wave, the device synchronized around prefill and around the
+    decode loop)."""
     if pipeline < 1:
         raise ValueError("--pipeline must be >= 1")
     if pipeline > 1 and shards <= 1:
         raise ValueError(PIPELINE_NEEDS_SHARDS)
+    if autosplit:
+        if not 0 < autosplit <= 1:
+            raise ValueError(AUTOSPLIT_RANGE)
+        if router != "v2" or pipeline != 1:
+            raise ValueError(AUTOSPLIT_NEEDS)
     dev = resolve_device(device)
     if params is None:
         params = M.init_params(cfg, seed=0, device=dev)
@@ -134,7 +150,18 @@ def run(cfg: ModelConfig, requests: int = 8, prompt_len: int = 32,
 
     m = MetricsRegistry()     # one snapshot() reaches every structure
     spec = SetSpec(capacity=REGISTRY_CAPACITY, mode="soft", backend=backend)
-    if shards > 1:            # same facade API, hash-partitioned runtime
+    if autosplit:             # elastic geometry: splits online under load
+        registry = ElasticShardedMap(spec, n_shards=max(1, shards),
+                                     placement=placement,
+                                     max_lane_budget=max_lane_budget,
+                                     metrics=m, metrics_name="registry",
+                                     device=dev)
+        budgets = registry.precompile(requests)
+        if budgets:
+            print(f"registry router v2: pre-compiled lane budgets "
+                  f"{budgets} (elastic, autosplit @ fill "
+                  f">= {autosplit})")
+    elif shards > 1:          # same facade API, hash-partitioned runtime
         registry = ShardedDurableMap(spec, n_shards=shards, router=router,
                                      placement=placement,
                                      max_lane_budget=max_lane_budget,
@@ -181,6 +208,16 @@ def run(cfg: ModelConfig, requests: int = 8, prompt_len: int = 32,
         serve_step += 1
         for s in snaps.values():
             s.maybe_snapshot(serve_step)
+        if autosplit:
+            # the autosplit watermark: one migration increment rides each
+            # serving step, so the split amortizes across live traffic
+            if registry.migrating:
+                registry.step()
+            elif registry.fill_factor() >= autosplit:
+                print(f"autosplit: fill {registry.fill_factor():.3f} >= "
+                      f"{autosplit:g} -> online split "
+                      f"S={registry.n_shards} -> {2 * registry.n_shards}")
+                registry.begin_split()
 
     def crash_recover(structure, key):
         """Crash+recover one structure -- through its snapshotter's
@@ -350,6 +387,15 @@ def run(cfg: ModelConfig, requests: int = 8, prompt_len: int = 32,
         lr = reg["last_route"]
         print(f"router: lane_budget={lr['lane_budget']} "
               f"groups={lr['groups']} dropped={reg['router_dropped']}")
+    if autosplit:
+        while not registry.step():      # drain an in-flight migration
+            pass
+        print(f"elastic registry: n_shards={registry.n_shards} "
+              f"(splits={registry.splits}), fill="
+              f"{registry.fill_factor():.3f}, migrated="
+              f"{registry.migrated_nodes} node(s) at "
+              f"{registry.migration_psyncs} migration psync(s); hot-path "
+              f"psyncs={registry.psyncs} (== #requests, unchanged)")
 
     if crash:
         late_ids = None
@@ -471,6 +517,14 @@ def main(argv=None):
     ap.add_argument("--max-lane-budget", type=int, default=0,
                     help="cap the v2 adaptive lane budget (0 = uncapped; "
                          "a cap drops + counts over-budget lanes)")
+    ap.add_argument("--autosplit", type=float, default=0.0,
+                    help="fill-factor watermark in (0, 1]: the registry "
+                         "becomes an ElasticShardedMap and an online "
+                         "S -> 2S shard split starts when live size / "
+                         "capacity crosses the watermark; the migration "
+                         "advances one increment per serving step, "
+                         "interleaved with live traffic.  0 disables "
+                         "(fixed geometry)")
     ap.add_argument("--pipeline", type=int, default=1,
                     help="registry pipeline depth: > 1 serves the requests "
                          "in waves through the pipelined sharded registry "
@@ -482,13 +536,19 @@ def main(argv=None):
         ap.error("--pipeline must be >= 1")
     if args.pipeline > 1 and args.shards <= 1:
         ap.error(PIPELINE_NEEDS_SHARDS)
+    if args.autosplit:
+        if not 0 < args.autosplit <= 1:
+            ap.error(AUTOSPLIT_RANGE)
+        if args.router != "v2" or args.pipeline != 1:
+            ap.error(AUTOSPLIT_NEEDS)
     run(get_config(args.arch), requests=args.requests,
         prompt_len=args.prompt_len, gen=args.gen, crash=args.crash,
         backend=args.backend, device=args.device,
         snapshot_every=args.snapshot_every, snapshot_dir=args.snapshot_dir,
         shards=args.shards, router=args.router, placement=args.placement,
         max_lane_budget=args.max_lane_budget, queue=args.queue,
-        queue_capacity=args.queue_capacity, pipeline=args.pipeline)
+        queue_capacity=args.queue_capacity, pipeline=args.pipeline,
+        autosplit=args.autosplit)
     return 0
 
 

@@ -29,8 +29,8 @@ snapshot hooks.  Backends without a canonical O(delta) index patch
 
 PyTorch port of ``repro.store.snapshot``.  The port's ``DurableMap``,
 ``ShardedDurableMap`` (per-shard watermark vector) and ``DurableQueue``
-have the hooks; ``load_resharded`` waits for online resize (ROADMAP
-queue A, item 10).  The store layout is the JAX package's, so either
+have the hooks; ``load_resharded`` restores a sharded-map snapshot at
+another shard count.  The store layout is the JAX package's, so either
 package restores the other's snapshots.
 """
 from __future__ import annotations
@@ -43,6 +43,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import engine as E
+from repro_torch.core import shard as SH
+from repro_torch.core.resize import ElasticShardedMap, reshard_planes
 from repro_torch.store.checkpoint import CheckpointManager
 
 
@@ -255,11 +258,79 @@ class Snapshotter:
         self.store.close()
 
 
+# ---------------------------------------------------------------------------
+# Elastic restore: rebuild a sharded map from a snapshot taken at a
+# DIFFERENT shard count (DESIGN.md §12).
+# ---------------------------------------------------------------------------
+
+
 def load_resharded(directory: str, spec, n_shards: int, elastic: bool = True,
-                   **shard_kwargs):
-    """Restore a sharded-map snapshot at another shard count (the JAX
-    package's ``repro.store.snapshot.load_resharded``).  It needs online
-    resize's resharding of the planes, which is not ported yet."""
-    raise NotImplementedError(
-        "load_resharded is not ported yet (ROADMAP queue A, item 10: "
-        "online resize)")
+                   device="cuda", **shard_kwargs):
+    """Restore the latest committed sharded-map snapshot into a map with
+    ``n_shards`` shards on ``device`` -- not necessarily the count the
+    snapshot was taken at.  The stored CANONICAL planes (``cur``/``keys``/
+    ``values``/``stamp`` -- exactly what a full-pool rebuild at the old S
+    would produce; the raw pre-canonicalization stage plane is
+    deliberately not used) are resharded on the host by prefix refinement
+    (:func:`repro_torch.core.resize.reshard_planes`) and rebuilt with the
+    normal per-shard recovery at the new geometry (``recovery_scan`` once
+    per new shard on the card): zero psyncs, and the result is
+    bit-identical to recovering at the old S and then running a full
+    offline split/merge.
+
+    ``spec`` is the per-shard-compatible base :class:`SetSpec` (snapshots
+    store planes, not specs); the per-shard pool size must match the
+    stored one -- resharding moves nodes ACROSS shards, never resizes a
+    shard's pool.  Returns an
+    :class:`~repro_torch.core.resize.ElasticShardedMap` (``elastic=False``:
+    a plain :class:`~repro_torch.core.shard.ShardedDurableMap`)."""
+    store = CheckpointManager(directory, layout="dirs")
+    try:
+        step = store.latest_step()
+        if step is None:
+            raise FileNotFoundError(
+                f"no committed snapshot under {directory!r}")
+        planes = store.restore(step)
+        canon = {"stage": np.asarray(planes["cur"]),
+                 "keys": np.asarray(planes["keys"]),
+                 "values": np.asarray(planes["values"]),
+                 "stamp": np.asarray(planes["stamp"])}
+        s_old, per = canon["stage"].shape
+        if elastic:
+            m = ElasticShardedMap(spec, n_shards=n_shards, device=device,
+                                  **shard_kwargs)
+            inner = m.map
+        else:
+            m = SH.ShardedDurableMap(spec, n_shards=n_shards, device=device,
+                                     **shard_kwargs)
+            inner = m
+        if inner.sspec.per_shard_capacity != per:
+            raise ValueError(
+                f"per-shard capacity mismatch: snapshot has {per}-slot "
+                f"pools, target spec provisions "
+                f"{inner.sspec.per_shard_capacity} -- resharding moves "
+                "nodes across shards, it cannot resize a shard's pool")
+        out = reshard_planes(canon, s_old, n_shards)
+        state, hist = SH.recover(
+            *(E._on_device(out[f], inner.device, np.int32)
+              for f in ("stage", "keys", "values", "stamp")),
+            sspec=inner.sspec)
+        # stamp strictly above every stored watermark (see _fix_epoch):
+        # the watermark vector is per OLD shard, so after resharding the
+        # safe bound is the global max
+        w = None
+        for s in store.committed:
+            extra = store.extra(s)
+            if extra and "watermark" in extra:
+                ws = int(np.max(np.asarray(extra["watermark"])))
+                w = ws if w is None else max(w, ws)
+        if w is not None:
+            state = state._replace(epoch=state.epoch.clamp(min=w + 1))
+        inner.state = state
+        inner.last_recovery_hist_shards = E._host(hist)
+        inner.last_recovery_hist = inner.last_recovery_hist_shards.sum(axis=0)
+        if elastic:
+            m.last_recovery_hist = inner.last_recovery_hist
+        return m
+    finally:
+        store.close()

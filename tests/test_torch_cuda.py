@@ -12,7 +12,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import (DurableMap, DurableQueue,  # noqa: E402
-                              QueueSpec, SetSpec, ShardedDurableMap)
+                              ElasticShardedMap, QueueSpec, SetSpec,
+                              ShardedDurableMap)
 from repro_torch.kernels.flash_prefill.kernel import (  # noqa: E402
     flash_prefill_cuda)
 from repro_torch.kernels.flash_prefill.ref import (  # noqa: E402
@@ -35,7 +36,8 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.core import engine as TE  # noqa: E402
 from repro_torch.core import queue as TQ  # noqa: E402
 from repro_torch.core import shard as TS  # noqa: E402
-from repro_torch.store.snapshot import Snapshotter  # noqa: E402
+from repro_torch.store.snapshot import (Snapshotter,  # noqa: E402
+                                        load_resharded)
 
 pytestmark = pytest.mark.cuda
 
@@ -658,3 +660,127 @@ def test_serve_queue_spine_on_the_card(cuda, kw):
     assert res["recovery_psyncs"] == 0
     assert scan_cuda.launches == 2 + kw.get("shards", 1)
     assert len(res["ack_overlapped"]) == (3 if kw else 0)
+
+
+@pytest.mark.parametrize("backend", ("probe", "scan", "bucket"))
+def test_elastic_split_and_merge_on_the_card_match_the_cpu(cuda, backend):
+    """An online split of 4 shards under traffic, a crash inside it and a
+    blocking merge back, on the card and on the CPU: the same results,
+    frontier and counters at every step, every leaf of both maps bit for
+    bit.  Each commit rebuilds its children through recovery_scan on the
+    card (two per split unit, one per merge unit), a crash recovers every
+    shard of both maps through it, and the traffic runs the backend's
+    lookup kernel."""
+    rng = np.random.default_rng(21)
+    spec = SetSpec(capacity=1 << 12, backend=backend)
+    maps = [ElasticShardedMap(spec, n_shards=4, migrate_chunk=256,
+                              device=dev) for dev in (cuda, "cpu")]
+    keys = rng.choice(1 << 14, 1024, replace=False).astype(np.int32)
+    for m in maps:
+        assert m.insert(keys, keys * 3).all()
+    lookup = _LOOKUP.get(backend)
+    if lookup is not None:
+        lookup.launches = 0
+    scan_cuda.launches = 0
+    for m in maps:
+        m.begin_split()
+    step = 0
+    while True:
+        f0, n0 = maps[0].frontier.committed, scan_cuda.launches
+        done = [m.step() for m in maps]
+        assert done[0] == done[1]
+        if done[0]:
+            assert scan_cuda.launches == n0 + 2
+            break
+        if maps[0].frontier.committed > f0:
+            assert scan_cuda.launches == n0 + 2
+        step += 1
+        ops, k = _shard_traffic(rng, 1, 256, 1 << 14)[0]
+        res = [m.apply(ops, k, k * 3) for m in maps]
+        np.testing.assert_array_equal(res[0], res[1])
+        assert [m.psyncs for m in maps[1:]] == [maps[0].psyncs]
+        if step == 7:                       # inside unit 1's copy
+            n0 = scan_cuda.launches
+            u = rng.random((4, 1024), dtype=np.float32)
+            for m in maps:
+                m.crash_and_recover(u, seed=3)
+            assert scan_cuda.launches == n0 + 4 + 8
+            np.testing.assert_array_equal(maps[0].last_recovery_hist,
+                                          maps[1].last_recovery_hist)
+    assert maps[0].n_shards == 8 and maps[0].migration_psyncs == \
+        maps[1].migration_psyncs
+    if lookup is not None:
+        assert lookup.launches > 0
+    n0 = scan_cuda.launches
+    for m in maps:
+        m.merge()
+    assert scan_cuda.launches == n0 + 4
+    for m in maps:
+        assert m.n_shards == 4 and not m.migrating
+    got, want = (state_to_numpy(m.map.state) for m in maps)
+    for f in got:
+        np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+    q = np.arange(1 << 14, dtype=np.int32)
+    np.testing.assert_array_equal(*(m.get(q, default=-1) for m in maps))
+    assert maps[0].migrated_nodes == maps[1].migrated_nodes
+
+
+@pytest.mark.parametrize("new_s", (2, 8))
+def test_elastic_load_resharded_on_the_card_matches_the_cpu(cuda, tmp_path,
+                                                            new_s):
+    """A snapshot of 4 bucket shards on the card, loaded at another shard
+    count on the card and on the CPU: every leaf equal, recovery psyncs 0,
+    recovery_scan once per new shard on the card."""
+    rng = np.random.default_rng(22)
+    m = ShardedDurableMap(SetSpec(capacity=1 << 12, backend="bucket"),
+                          n_shards=4, device=cuda)
+    keys = rng.choice(1 << 14, 1536, replace=False).astype(np.int32)
+    assert m.insert(keys, keys * 5).all()
+    m.remove(keys[:256])
+    d = str(tmp_path / "snap")
+    sn = Snapshotter(m, d)
+    sn.snapshot()
+    sn.close()
+    tgt = SetSpec(capacity=1024 * new_s, backend="bucket")
+    scan_cuda.launches = 0
+    maps = [load_resharded(d, tgt, new_s, device=dev)
+            for dev in (cuda, "cpu")]
+    assert scan_cuda.launches == new_s
+    got, want = (state_to_numpy(x.map.state) for x in maps)
+    for f in got:
+        np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+    assert maps[0].psyncs == 0 and len(maps[0]) == 1280
+    np.testing.assert_array_equal(
+        maps[0].get(keys, default=-1),
+        np.where(np.isin(keys, keys[:256]), -1, keys * 5))
+
+
+@pytest.mark.parametrize("index", ("probe", "scan"))
+def test_legacy_wrappers_on_the_card_match_the_cpu(cuda, index):
+    """The string-index wrappers on the card: a probe lookup runs the
+    table_probe kernel (never the plain path), and every result and leaf
+    equals the CPU run's, through a crash and recovery."""
+    rng = np.random.default_rng(23)
+    states = [DS.make_state(256, device=dev) for dev in (cuda, "cpu")]
+    table_probe_cuda.launches = 0
+
+    def step(fn, keys, *extra):
+        out = [getattr(DS, fn)(st, torch.from_numpy(keys).to(st.keys.device),
+                               *(torch.from_numpy(x).to(st.keys.device)
+                                 for x in extra), mode="soft", index=index)
+               for st in states]
+        states[:] = [o[0] for o in out]
+        assert torch.equal(out[0][1].cpu(), out[1][1])
+
+    for _ in range(3):
+        keys = rng.integers(0, 200, 64).astype(np.int32)
+        step("insert_batch", keys, keys * 2)
+        step("contains_batch", rng.integers(0, 256, 64).astype(np.int32))
+        step("remove_batch", rng.integers(0, 200, 64).astype(np.int32))
+    assert (table_probe_cuda.launches > 0) == (index == "probe")
+    u = torch.from_numpy(rng.random(256, dtype=np.float32))
+    states[:] = [DS.crash_and_recover(st, u.to(st.keys.device))
+                 for st in states]
+    got, want = (state_to_numpy(st) for st in states)
+    for f in got:
+        np.testing.assert_array_equal(got[f], want[f], err_msg=f)

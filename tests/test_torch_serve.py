@@ -143,8 +143,7 @@ def test_sharded_registry_serves_what_the_flat_one_serves(kw, tmp_path):
         (4, 4, 4, 0)
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--autosplit", "0.5"], "item 10"), (["--open-loop"], "item 11")])
+@pytest.mark.parametrize("argv,item", [(["--open-loop"], "item 11")])
 def test_options_still_waiting_name_their_item(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         serve.main(["--device", "cpu", "--shards", "4", *argv])

@@ -29,7 +29,6 @@ from repro_torch.core.convert import state_to_numpy  # noqa: E402
 from repro_torch.core.durable_set import SetState  # noqa: E402
 from repro_torch.store import checkpoint as TC  # noqa: E402
 from repro_torch.store.checkpoint import CheckpointManager  # noqa: E402
-from repro_torch.store.snapshot import load_resharded  # noqa: E402
 from repro_torch.store.snapshot import Snapshotter  # noqa: E402
 from repro_torch.store.tensorstore import DurableArea  # noqa: E402
 
@@ -180,8 +179,6 @@ def test_elastic_restore_new_sharding_names_its_roadmap_item(tmp_path):
         m.restore(like=t, shardings={"w": object()})
     np.testing.assert_array_equal(m.restore(like=t)["w"], t["w"])
     m.close()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        load_resharded(str(tmp_path), TE.SetSpec(capacity=8), n_shards=2)
 
 
 # ---------------------------------------------------------------------------
