@@ -190,6 +190,29 @@ Phases, each of which exits non-zero on failure:
    pipelined waves over an 8-shard registry (``shards=8, pipeline=2``),
    printing whether each wave's ack finished while the previous wave
    still generated (``launches_serving_spine`` in the JSON record).
+7. The open-loop serving harness (``repro_torch.launch.bench_serve``) at
+   the JAX package's default geometry (``ServeConfig``): a 2^20-slot SOFT
+   probe registry over 8 shards, Zipf(1.1) keys over 4,000,000, a
+   50/25/25 read/update/delete mix, 1024-lane batches, two 4096-slot
+   queues.  (a) ``bench_serve.main`` at those defaults with ``--duration
+   30 --utilization 0.6`` (the one cut: 30 s for the default 60) and its
+   ``--out`` in a temporary directory: no ack rejected, no short commit,
+   no drop, no overflow latch, exactly one psync per queue op, the
+   registry's psyncs per op within the update share, the payload's meta
+   naming this card and its power limit; offered rate, ops/s, latency
+   p50/p99/p999, the spans and the backlog printed.  (b) ``--quick
+   --backend bucket --duration 5 --utilization 0.5,0.9``: the sweep and
+   its knee, ``hash_probe`` launched.  (c) A crash drill: the spine built
+   by ``_build_spine`` at the defaults, 20 rounds of the arrival stream
+   (some padded with OP_NOP) through ``_spine_round``, every registry lane
+   against the host reference, then 4 rounds counting host syncs by site
+   and 4 under the profiler (the device's busy share); a crash and
+   recovery of the registry and both queues: the whole key range against
+   the reference, recovery psyncs 0, both queues empty with their cursors
+   at the acked count, ``recovery_scan`` launched 10 times.  Then the card
+   tests whose names hold "open_loop" or "bench_serve".  Launch counts
+   are zeroed before each run and read after it (``launches_open_loop``
+   in the JSON record).
 
 The last two lines are the per-kernel JSON record (``hash_probe``'s entry
 carries its probe-window route under ``probe_window``) and
@@ -245,9 +268,10 @@ from repro_torch.kernels.hash_probe.ref import (  # noqa: E402
     probe_ref, table_lookup_ref, window_rows)
 from repro_torch.kernels.recovery_scan.kernel import scan_cuda  # noqa: E402
 from repro_torch.kernels.recovery_scan.ref import scan_ref  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import bench_serve, serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.params import tree_leaves  # noqa: E402
+from repro_torch.obs import MetricsRegistry  # noqa: E402
 from repro_torch.store.snapshot import (Snapshotter,  # noqa: E402
                                         load_resharded)
 from repro_torch.train import steps as TS  # noqa: E402
@@ -2633,6 +2657,275 @@ def run_serving_spine(dev, params, arch="qwen3-32b", requests=8,
     return launches, res
 
 
+# ---------------------------------------------------------------------------
+# 7. the open-loop serving harness (bench_serve)
+# ---------------------------------------------------------------------------
+
+OPEN_LOOP_SECONDS = 30.0           # bench_serve's default 60 s, cut to 30
+DRILL_ROUNDS = 20                  # checked rounds before the crash
+DRILL_EXTRA = 4                    # then as many counting syncs, profiled
+OPEN_LOOP_KERNELS = {"recovery_scan": scan_cuda, "hash_probe": probe_cuda,
+                     "table_probe": table_probe_cuda}
+
+
+def open_loop_launches() -> dict:
+    return {k: fn.launches for k, fn in OPEN_LOOP_KERNELS.items()}
+
+
+def run_bench_serve(dev, argv, label):
+    """``bench_serve.main`` on the card with ``argv`` and its ``--out`` in a
+    temporary directory, the launch counts zeroed just before it.  Prints
+    its lines; returns (payload, launches)."""
+    for fn in OPEN_LOOP_KERNELS.values():
+        fn.launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_open_loop_") as tmp:
+        out = Path(tmp) / "BENCH_torch_serve.json"
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = bench_serve.main(["--device", str(dev), *argv,
+                                   "--out", str(out)])
+        seconds = time.perf_counter() - t0
+        payload = json.loads(out.read_text())
+    launches = open_loop_launches()
+    print(buf.getvalue(), end="")
+    expect(rc == 0, f"{label}: bench_serve exited {rc}")
+    print(f"{label}: {seconds:.1f} s of command time; launches {launches}")
+    return payload, launches
+
+
+def check_open_loop(p, smi, label):
+    """The spine's invariants on one payload: no ack rejected, no short
+    commit, no drop, no overflow latch; exactly one psync per queue op
+    (SOFT: one per acked enqueue, one per dequeue; the CPU parity test
+    pins the same value for both packages); the registry's psyncs per op
+    within the update share; and the payload's meta names this card and
+    its power limit."""
+    c, ppo, cfg = p["counters"], p["psync_per_op"], p["config"]
+    expect(c["ack_rejected"] == 0 and c["commit_short"] == 0,
+           f"{label}: ack_rejected {c['ack_rejected']}, commit_short "
+           f"{c['commit_short']}")
+    expect(c["router_dropped"] == 0 and c["pipeline_abandoned"] == 0,
+           f"{label}: router_dropped {c['router_dropped']}")
+    expect(not c["registry_overflowed"] and not c["queue_overflowed"],
+           f"{label}: an overflow latch fired")
+    expect(ppo["req_queue"] == 1.0 and ppo["resp_queue"] == 1.0,
+           f"{label}: queue psyncs per op {ppo}, expected exactly 1.0")
+    update_share = 1.0 - cfg["read_pct"] / 100.0
+    expect(ppo["registry"] is not None
+           and 0 < ppo["registry"] <= update_share,
+           f"{label}: registry psyncs per op {ppo['registry']} above the "
+           f"update share {update_share}")
+    lat = p["latency"]
+    expect(p["requests_completed"] > 0
+           and lat["count"] == p["requests_completed"]
+           and all(np.isfinite(lat[k]) for k in ("p50_ms", "p99_ms",
+                                                 "p999_ms")),
+           f"{label}: latency samples")
+    name, limit = (s.strip() for s in smi.rsplit(",", 1))
+    meta = p["meta"]
+    expect(meta["device_name"] == name == torch.cuda.get_device_name(0)
+           and meta["power_limit"] == limit,
+           f"{label}: meta names {meta['device_name']!r} at "
+           f"{meta['power_limit']!r}, the card is {smi!r}")
+    spans = ", ".join(
+        f"{k} mean {v['mean_ms']:.3f} p50 {v['p50_ms']:.3f} p99 "
+        f"{v['p99_ms']:.3f}" for k, v in p["spans_ms"].items())
+    print(f"{label}: offered {p['offered_rate']:.1f}/s, served "
+          f"{p['ops_per_sec']:.1f} ops/s ({p['requests_completed']} "
+          f"requests in {p['duration_sec']:.3f} s); latency ms p50 "
+          f"{lat['p50_ms']:.3f} p99 {lat['p99_ms']:.3f} p999 "
+          f"{lat['p999_ms']:.3f} (exact={lat['exact']}); span ms: {spans}; "
+          f"backlog peak {c['backlog_peak']}, end {c['backlog_end']}; "
+          f"psyncs per op {ppo}; meta {meta['device_name']}, "
+          f"{meta['power_limit']}")
+
+
+class RecordingRegistry:
+    """Passes ``apply`` through to the registry and keeps each batch's
+    results, so the drill can check every lane that ``_spine_round``
+    served."""
+
+    def __init__(self, registry):
+        self.registry = registry
+        self.results = []
+
+    def apply(self, ops, keys, values):
+        res = self.registry.apply(ops, keys, values)
+        self.results.append(res)
+        return res
+
+
+def drill_rounds(dev, spine, m, ref, gen, batch, fills, label, recorder,
+                 window=None):
+    """``_spine_round`` once per fill (real lanes; the rest of the
+    ``batch`` are OP_NOP), every served lane then checked against the
+    reference.  ``window``, a context manager, encloses the rounds alone
+    (not the checks).  Returns the host wall seconds of the rounds and
+    what ``window`` yielded."""
+    registry, req_q, resp_q = spine
+    rounds = []
+    for n in fills:
+        _, k, o = gen.take(1e9, n)
+        keys = np.zeros((batch,), np.int32)
+        ops = np.full((batch,), OP_NOP, np.int32)
+        keys[:n], ops[:n] = k, o
+        rounds.append((ops, keys))
+    recorder.results.clear()
+    sync(dev)
+    with (window or contextlib.nullcontext()) as held:
+        t0 = time.perf_counter()
+        for ops, keys in rounds:
+            bench_serve._spine_round(m, recorder, req_q, resp_q,
+                                     req_q.spec, keys, ops)
+        sync(dev)
+        seconds = time.perf_counter() - t0
+    got = results(recorder.results)
+    for i, (ops, keys) in enumerate(rounds):
+        exp = ref.apply(ops, keys, keys)
+        ref.ops -= int((ops == OP_NOP).sum())    # padding is no op
+        expect((got[i] == exp).all(),
+               f"{label}: round {i} differs from the reference")
+    expect(len(registry) == int(ref.present.sum()), f"{label}: size")
+    expect(registry.psyncs == ref.psyncs and registry.ops == ref.ops,
+           f"{label}: registry psyncs {registry.psyncs} / ops "
+           f"{registry.ops} != reference {ref.psyncs} / {ref.ops}")
+    expect(len(req_q) == 0 and len(resp_q) == 0,
+           f"{label}: a queue kept requests after a full round")
+    return seconds, held
+
+
+def open_loop_drill(dev, cfg=None):
+    """Phase 7c: the spine at bench_serve's default geometry (or ``cfg``),
+    built by ``_build_spine``; 20 rounds of its arrival stream (some padded with
+    OP_NOP) through ``_spine_round``, every registry lane against the host
+    reference; 4 more counting host syncs by site and 4 under the
+    profiler; then a crash and recovery of the registry and both queues.
+    Returns the launches."""
+    cfg = cfg or bench_serve.ServeConfig(device=str(dev))
+    m = MetricsRegistry()
+    spine = bench_serve._build_spine(cfg, m)
+    registry, req_q, resp_q = spine
+    recorder = RecordingRegistry(registry)
+    ref = Reference(cfg.key_range, cfg.mode)
+    gen = bench_serve._ArrivalGen(cfg, 1e6)
+    label = "open-loop drill"
+    for fn in OPEN_LOOP_KERNELS.values():
+        fn.launches = 0
+    fills = [cfg.batch if i % 4 else cfg.batch - 300 - 7 * i
+             for i in range(DRILL_ROUNDS)]
+    seconds, _ = drill_rounds(dev, spine, m, ref, gen, cfg.batch, fills,
+                              label, recorder)
+    lookups = table_probe_cuda.launches
+    print(f"{label}: {DRILL_ROUNDS} rounds ({sum(fills)} requests, "
+          f"{DRILL_ROUNDS * cfg.batch - sum(fills)} OP_NOP lanes) in "
+          f"{seconds * 1e3:.3f} ms ({seconds * 1e3 / DRILL_ROUNDS:.3f} ms "
+          f"per round), every lane against the reference; table_probe "
+          f"{lookups / DRILL_ROUNDS:.2f} launches per round; {len(registry)} "
+          f"live keys")
+    _, (sites, other) = drill_rounds(
+        dev, spine, m, ref, gen, cfg.batch, [cfg.batch] * DRILL_EXTRA,
+        f"{label} sync count", recorder, window=sync_sites())
+    print_sites(label, f"{DRILL_EXTRA} rounds", sites, other)
+    print(f"{label}: {sum(sites.values()) / DRILL_EXTRA:.2f} host syncs per "
+          "round in the port's code")
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    wall, prof = drill_rounds(
+        dev, spine, m, ref, gen, cfg.batch, [cfg.batch] * DRILL_EXTRA,
+        f"{label} profiled", recorder,
+        window=torch_profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]))
+    rows, busy = device_rows(prof)
+    print(f"{label} profile: {DRILL_EXTRA} rounds, wall {wall * 1e6:.1f} "
+          f"us, device busy {busy:.1f} us ({100 * busy / (wall * 1e6):.2f}%),"
+          f" {sum(r[1] for r in rows) / DRILL_EXTRA:.1f} device ops per "
+          "round")
+    for us, n, key in rows[:8]:
+        print(f"  {us:12.1f} us {n:6d}x  {key[:90]}")
+    spans = m.snapshot()["histograms"]
+    print(f"{label}: span ms (mean over {len(fills) + 2 * DRILL_EXTRA} "
+          "rounds): " + ", ".join(
+              f"{k[5:]} {v['mean'] * 1e3:.3f}" for k, v in spans.items()
+              if k.startswith("span.")))
+    counters = m.snapshot()["counters"]
+    expect(counters.get("spine.ack_rejected", 0) == 0
+           and counters.get("spine.commit_short", 0) == 0,
+           f"{label}: spine counters {counters}")
+
+    # crash the registry (a seeded adversary per shard) and both queues
+    acked = (int(req_q.state.tail), int(resp_q.state.tail))
+    n_scan = scan_cuda.launches
+    registry.crash_and_recover(seed=SEED)
+    u = np.random.default_rng([SEED, 7]).random(
+        cfg.queue_capacity).astype(np.float32)
+    req_q.crash_and_recover(u)
+    resp_q.crash_and_recover(u)
+    scans = scan_cuda.launches - n_scan
+    check_recovery_hist(registry, ref, label)
+    coll = m.snapshot()["collected"]
+    expect(all(coll[k]["recovery_psyncs"] == 0
+               for k in ("registry", "req_queue", "resp_queue"))
+           and registry.psyncs == 0 and req_q.psyncs == resp_q.psyncs == 0,
+           f"{label}: recovery paid psyncs")
+    expect(len(req_q) == 0 and len(resp_q) == 0,
+           f"{label}: a queue holds requests after recovery")
+    expect((int(req_q.state.tail), int(resp_q.state.tail)) == acked
+           and int(req_q.state.head) == acked[0]
+           and int(resp_q.state.head) == acked[1],
+           f"{label}: the queues' cursors after recovery")
+    ref.psyncs = ref.ops = 0
+    check_membership(registry, ref, dev, MEMBER_CHUNK,
+                     f"{label} after recovery")
+    expect(scans == cfg.shards + 2,
+           f"{label}: recovery_scan launched {scans} times, expected "
+           f"{cfg.shards + 2} (once per shard and per queue)")
+    launches = open_loop_launches()
+    print(f"{label}: recovery ms registry "
+          f"{registry.last_recovery_seconds * 1e3:.3f}, queues "
+          f"{req_q.last_recovery_seconds * 1e3:.3f} and "
+          f"{resp_q.last_recovery_seconds * 1e3:.3f}; recovery psyncs 0; "
+          f"{acked[0]} acked requests all committed before the crash, both "
+          f"queues empty after it; the whole key range of "
+          f"{cfg.key_range} against the reference; launches {launches}")
+    return launches
+
+
+def run_open_loop_phase(dev, smi):
+    """Phase 7.  Returns the open-loop launches for the JSON record."""
+    t0 = time.perf_counter()
+    cfg = bench_serve.ServeConfig()
+    print(f"phase 7: the open-loop serving harness at bench_serve's default "
+          f"geometry: a {cfg.capacity}-slot {cfg.mode.upper()} "
+          f"{cfg.backend} registry over {cfg.shards} shards, Zipf("
+          f"{cfg.zipf_s}) over {cfg.key_range} keys, {cfg.read_pct}/"
+          f"{(100 - cfg.read_pct) // 2}/{(100 - cfg.read_pct) // 2} read/"
+          f"update/delete, {cfg.batch}-lane batches, two "
+          f"{cfg.queue_capacity}-slot queues; the one cut: "
+          f"--duration {OPEN_LOOP_SECONDS:g} s (default {cfg.duration:g})")
+    full, full_l = run_bench_serve(
+        dev, ["--duration", str(OPEN_LOOP_SECONDS), "--utilization", "0.6"],
+        "open loop")
+    check_open_loop(full, smi, "open loop")
+    expect(full_l["table_probe"] > 0,
+           "open loop: the probe-window kernel was never launched")
+    print(f"open loop: table_probe {full_l['table_probe']} launches")
+    sweep, sweep_l = run_bench_serve(
+        dev, ["--quick", "--backend", "bucket", "--duration", "5",
+              "--utilization", "0.5,0.9"], "bucket sweep")
+    check_open_loop(sweep, smi, "bucket sweep")
+    expect("utilization_sweep" in sweep and "knee" in sweep
+           and len(sweep["utilization_sweep"]) == 2,
+           "bucket sweep: no utilization_sweep or knee in the payload")
+    expect(sweep_l["hash_probe"] > 0,
+           "bucket sweep: hash_probe was never launched")
+    print(f"bucket sweep: knee {sweep['knee']}")
+    drill = open_loop_drill(dev)
+    run_card_tests("open-loop card tests", "open_loop or bench_serve")
+    print(f"phase 7: {time.perf_counter() - t0:.1f} s")
+    return {k: {"full": full_l[k], "sweep": sweep_l[k], "drill": drill[k]}
+            for k in OPEN_LOOP_KERNELS}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2755,6 +3048,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     waves, _ = run_serving_spine(dev, params, shards=N_SHARDS, pipeline=2)
     del params
+    torch.cuda.empty_cache()
+
+    # 7. the open-loop serving harness at bench_serve's default geometry
+    open_loop = run_open_loop_phase(dev, smi)
 
     record = {"kernels": [
         {"name": "recovery_scan", "route": "cuda",
@@ -2769,6 +3066,7 @@ def main() -> int:
          "launches_resize": resize["recovery_scan"],
          "launches_serving_spine": {"one_wave": spine["recovery_scan"],
                                     "waves": waves["recovery_scan"]},
+         "launches_open_loop": open_loop["recovery_scan"],
          "queue_shape": queue["shapes"]},
         {"name": "hash_probe", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hash_probe.cu",
@@ -2780,6 +3078,7 @@ def main() -> int:
          "shard_shape": sharded["shapes"]["hash_probe"],
          "launches_queue": queue["hash_probe"],
          "launches_resize": resize["hash_probe"],
+         "launches_open_loop": open_loop["hash_probe"],
          # the second route of probe_pallas (the probe backend's
          # table_lookup), the entry table_probe of the same source
          "probe_window": {
@@ -2792,6 +3091,7 @@ def main() -> int:
              "launches_resize": resize["table_probe"],
              "launches_serving_spine": {"one_wave": spine["table_probe"],
                                         "waves": waves["table_probe"]},
+             "launches_open_loop": open_loop["table_probe"],
              "shard_shape": sharded["shapes"]["table_probe"], **window,
              "bound_by": "bytes", "library_ms": None,
              "table_build_ms_2e21": probe_build_ms}},

@@ -50,6 +50,11 @@ ack finished while the generation still ran (``ack_overlapped``).
       [--placement strided] [--max-lane-budget L] [--pipeline 2]]
       [--queue [--queue-capacity 1024]] [--autosplit 0.75]
 
+``--open-loop`` hands every other flag to
+:mod:`repro_torch.launch.bench_serve`, the open-loop tail-latency harness
+(``--duration``, ``--rate``, ``--utilization``, ``--quick``, ``--out``,
+``--device``, ...), as the JAX driver does.
+
 It runs on the GPU unless given ``--device cpu``.  ``run`` is the same path
 for a caller that holds a config object.
 """
@@ -70,15 +75,11 @@ from repro_torch.configs.base import ModelConfig, get_config
 from repro_torch.core import (DurableMap, DurableQueue, ElasticShardedMap,
                               QueueSpec, SetSpec, ShardedDurableMap)
 from repro_torch.core.device import resolve_device
+from repro_torch.launch import bench_serve
 from repro_torch.models import model as M
 from repro_torch.obs import MetricsRegistry
 from repro_torch.store.snapshot import SnapshotPolicy, Snapshotter
 from repro_torch.train import steps as TS
-
-# Options of repro.launch.serve that wait for their slices.
-NOT_PORTED = {
-    "--open-loop": "ROADMAP queue A, item 11 (bench_serve)",
-}
 
 # Node-pool size of the completion registry, as in repro.launch.serve.
 REGISTRY_CAPACITY = 1024
@@ -467,10 +468,16 @@ def run(cfg: ModelConfig, requests: int = 8, prompt_len: int = 32,
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
-    for flag, item in NOT_PORTED.items():
-        if any(a == flag or a.startswith(flag + "=") for a in argv):
-            raise NotImplementedError(f"{flag} is not ported yet ({item})")
+    if "--open-loop" in argv:
+        # rate-driven tail-latency harness; every remaining flag is a
+        # bench_serve flag (--duration, --rate, --quick, --out, --device)
+        argv.remove("--open-loop")
+        return bench_serve.main(argv)
     ap = argparse.ArgumentParser()
+    ap.add_argument("--open-loop", action="store_true",
+                    help="delegate to repro_torch.launch.bench_serve: "
+                         "open-loop Poisson arrivals + BENCH_torch_serve."
+                         "json (all other flags are bench_serve flags)")
     ap.add_argument("--arch", default="qwen3-32b-smoke")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)

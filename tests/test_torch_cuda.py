@@ -32,7 +32,8 @@ from repro_torch.kernels.hash_probe.ref import (probe_ref,  # noqa: E402
                                                 table_lookup_ref)
 from repro_torch.kernels.recovery_scan.kernel import scan_cuda  # noqa: E402
 from repro_torch.kernels.recovery_scan.ref import scan_ref  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import bench_serve, serve  # noqa: E402
+from repro_torch.obs import MetricsRegistry, bench_meta  # noqa: E402
 from repro_torch.core import engine as TE  # noqa: E402
 from repro_torch.core import queue as TQ  # noqa: E402
 from repro_torch.core import shard as TS  # noqa: E402
@@ -784,3 +785,66 @@ def test_legacy_wrappers_on_the_card_match_the_cpu(cuda, index):
     got, want = (state_to_numpy(st) for st in states)
     for f in got:
         np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+
+
+BENCH_SMALL = dict(capacity=1 << 10, batch=64, key_range=5000)
+
+
+def test_bench_serve_open_loop_quick_on_the_card(cuda, tmp_path):
+    """A 2 s open loop at the --quick shape (4 probe shards of 2^14 slots,
+    256 lanes, 1024-slot queues) on the card: no ack rejected, no short
+    commit, no drop or overflow, one psync per queue op, the probe-window
+    kernel launched, and the payload's meta names the card."""
+    out = tmp_path / "bench.json"
+    table_probe_cuda.launches = 0
+    assert bench_serve.main(["--quick", "--duration", "2",
+                             "--out", str(out)]) == 0
+    import json
+    p = json.loads(out.read_text())
+    c = p["counters"]
+    assert (c["ack_rejected"], c["commit_short"], c["router_dropped"]) == \
+        (0, 0, 0)
+    assert not c["registry_overflowed"] and not c["queue_overflowed"]
+    assert p["psync_per_op"]["req_queue"] == 1.0
+    assert p["psync_per_op"]["resp_queue"] == 1.0
+    assert 0 < p["psync_per_op"]["registry"] <= 0.5
+    assert p["requests_completed"] > 0 and p["latency"]["p99_ms"] > 0
+    assert table_probe_cuda.launches > 0
+    assert p["meta"]["device_name"] == torch.cuda.get_device_name(0)
+
+
+@pytest.mark.parametrize("shards,qcap", [(1, 128), (2, 128), (2, 32)])
+def test_bench_serve_spine_round_on_the_card_matches_the_cpu(cuda, shards,
+                                                             qcap):
+    """Padded spine rounds on the card and on the CPU: every leaf of the
+    registry and of both queues, and the spine counters, equal."""
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        cfg = bench_serve.ServeConfig(**BENCH_SMALL, shards=shards,
+                                      queue_capacity=qcap, device=str(dev))
+        m = MetricsRegistry()
+        spine = bench_serve._build_spine(cfg, m)
+        gen = bench_serve._ArrivalGen(cfg, 1000.0)
+        for n in (64, 40, 64, 17, 64, 33):
+            _, k, o = gen.take(1e9, n)
+            keys = np.zeros((64,), np.int32)
+            ops = np.full((64,), TE.OP_NOP, np.int32)
+            keys[:n], ops[:n] = k, o
+            bench_serve._spine_round(m, *spine, spine[1].spec, keys, ops)
+        runs.append((spine, m.snapshot()["counters"]))
+    (card, card_c), (cpu, cpu_c) = runs
+    assert card_c == cpu_c
+    got, want = state_to_numpy(card[0].state), state_to_numpy(cpu[0].state)
+    for f in got:
+        np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+    for qa, qb in zip(card[1:], cpu[1:]):
+        for f, a, b in zip(qa.state._fields, qa.state, qb.state):
+            np.testing.assert_array_equal(a.cpu().numpy(), b.numpy(),
+                                          err_msg=f)
+
+
+def test_bench_serve_meta_names_the_card(cuda):
+    meta = bench_meta()
+    assert meta["device_name"] == torch.cuda.get_device_name(0)
+    assert meta["power_limit"].endswith("W")
+    assert meta["cuda_version"] == torch.version.cuda

@@ -1,0 +1,51 @@
+"""The torch examples (``examples/*_torch.py``) on the CPU, held against
+the JAX package's examples: the quickstart and crash-recovery examples
+print the same psync, size, recovery-histogram and oracle lines.  Every
+line is compared: the adversaries are unseeded, but each crash lands at a
+dispatch boundary, where every node is flushed and any adversary leaves
+the same state.  The serving example runs the port's serve CLI with the
+JAX example's arguments."""
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+EXAMPLES = Path(__file__).resolve().parent.parent / "examples"
+
+
+def _load(name):
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", ("quickstart", "crash_recovery"))
+def test_example_prints_the_jax_examples_lines(name, capsys):
+    _load(name).main()
+    want = capsys.readouterr().out.splitlines()
+    _load(f"{name}_torch").main(["--device", "cpu"])
+    got = capsys.readouterr().out.splitlines()
+    assert len(want) > 10
+    assert got == want
+
+
+def test_serve_kv_example_runs_on_the_cpu(capsys):
+    assert _load("serve_kv_torch").main(["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "registry[bucket]: 8 completed, psyncs=8 (== #requests)" in out
+    assert "after crash+recovery: all 8 completions still registered" in out
+
+
+def test_examples_default_to_the_card():
+    """Without ``--device cpu`` an example asks for the GPU and raises
+    where there is none (no fallback)."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _load("quickstart_torch").main([])

@@ -173,14 +173,3 @@ def test_init_params_layout_and_scale():
     wi = params["stack_0"]["b0_attn"]["mlp"]["wi"]
     assert abs(float(wi.std()) * cfg.d_model ** 0.5 - 1) < 0.05
     assert not torch.equal(wi[0], wi[1])
-
-
-@pytest.mark.parametrize("form", ["separate", "joined"])
-@pytest.mark.parametrize("flag", sorted(serve.NOT_PORTED))
-def test_serve_flags_that_wait_raise(flag, form):
-    """Every option of repro.launch.serve that waits for its slice raises
-    naming its ROADMAP item, as ``--flag value`` and as ``--flag=value``
-    (never argparse's usage error)."""
-    args = [flag, "2"] if form == "separate" else [f"{flag}=2"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--device", "cpu", *args])

@@ -143,12 +143,6 @@ def test_sharded_registry_serves_what_the_flat_one_serves(kw, tmp_path):
         (4, 4, 4, 0)
 
 
-@pytest.mark.parametrize("argv,item", [(["--open-loop"], "item 11")])
-def test_options_still_waiting_name_their_item(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        serve.main(["--device", "cpu", "--shards", "4", *argv])
-
-
 SMALL = ["--arch", "qwen3-32b-smoke", "--requests", "4", "--prompt-len",
          "4", "--gen", "2"]
 
