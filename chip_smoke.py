@@ -160,11 +160,15 @@ Phases, each of which exits non-zero on failure:
    kernel's, and the kernel's may not exceed it.  ``gqa_decode`` also
    prints its split plan and its wrapper's time per call back to back.
    Then ``gqa_decode`` over edge shapes in both types (lengths 0, 1, S-1,
-   S, S+5 and random; S 1 to 4096; G 1, 8 and 16; D 8 to 256; and
-   h2o-danube-3-4b's H 32, KV 8, D 120, S 4096), and ``flash_prefill`` in
-   bf16 over a grid of edge shapes (D 8, 16, 64, 120, 128, 256; S 1, 63,
-   65, 129, 300; window 0, 5, 16, 100; G 1 and 8) and at
-   h2o-danube-3-4b's own shape (S 512, H 32, KV 8, D 120, window 4096).
+   S, S+5 and random; S 1 to 4096; G 1, 8 and 16; D 8 to 256;
+   h2o-danube-3-4b's H 32, KV 8, D 120, S 4096; and the model families'
+   G 6, 7 and 10 with one KV head at D 128 and 256, and D 96 at G 1), and
+   ``flash_prefill`` in bf16 over a grid of edge shapes (D 8, 16, 64, 120,
+   128, 256; S 1, 63, 65, 129, 300; window 0, 5, 16, 100; G 1 and 8) and
+   at h2o-danube-3-4b's own shape (S 512, H 32, KV 8, D 120, window
+   4096), then in f32 and bf16 at the families' head shapes (the same G
+   and D, windows 0 and 100, and recurrentgemma-2b's window 2048 over S
+   2304).
    Both serving-shape times are printed beside the designs they replaced.
 5. Decode agrees with prefill at qwen3-32b's full width, 2 layers, f32:
    the logits of one decode step at position 511 equal the last-position
@@ -213,6 +217,31 @@ Phases, each of which exits non-zero on failure:
    tests whose names hold "open_loop" or "bench_serve".  Launch counts
    are zeroed before each run and read after it (``launches_open_loop``
    in the JSON record).
+8. The model families at their published widths, bf16, random weights
+   from a seed.  First both attention kernels against their plain
+   versions at each family's serving shape (B 8, S 512: mixtral-8x22b H
+   48 / KV 8 / D 128, window 4096; arctic-480b H 56 / KV 8; qwen1.5-110b
+   H 64 / KV 8; minicpm3-4b's MLA prefill H 40 / KV 40 / D 96;
+   recurrentgemma-2b H 10 / KV 1 / D 256, window 2048), each timed beside
+   its plain version and ``scaled_dot_product_attention``.  Then
+   ``serve.run`` with 8 requests of 512 prompt tokens and a crash of the
+   registry for each family: mixtral-8x22b (MoE, 12 of 56 layers, 56.7
+   GiB, 32 generated tokens, its warm prefill and 4 decode steps
+   profiled: decode ms per step against the weight-stream bound, the
+   busy share, device operations per layer), arctic-480b (MoE with 128
+   experts and a dense residual FFN, 2 of 35 layers), qwen1.5-110b (QKV
+   bias, 20 of 80 layers), and minicpm3-4b (MLA), xlstm-350m (mLSTM and
+   sLSTM) and recurrentgemma-2b (RG-LRU and local attention) at full
+   depth, 16 generated tokens each.  Each: tokens in range, finite
+   logits, 1 psync per request and 0 in recovery, ``flash_prefill``
+   launched once per attention or MoE layer (MLA included), ``gqa_decode``
+   once per GQA layer and decode step (none for MLA and xlstm).  Then
+   decode against prefill at each family's full width in f32 (2 layers;
+   arctic-480b 1, recurrentgemma-2b one 3-layer period; xlstm-350m at S
+   255, one mLSTM chunk), and the card tests whose names hold "family".
+   Launch counts are zeroed before each run and read after it
+   (``launches_families`` in the JSON record, the kernels' rows at the
+   families' shapes under ``family_shapes``).
 
 The last two lines are the per-kernel JSON record (``hash_probe``'s entry
 carries its probe-window route under ``probe_window``) and
@@ -270,6 +299,8 @@ from repro_torch.kernels.recovery_scan.kernel import scan_cuda  # noqa: E402
 from repro_torch.kernels.recovery_scan.ref import scan_ref  # noqa: E402
 from repro_torch.launch import bench_serve, serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models.blocks import attention_layers  # noqa: E402
+from repro_torch.models.moe import capacity as moe_capacity  # noqa: E402
 from repro_torch.models.params import tree_leaves  # noqa: E402
 from repro_torch.obs import MetricsRegistry  # noqa: E402
 from repro_torch.store.snapshot import (Snapshotter,  # noqa: E402
@@ -2333,6 +2364,24 @@ CUDA_CORE_PREFILL_MS = 2.258016
 ONE_BLOCK_PER_HEAD_DECODE_MS = {"random": 0.158736, "full": 0.202272}
 
 
+# the head shapes the model families give the kernels (phase 8): G 6 and 7
+# (mixtral-8x22b, arctic-480b), 10 with one KV head (recurrentgemma-2b's
+# MQA), at D 128 and 256; D 96 at G 1 (minicpm3-4b's MLA prefill, V padded)
+FAMILY_DECODE_EDGES = ([(2 * g, 2, d, s) for g in (6, 7) for d in (128, 256)
+                        for s in (63, 300, 544)]
+                       + [(10, 1, d, s) for d in (128, 256)
+                          for s in (63, 300, 528)]
+                       + [(2, 2, 96, s) for s in (7, 300, 544)])
+FAMILY_PREFILL_EDGES = ([(2, s, 2 * g, 2, d, w) for g in (6, 7)
+                         for d in (128, 256) for s in (63, 300)
+                         for w in (0, 100)]
+                        + [(2, s, 10, 1, d, w) for d in (128, 256)
+                           for s in (63, 300) for w in (0, 100)]
+                        + [(2, s, 4, 4, 96, w) for s in (1, 63, 300)
+                           for w in (0, 100)]
+                        + [(1, 2304, 10, 1, 256, 2048)])
+
+
 def check_decode_edges(dev):
     """gqa_decode against its plain version at lengths 0, 1, S - 1, S and
     S + 5 (one batch row each) and at random lengths in [1, S], over S
@@ -2345,6 +2394,7 @@ def check_decode_edges(dev):
               for s in (1, 7, 63, 64, 65, 300, 1000, 4096)
               if g < 16 or d in (8, 120, 256)]
     shapes.append((32, 8, 120, 4096))           # h2o-danube-3-4b
+    shapes += FAMILY_DECODE_EDGES
     count, worst, worst_lib = 0, 0.0, 0.0
     for dtype in (torch.float32, torch.bfloat16):
         atol = ATOL["gqa_decode"][dtype]
@@ -2372,35 +2422,48 @@ def check_decode_edges(dev):
                 count += 1
     print(f"gqa_decode edge shapes: {count} held against plain (f32 and "
           f"bf16; lengths 0, 1, S-1, S, S+5 and random; S 1-4096; G 1, 8, "
-          f"16; D 8-256; the last h2o-danube-3-4b's: H 32, KV 8, D 120, "
-          f"S 4096), max err {worst:.3g}; bf16 with every row live no "
+          f"16; D 8-256; h2o-danube-3-4b's H 32, KV 8, D 120, S 4096; the "
+          f"model families' G 6, 7 and 10 (KV 1) at D 128 and 256 and D 96 "
+          f"at G 1), max err {worst:.3g}; bf16 with every row live no "
           f"worse than the library (worst library error {worst_lib:.3g})")
 
 
 def check_prefill_edges(dev):
     """flash_prefill in bf16 against its plain version over ragged S, head
     dims that are not multiples of 16 or 64, windows shorter and longer
-    than a tile, G = 1 and 8, and h2o-danube-3-4b's own shape."""
-    dtype, atol = torch.bfloat16, ATOL["flash_prefill"][torch.bfloat16]
+    than a tile, G = 1 and 8, and h2o-danube-3-4b's own shape; then the
+    model families' head shapes in f32 and bf16."""
     shapes = [(2, s, h, 2, d, w) for d in (8, 16, 64, 120, 128, 256)
               for s in (1, 63, 65, 129, 300) for w in (0, 5, 16, 100)
               for h in (2, 16)]
     shapes.append((1, 512, 32, 8, 120, 4096))
-    worst = 0.0
-    for b, s, h, kv, d, w in shapes:
-        gen = torch.Generator(device=dev).manual_seed(SEED + s + d + w + h)
-        q = _randn(gen, (b, s, h, d), dtype, dev)
-        k = _randn(gen, (b, s, kv, d), dtype, dev)
-        v = _randn(gen, (b, s, kv, d), dtype, dev)
-        got = flash_prefill_cuda(q, k, v, w)
-        err = float((got.float() - flash_prefill_ref(q, k, v, w).float()
-                     ).abs().max())
-        expect(err <= atol, f"flash_prefill B={b} S={s} H={h} KV={kv} D={d} "
-               f"window={w} bf16: max |kernel - plain| {err} > {atol}")
-        worst = max(worst, err)
-    print(f"flash_prefill bf16 edge shapes: {len(shapes)} held against "
-          f"plain (the last h2o-danube-3-4b's: S 512, H 32, KV 8, D 120, "
-          f"window 4096), max err {worst:.3g} (tolerance {atol})")
+    worst = {}
+    for dtype, grid in ((torch.bfloat16, shapes),
+                        (torch.float32, FAMILY_PREFILL_EDGES),
+                        (torch.bfloat16, FAMILY_PREFILL_EDGES)):
+        atol = ATOL["flash_prefill"][dtype]
+        for b, s, h, kv, d, w in grid:
+            gen = torch.Generator(device=dev).manual_seed(SEED + s + d + w
+                                                          + h)
+            q = _randn(gen, (b, s, h, d), dtype, dev)
+            k = _randn(gen, (b, s, kv, d), dtype, dev)
+            v = _randn(gen, (b, s, kv, d), dtype, dev)
+            got = flash_prefill_cuda(q, k, v, w)
+            err = float((got.float() - flash_prefill_ref(q, k, v, w).float()
+                         ).abs().max())
+            expect(err <= atol, f"flash_prefill B={b} S={s} H={h} KV={kv} "
+                   f"D={d} window={w} {str(dtype)[6:]}: max |kernel - "
+                   f"plain| {err} > {atol}")
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+    print(f"flash_prefill edge shapes: {len(shapes)} in bf16 (the last "
+          f"h2o-danube-3-4b's: S 512, H 32, KV 8, D 120, window 4096), and "
+          f"the model families' {len(FAMILY_PREFILL_EDGES)} (G 6, 7 and 10 "
+          f"with KV 1 at D 128 and 256, D 96 at G 1, recurrentgemma's "
+          f"window 2048 over S 2304) in f32 and bf16, held against plain; "
+          f"max err bf16 {worst[torch.bfloat16]:.3g} (tolerance "
+          f"{ATOL['flash_prefill'][torch.bfloat16]}), "
+          f"f32 {worst[torch.float32]:.3g} (tolerance "
+          f"{ATOL['flash_prefill'][torch.float32]})")
 
 
 def check_attention_kernels(dev):
@@ -2452,9 +2515,25 @@ def check_attention_kernels(dev):
 DECODE_PREFILL_ATOL = 2e-4
 
 
-def check_decode_matches_prefill(dev, arch="qwen3-32b", s=511, b=2):
-    cfg = get_config(arch).with_layers(2).replace(
+def check_decode_matches_prefill(dev, arch="qwen3-32b", s=511, b=2,
+                                 layers=2):
+    """One decode step at position S against the last-position logits of
+    a prefill over S + 1 tokens, f32, within DECODE_PREFILL_ATOL.
+
+    MoE: decode routes the batch's b tokens as one group, whose capacity
+    (8) drops nothing, and prefill routes each row's S + 1 tokens, whose
+    capacity at the published factor does drop assignments when the
+    routing is skewed; a dropped expert output is a different function,
+    not rounding.  So the decode is held against a prefill at capacity
+    factor E / k (capacity S + 1 or more: nothing dropped)."""
+    cfg = get_config(arch).with_layers(layers).replace(
         param_dtype="float32", compute_dtype="float32")
+    note = ""
+    if cfg.n_experts:
+        cfg = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+        note = f" (capacity factor {cfg.capacity_factor:g}, nothing dropped)"
+        expect(moe_capacity(s + 1, cfg) >= s + 1,
+               f"{arch}: the no-drop capacity is below S + 1")
     params = M.init_params(cfg, seed=SEED, device=dev)
     tok = torch.randint(0, cfg.vocab, (b, s + 1), device=dev,
                         generator=torch.Generator(device=dev).manual_seed(1),
@@ -2471,11 +2550,14 @@ def check_decode_matches_prefill(dev, arch="qwen3-32b", s=511, b=2):
            "decode logits: wrong shape or non-finite")
     err = float((lg_dec - lg_ref).abs().max())
     scale = float(lg_ref.abs().max())
-    print(f"decode vs prefill, {arch} width, 2 layers, f32, S={s}: max "
-          f"|diff| {err:.3g} over logits up to {scale:.3g} (tolerance "
+    del c2
+    print(f"decode vs prefill, {arch} width, {layers} layers, f32, S={s}: "
+          f"max |diff| {err:.3g} over logits up to {scale:.3g} (tolerance "
           f"{DECODE_PREFILL_ATOL}); argmax equal "
-          f"{bool((lg_dec.argmax(-1) == lg_ref.argmax(-1)).all())}")
-    expect(err <= DECODE_PREFILL_ATOL, "decode logits differ from prefill's")
+          f"{bool((lg_dec.argmax(-1) == lg_ref.argmax(-1)).all())}{note}")
+    del params
+    expect(err <= DECODE_PREFILL_ATOL,
+           f"{arch}: decode logits differ from prefill's")
 
 
 # ---------------------------------------------------------------------------
@@ -2503,14 +2585,17 @@ def profile_decode(dev, cfg, params, b, prompt_len, steps):
     rows, busy = device_rows(prof)
     dec = sum(r[0] for r in rows if "gqa_decode" in r[2])
     dec_n = sum(r[1] for r in rows if "gqa_decode" in r[2])
+    ops = sum(r[1] for r in rows) / steps
     print(f"decode profile: {steps} steps, wall {wall_us:.1f} us, device "
           f"busy {busy:.1f} us ({100 * busy / wall_us:.2f}%), "
-          f"{sum(r[1] for r in rows) / steps:.1f} device ops per step; "
+          f"{ops:.1f} device ops per step; "
           f"gqa_decode {dec / steps:.1f} us per step in "
           f"{dec_n / steps:.1f} launches ({100 * dec / max(busy, 1e-9):.2f}% "
           "of busy)")
     for us, n, key in rows[:10]:
         print(f"  {us:12.1f} us {n:6d}x  {key[:90]}")
+    return dict(busy_share=100 * busy / wall_us, ops_per_step=ops,
+                wall_ms_per_step=wall_us / steps / 1e3)
 
 
 def profile_prefill(dev, cfg, params, b, prompt_len):
@@ -2537,6 +2622,7 @@ def profile_prefill(dev, cfg, params, b, prompt_len):
           f"({100 * fp / max(busy, 1e-9):.2f}% of busy)")
     for us, n, key in rows[:8]:
         print(f"  {us:12.1f} us {n:6d}x  {key[:90]}")
+    return dict(busy_share=100 * busy / wall_us, wall_ms=wall_us / 1e3)
 
 
 def run_serving(dev, arch="qwen3-32b", requests=8, prompt_len=512, gen=32):
@@ -2926,6 +3012,139 @@ def run_open_loop_phase(dev, smi):
             for k in OPEN_LOOP_KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# 8. the model families
+# ---------------------------------------------------------------------------
+
+# (arch, layers kept or None for all, generated tokens) of the serving
+# runs: every published width, bf16, the depth cut only where the weights
+# would not fit on the card beside the run (about 56.7, 51.6 and 55 GiB)
+FAMILY_RUNS = (("mixtral-8x22b", 12, 32), ("arctic-480b", 2, 16),
+               ("qwen1.5-110b", 20, 16), ("minicpm3-4b", None, 16),
+               ("xlstm-350m", None, 16), ("recurrentgemma-2b", None, 16))
+# (arch, layers, S) of decode against prefill at full width in f32 (MoE
+# at a capacity factor that drops nothing: check_decode_matches_prefill).
+# arctic-480b keeps 1 layer, as the 2 that the others keep would be 102
+# GiB in f32; recurrentgemma-2b keeps 3, one (rglru, rglru, attn) period;
+# xlstm-350m takes S = 255, so that both prefills are one mLSTM chunk
+# (S = 511 would fail the chunk check, as JAX's assert).
+FAMILY_DECODE_PREFILL = (("mixtral-8x22b", 2, 511), ("arctic-480b", 1, 511),
+                         ("qwen1.5-110b", 2, 511), ("minicpm3-4b", 2, 511),
+                         ("xlstm-350m", 2, 255),
+                         ("recurrentgemma-2b", 3, 511))
+
+
+def check_family_attention(dev):
+    """Both attention kernels against their plain versions at the serving
+    shapes of the families (B 8, S 512, bf16), timed beside the library
+    call; returns the rows by arch."""
+    rows = {}
+    for arch, _, gen in FAMILY_RUNS:
+        cfg = get_config(arch)
+        if not attention_layers(cfg):
+            continue
+        window = cfg.window if (cfg.attn_kind == "swa"
+                                or cfg.family == "hybrid") else 0
+        d = cfg.head_dim + (cfg.rope_dim if cfg.mla else 0)
+        kv = cfg.n_heads if cfg.mla else cfg.n_kv_heads
+        row = {"prefill": check_prefill(dev, 8, 512, cfg.n_heads, kv, d,
+                                        window, torch.bfloat16)}
+        if not cfg.mla:
+            s = 512 + gen
+            if cfg.family == "hybrid":
+                s = min(s, cfg.window)
+            row["decode"] = check_decode(dev, 8, cfg.n_heads, kv, d, s,
+                                         torch.bfloat16)
+        rows[arch] = row
+    return rows
+
+
+def run_family(dev, smi, arch, layers, gen, requests=8, prompt_len=512):
+    """serve.run at the arch's full width, bf16, random weights from the
+    seed, with a crash of the registry; checks its results and launch
+    counts and returns the launches."""
+    cfg = get_config(arch)
+    cut = "" if layers is None else \
+        f" (depth cut: {layers} of {cfg.n_layers} layers)"
+    if layers is not None:
+        cfg = cfg.with_layers(layers)
+    fns = {"recovery_scan": scan_cuda, "table_probe": table_probe_cuda,
+           "gqa_decode": gqa_decode_cuda, "flash_prefill": flash_prefill_cuda}
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = serve.run(cfg, requests=requests, prompt_len=prompt_len, gen=gen,
+                    crash=True, device=dev)
+    launches = {k: fn.launches for k, fn in fns.items()}
+    tokens = res["tokens"]
+    expect(tuple(tokens.shape) == (requests, gen)
+           and bool(((tokens >= 0) & (tokens < cfg.vocab)).all())
+           and bool(torch.isfinite(res["logits"]).all()),
+           f"serve {arch}: generated tokens or logits out of range")
+    expect(res["registered"] == requests and res["psyncs"] == requests
+           and res["registered_after_recovery"] == requests
+           and res["recovery_psyncs"] == 0
+           and res["psyncs_after_recovery"] == 0,
+           f"serve {arch}: {res['psyncs']} psyncs for {requests} requests, "
+           f"{res['recovery_psyncs']} in recovery")
+    attn = attention_layers(cfg)
+    gqa = 0 if cfg.mla else attn
+    expect(launches["flash_prefill"] == attn
+           and launches["gqa_decode"] == gqa * (gen - 1),
+           f"serve {arch}: flash_prefill {launches['flash_prefill']} and "
+           f"gqa_decode {launches['gqa_decode']} launches, expected {attn} "
+           f"and {gqa * (gen - 1)}")
+    expect(launches["table_probe"] > 0 and launches["recovery_scan"] > 0,
+           f"serve {arch}: the registry's kernels were not launched")
+    wbytes = sum(t.numel() * t.element_size()
+                 for _, t in tree_leaves(res["params"]))
+    print(f"serve {arch}{cut}: {cfg.n_layers} layers ({attn} attention, "
+          f"{gqa} through gqa_decode), {cfg.compute_dtype}, "
+          f"{wbytes / 2**30:.2f} GiB of "
+          f"weights; {requests} requests x {prompt_len} + {gen} tokens; "
+          f"prefill {res['prefill_ms']:.3f} ms; decode "
+          f"{res['decode_ms_per_step']:.3f} ms per step (weight-stream "
+          f"bound {bytes_ms(wbytes):.3f} ms); {res['tok_per_s']:.1f} tok/s; "
+          f"launches {launches}; {time.perf_counter() - t0:.1f} s")
+    params = res["params"]
+    del res, tokens
+    if arch == "mixtral-8x22b":
+        torch.cuda.empty_cache()
+        pre = profile_prefill(dev, cfg, params, requests, prompt_len)
+        torch.cuda.empty_cache()
+        dec = profile_decode(dev, cfg, params, requests, prompt_len, steps=4)
+        print(f"mixtral-8x22b ({layers} of 56 layers) decode on {smi}: "
+              f"{dec['wall_ms_per_step']:.3f} ms per step profiled against "
+              f"the weight-stream bound {bytes_ms(wbytes):.3f} ms; device "
+              f"busy {dec['busy_share']:.2f}% of decode, "
+              f"{pre['busy_share']:.2f}% of a warm prefill; "
+              f"{dec['ops_per_step'] / cfg.n_layers:.1f} device ops per "
+              f"layer per step")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_families_phase(dev, smi):
+    """Phase 8.  Returns the launches by arch and the kernels' rows at the
+    families' shapes."""
+    t0 = time.perf_counter()
+    held = torch.cuda.memory_allocated(dev)
+    print(f"phase 8: {held / 2**30:.2f} GiB still allocated from earlier "
+          f"phases")
+    shapes = check_family_attention(dev)
+    torch.cuda.empty_cache()
+    launches = {}
+    for arch, layers, gen in FAMILY_RUNS:
+        launches[arch] = run_family(dev, smi, arch, layers, gen)
+    for arch, layers, s in FAMILY_DECODE_PREFILL:
+        check_decode_matches_prefill(dev, arch, s=s, layers=layers)
+        torch.cuda.empty_cache()
+    run_card_tests("model-family card tests", "family")
+    print(f"phase 8: {time.perf_counter() - t0:.1f} s")
+    return launches, shapes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3044,14 +3263,19 @@ def main() -> int:
         print(f"{name}: {serving[name]} launches on the serving path "
               f"(registry inserts, contains and recovery)")
     torch.cuda.empty_cache()
-    spine, _ = run_serving_spine(dev, params)
+    # each result holds the weights too: keep only the launches
+    spine = run_serving_spine(dev, params)[0]
     torch.cuda.empty_cache()
-    waves, _ = run_serving_spine(dev, params, shards=N_SHARDS, pipeline=2)
+    waves = run_serving_spine(dev, params, shards=N_SHARDS, pipeline=2)[0]
     del params
     torch.cuda.empty_cache()
 
     # 7. the open-loop serving harness at bench_serve's default geometry
     open_loop = run_open_loop_phase(dev, smi)
+    torch.cuda.empty_cache()
+
+    # 8. the model families at their published widths
+    families, family_shapes = run_families_phase(dev, smi)
 
     record = {"kernels": [
         {"name": "recovery_scan", "route": "cuda",
@@ -3067,6 +3291,8 @@ def main() -> int:
          "launches_serving_spine": {"one_wave": spine["recovery_scan"],
                                     "waves": waves["recovery_scan"]},
          "launches_open_loop": open_loop["recovery_scan"],
+         "launches_families": {a: n["recovery_scan"]
+                               for a, n in families.items()},
          "queue_shape": queue["shapes"]},
         {"name": "hash_probe", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hash_probe.cu",
@@ -3092,6 +3318,8 @@ def main() -> int:
              "launches_serving_spine": {"one_wave": spine["table_probe"],
                                         "waves": waves["table_probe"]},
              "launches_open_loop": open_loop["table_probe"],
+             "launches_families": {a: n["table_probe"]
+                                   for a, n in families.items()},
              "shard_shape": sharded["shapes"]["table_probe"], **window,
              "bound_by": "bytes", "library_ms": None,
              "table_build_ms_2e21": probe_build_ms}},
@@ -3100,13 +3328,21 @@ def main() -> int:
          "replaces": "src/repro/kernels/gqa_decode/kernel.py:62",
          "launches": serving["gqa_decode"], **attn["gqa_decode"],
          "launches_serving_spine": {"one_wave": spine["gqa_decode"],
-                                    "waves": waves["gqa_decode"]}},
+                                    "waves": waves["gqa_decode"]},
+         "launches_families": {a: n["gqa_decode"]
+                               for a, n in families.items()},
+         "family_shapes": {a: r["decode"] for a, r in family_shapes.items()
+                           if "decode" in r}},
         {"name": "flash_prefill", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
          "replaces": "src/repro/kernels/flash_prefill/kernel.py:81",
          "launches": serving["flash_prefill"], **attn["flash_prefill"],
          "launches_serving_spine": {"one_wave": spine["flash_prefill"],
-                                    "waves": waves["flash_prefill"]}},
+                                    "waves": waves["flash_prefill"]},
+         "launches_families": {a: n["flash_prefill"]
+                               for a, n in families.items()},
+         "family_shapes": {a: r["prefill"]
+                           for a, r in family_shapes.items()}},
     ]}
     print(smi)
     print(json.dumps(record))

@@ -55,6 +55,15 @@ ack finished while the generation still ran (``ack_overlapped``).
 (``--duration``, ``--rate``, ``--utilization``, ``--quick``, ``--out``,
 ``--device``, ...), as the JAX driver does.
 
+``--arch`` takes every config of ``repro_torch.configs.all``: the dense
+GQA models (qwen3-32b, h2o-danube-3-4b, qwen1.5-110b with its QKV bias),
+MoE (mixtral-8x22b, arctic-480b), MLA (minicpm3-4b), xLSTM (xlstm-350m)
+and RG-LRU with local attention (recurrentgemma-2b), each with its
+``-smoke`` variant.  Attention layers run ``flash_prefill`` in prefill and
+``gqa_decode`` in decode, except MLA's decode, which attends in the latent
+space with plain products as the JAX package does; the recurrent layers
+run no kernel.
+
 It runs on the GPU unless given ``--device cpu``.  ``run`` is the same path
 for a caller that holds a config object.
 """
@@ -478,7 +487,9 @@ def main(argv=None):
                     help="delegate to repro_torch.launch.bench_serve: "
                          "open-loop Poisson arrivals + BENCH_torch_serve."
                          "json (all other flags are bench_serve flags)")
-    ap.add_argument("--arch", default="qwen3-32b-smoke")
+    ap.add_argument("--arch", default="qwen3-32b-smoke",
+                    help="any config of repro_torch.configs.all, e.g. "
+                         "mixtral-8x22b-smoke")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)

@@ -1,28 +1,46 @@
 """Per-kind block application for prefill / decode (a port of
-``repro.models.blocks`` for the dense ``attn`` kind).
+``repro.models.blocks``): the ``attn`` and ``moe`` kinds, MLA, and the
+recurrent ``mlstm``, ``slstm`` and ``rglru`` kinds.
 
-Pre-norm residual: x + attn(norm(x)), then x + mlp(norm(x)).  The other
-kinds of the JAX package (moe, enc, dec, mlstm, slstm, rglru) and MLA
-raise ``NotImplementedError`` naming their ROADMAP item, as does the train
-mode.
+Pre-norm residual throughout.  GQA attention runs through the port's
+``flash_prefill`` and ``gqa_decode`` kernels; the hybrid family's ``attn``
+blocks are local attention over its window.  MLA (minicpm3) prefill
+materializes per-head keys from the latent and goes through
+``flash_prefill`` with its narrower values padded; its decode runs
+*absorbed* attention in the latent space as f32 einsums, as the JAX
+package does outside any kernel, so the cache is only (r + rope_dim) per
+token.  The audio family's ``enc`` and ``dec`` kinds raise
+``NotImplementedError`` naming their ROADMAP item, as does the train mode.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import seqmix as SM
+from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import NOT_PORTED, not_ported
 
+NEG_INF = -1e30
+RECURRENT = {"mlstm": (SM.mlstm_seq, SM.mlstm_decode, SM.mlstm_cache),
+             "slstm": (SM.slstm_seq, SM.slstm_decode, SM.slstm_cache),
+             "rglru": (SM.rglru_seq, SM.rglru_decode, SM.rglru_cache)}
+
+
+# ---------------------------------------------------------------------------
+# Attention sub-block (standard GQA path)
+# ---------------------------------------------------------------------------
 
 def _attn_prefill(p, x, cfg, positions, window, cache):
     q, k, v = L.qkv_project(p, x, cfg, positions)
     out = L.attention_prefill(q, k, v, window)
     pos0 = torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
     L.cache_write(cache["k"], cache["v"], k, v, pos0)
-    return out.reshape(x.shape[0], x.shape[1], -1) @ p["wo"].to(x.dtype), cache
+    return out.reshape(x.shape[0], x.shape[1], -1) @ p["wo"].to(x.dtype)
 
 
 def _attn_decode(p, x, cfg, pos, cache):
@@ -33,24 +51,114 @@ def _attn_decode(p, x, cfg, pos, cache):
     ck, cv = L.cache_write(cache["k"], cache["v"], k, v, pos)
     valid = torch.clamp(pos + 1, max=w).to(torch.int32)
     out = L.attention_decode(q, ck, cv, valid)
-    return out.reshape(b, 1, -1) @ p["wo"].to(x.dtype), cache
+    return out.reshape(b, 1, -1) @ p["wo"].to(x.dtype)
 
 
-def _check_kind(kind: str, cfg: ModelConfig) -> None:
+# ---------------------------------------------------------------------------
+# MLA attention (minicpm3)
+# ---------------------------------------------------------------------------
+
+def _mla_project_q(p, x, cfg):
+    b, s = x.shape[0], x.shape[1]
+    dt = x.dtype
+    q = (x @ p["wq_a"].to(dt)) @ p["wq_b"].to(dt)
+    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim + cfg.rope_dim)
+    return q[..., :cfg.head_dim], q[..., cfg.head_dim:]   # nope, rope parts
+
+
+def _mla_latent(p, x, cfg, positions):
+    """The latent (B,S,r) and the shared rotary key (B,S,rope_dim)."""
+    r = cfg.kv_lora_rank
+    lat_full = x @ p["wkv_a"].to(x.dtype)                 # (B,S,r+rd)
+    k_rope = L.apply_rope(lat_full[:, :, None, r:], positions,
+                          cfg.rope_theta)[:, :, 0]
+    return lat_full[..., :r], k_rope
+
+
+def _mla_cache_write(cache, lat, k_rope, pos0):
+    """Both latent caches written in place through views with a unit KV
+    axis, as the JAX version writes them through ``cache_write``."""
+    L.cache_write(cache["lat"][..., None, :], cache["kr"][..., None, :],
+                  lat[..., None, :], k_rope[..., None, :], pos0)
+
+
+def _mla_prefill(p, x, cfg, positions, window, cache):
+    b, s = x.shape[0], x.shape[1]
+    dt = x.dtype
+    rd, h, hd = cfg.rope_dim, cfg.n_heads, cfg.head_dim
+    q_nope, q_rope = _mla_project_q(p, x, cfg)
+    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
+    lat, k_rope = _mla_latent(p, x, cfg, positions)
+    k_nope = (lat @ p["wk_b"].to(dt)).reshape(b, s, h, hd)
+    v = (lat @ p["wv_b"].to(dt)).reshape(b, s, h, hd)
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, rd)], -1)
+    out = L.attention_prefill(q, k, v, window)            # (B,S,H,hd)
+    pos0 = torch.zeros((b,), dtype=torch.int32, device=x.device)
+    _mla_cache_write(cache, lat, k_rope, pos0)
+    return out.reshape(b, s, h * hd) @ p["wo"].to(dt)
+
+
+def _mla_decode(p, x, cfg, pos, cache):
+    """Absorbed MLA decode: attention entirely in the latent space."""
+    b = x.shape[0]
+    dt = x.dtype
+    r, rd, h, hd = cfg.kv_lora_rank, cfg.rope_dim, cfg.n_heads, cfg.head_dim
+    positions = pos[:, None]
+    q_nope, q_rope = _mla_project_q(p, x, cfg)            # (B,1,H,hd/rd)
+    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
+    lat, k_rope = _mla_latent(p, x, cfg, positions)
+    _mla_cache_write(cache, lat, k_rope, pos)
+    clat, ckr = cache["lat"].float(), cache["kr"].float()  # (B,W,r), (B,W,rd)
+    w = clat.shape[1]
+    valid = torch.clamp(pos + 1, max=w)
+
+    wk_b = p["wk_b"].to(dt).reshape(r, h, hd).float()
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), wk_b)
+    logits = torch.einsum("bhr,bwr->bhw", q_lat, clat) + \
+        torch.einsum("bhd,bwd->bhw", q_rope[:, 0].float(), ckr)
+    logits = logits / math.sqrt(hd + rd)
+    mask = torch.arange(w, device=x.device)[None, None, :] < \
+        valid[:, None, None]
+    logits = torch.where(mask, logits, NEG_INF)
+    pr = torch.softmax(logits, dim=-1)
+    ctx_lat = torch.einsum("bhw,bwr->bhr", pr, clat)
+    wv_b = p["wv_b"].to(dt).reshape(r, h, hd).float()
+    out = torch.einsum("bhr,rhd->bhd", ctx_lat, wv_b)
+    out = out.reshape(b, 1, h * hd).to(dt)
+    return out @ p["wo"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Block dispatch
+# ---------------------------------------------------------------------------
+
+def attention_layers(cfg: ModelConfig) -> int:
+    """Layers that run attention: the attn and moe kinds (MLA included)."""
+    return sum(count * sum(k in ("attn", "moe") for k in period)
+               for period, count in cfg.stacks())
+
+
+def _check_kind(kind: str) -> None:
     if kind in NOT_PORTED:
         raise not_ported(f"block kind {kind!r} ({NOT_PORTED[kind]})")
-    if kind != "attn":
+    if kind not in ("attn", "moe") and kind not in RECURRENT:
         raise ValueError(kind)
-    if cfg.mla:
-        raise not_ported("MLA attention")
-    if cfg.family == "hybrid":
-        raise not_ported("the hybrid family's local attention")
 
 
 def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_seq: int,
                      dtype, device) -> Dict[str, Any]:
-    _check_kind(kind, cfg)
+    _check_kind(kind)
+    if kind in RECURRENT:
+        return RECURRENT[kind][2](cfg, batch, device)    # f32 states
     w = L.cache_window(cfg, max_seq)
+    if cfg.mla:
+        return {"lat": torch.zeros((batch, w, cfg.kv_lora_rank),
+                                   dtype=dtype, device=device),
+                "kr": torch.zeros((batch, w, cfg.rope_dim), dtype=dtype,
+                                  device=device)}
+    if kind == "attn" and cfg.family == "hybrid":
+        w = min(w, cfg.window)                            # local attention
     shape = (batch, w, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -61,19 +169,45 @@ def apply_block(kind: str, p: Dict[str, Any], x: torch.Tensor, *,
                 pos=None) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Returns (x, cache).  ``cache`` is the same dict, its tensors updated
     in place.  The JAX version also returns an auxiliary loss, which only
-    MoE blocks make."""
-    _check_kind(kind, cfg)
+    MoE blocks make and only training reads; ``moe_ffn`` computes it and
+    it is dropped here."""
+    _check_kind(kind)
     if mode == "train":
         raise not_ported("training (forward_train, loss and optimizer)")
-    window = cfg.window if cfg.attn_kind == "swa" else None
-    h = L.norm(p["ln1"], x, cfg)
-    if mode == "prefill":
-        mix, cache = _attn_prefill(p["attn"], h, cfg, positions, window,
-                                   cache)
-    elif mode == "decode":
-        mix, cache = _attn_decode(p["attn"], h, cfg, pos, cache)
-    else:
+    if mode not in ("prefill", "decode"):
         raise ValueError(mode)
+    window = cfg.window if cfg.attn_kind == "swa" else None
+    if kind == "attn" and cfg.family == "hybrid":
+        window = cfg.window                               # local attention
+    h = L.norm(p["ln1"], x, cfg)
+
+    if kind in RECURRENT:
+        seq, decode, _ = RECURRENT[kind]
+        if mode == "prefill":
+            mix, state = seq(p["mix"], h, cfg)
+        else:
+            mix, state = decode(p["mix"], h, cache, cfg)
+        for key, val in state.items():
+            cache[key].copy_(val)
+        x = x + mix
+        if kind == "mlstm":
+            return x, cache
+        h2 = L.norm(p["ln2"], x, cfg)
+        return x + L.mlp(p["mlp"], h2), cache
+
+    if cfg.mla:
+        if mode == "prefill":
+            mix = _mla_prefill(p["attn"], h, cfg, positions, window, cache)
+        else:
+            mix = _mla_decode(p["attn"], h, cfg, pos, cache)
+    elif mode == "prefill":
+        mix = _attn_prefill(p["attn"], h, cfg, positions, window, cache)
+    else:
+        mix = _attn_decode(p["attn"], h, cfg, pos, cache)
     x = x + mix
     h2 = L.norm(p["ln2"], x, cfg)
-    return x + L.mlp(p["mlp"], h2), cache
+    if kind == "moe":
+        ff, _ = moe_ffn(p["moe"], h2, cfg)
+    else:
+        ff = L.mlp(p["mlp"], h2)
+    return x + ff, cache

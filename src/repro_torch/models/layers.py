@@ -1,6 +1,6 @@
 """Shared neural building blocks (a port of ``repro.models.layers`` for the
-dense GQA serving path): norms, rotary embeddings, prefill and decode
-attention through the port's kernels, the KV cache ring, SwiGLU MLP.
+serving path): norms, rotary embeddings, prefill and decode attention
+through the port's kernels, the KV cache ring, SwiGLU MLP.
 
 Params are dict subtrees produced by ``params.py``.  Compute dtype follows
 the config; norms, rotary and softmax run in f32.  Large matrix products
@@ -91,7 +91,14 @@ def attention_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel masks by sequence index, so ``model.prefill`` refuses any other
     positions before it reaches this function.
 
-    q (B,S,H,D); k,v (B,S,KV,D)."""
+    q (B,S,H,D); k (B,S,KV,D); v (B,S,KV,Dv) with Dv <= D (MLA's values
+    are narrower than its queries and keys).  The kernel takes one head
+    dim, so V is padded with zeros to D and the output sliced back to Dv;
+    the scale stays 1/sqrt(D), as ``attention_dense`` takes it from q."""
+    dv = v.shape[-1]
+    if dv < q.shape[-1]:
+        v = F.pad(v, (0, q.shape[-1] - dv))
+        return flash_prefill(q, k, v, window=window or 0)[..., :dv]
     return flash_prefill(q, k, v, window=window or 0)
 
 

@@ -7,7 +7,9 @@ loop over that dim replaces ``lax.scan``, and each layer reads views of its
 slices (no copies).  The KV caches are updated IN PLACE, one layer slice at
 a time: ``prefill`` and ``decode_step`` return the same cache dict they
 were given, where the JAX functions return new stacked caches (at
-qwen3-32b's serving shape that saves a 1 GiB copy per step).  Training
+qwen3-32b's serving shape that saves a 1 GiB copy per step); the
+recurrent blocks copy their new states into theirs.  The hybrid family's
+embedding is scaled by sqrt(d_model), as in JAX.  Training
 (``forward_train``, the loss) is not ported yet.
 """
 from __future__ import annotations
@@ -28,7 +30,14 @@ __all__ = ["init_params", "param_count", "init_cache", "prefill",
 
 def _embed(params, tokens, cfg: ModelConfig):
     w = params["embed"]["w"]
-    return w[tokens.long()].to(getattr(torch, cfg.compute_dtype))
+    dt = getattr(torch, cfg.compute_dtype)
+    x = w[tokens.long()].to(dt)
+    if cfg.family != "hybrid":
+        return x
+    # JAX rounds the weakly typed scale to the compute dtype before the
+    # product; torch would multiply by the unrounded one (a CPU scalar: no
+    # copy to the device)
+    return x * torch.tensor(cfg.d_model ** 0.5, dtype=dt).item()
 
 
 def _unembed_w(params, cfg: ModelConfig):

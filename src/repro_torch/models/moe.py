@@ -1,0 +1,110 @@
+"""Sort-based top-k MoE dispatch, capacity-bounded and group-local (a port
+of ``repro.models.moe``).
+
+Tokens are sorted and capacity-packed within their batch row, as in the
+JAX package: every gather and scatter stays inside the row, and every
+shape comes from the config and the input's shape, so the dispatch never
+waits on the device (no loop over experts, no boolean indexing).  The
+expert FFN is three batched products over the (B, E, C, .) buffer; the
+JAX package computes them outside any kernel, and here they stay
+``torch.einsum``.
+
+Per-(row, expert) capacity C = ceil(S*k/E * cf) rounded up to 8, at least
+8; a token past its expert's capacity is dropped (its gate counts 0).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import mlp
+
+
+def capacity(s: int, cfg: ModelConfig) -> int:
+    """Slots per (row, expert) for rows of ``s`` tokens."""
+    cap = int(math.ceil(s * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
+    return max(8, -(-cap // 8) * 8)
+
+
+def moe_ffn(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B,S,d) -> (out (B,S,d), aux_loss f32 scalar)."""
+    if x.shape[1] == 1 and x.shape[0] > 1:
+        # decode: one token per row -- per-row groups would allocate a full
+        # (B, E, C, d) buffer for B tokens; one group of B tokens keeps the
+        # buffer at (1, E, C, d)
+        out, aux = moe_ffn(p, x.reshape(1, x.shape[0], x.shape[2]), cfg)
+        return out.reshape(x.shape), aux
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    t = s * k
+    dt = x.dtype
+    dev = x.device
+
+    gates = torch.softmax((x @ p["router"].to(dt)).float(), dim=-1)  # (B,S,E)
+    # lax.top_k puts the lower index first among equal values: a stable
+    # descending sort does too, where torch.topk leaves ties unordered
+    topv, topi = torch.sort(gates, dim=-1, descending=True, stable=True)
+    topv, topi = topv[..., :k], topi[..., :k]                      # (B,S,k)
+    topv = topv / topv.sum(-1, keepdim=True)
+
+    # load-balancing aux loss (Switch-style), over the whole batch
+    me = gates.mean(dim=(0, 1))                                     # (E,)
+    ce = torch.zeros((e,), dtype=torch.float32, device=dev).index_add_(
+        0, topi.reshape(-1),
+        torch.full((b * t,), 1.0 / (b * t), dtype=torch.float32, device=dev))
+    aux = (me * ce).sum() * e * cfg.router_aux_coef
+
+    # ---- group-local (per-row) sort + rank + capacity ----
+    e_flat = topi.reshape(b, t)                                     # (B,T)
+    g_flat = topv.reshape(b, t)
+    tok_of = torch.arange(s, device=dev).repeat_interleave(k)[None].expand(
+        b, t)
+    order = torch.argsort(e_flat, dim=1, stable=True)               # (B,T)
+    e_sorted = torch.gather(e_flat, 1, order)
+    tok_sorted = torch.gather(tok_of, 1, order)
+    g_sorted = torch.gather(g_flat, 1, order)
+    idx = torch.arange(t, device=dev)[None].expand(b, t)
+    # the first sorted lane of each expert: .at[].min over a row of T
+    group_start = torch.full((b, e), t, dtype=torch.int64,
+                             device=dev).scatter_reduce(
+        1, e_sorted, idx, "amin")                                   # (B,E)
+    rank = idx - torch.gather(group_start, 1, e_sorted)
+
+    cap = capacity(s, cfg)
+    keep = rank < cap
+    # a dropped lane goes to the sentinel row E*cap, sliced off below (the
+    # idiom of core/drop.py for JAX's mode="drop" scatter)
+    dest = torch.where(keep, e_sorted * cap + rank,
+                       torch.full_like(rank, e * cap))
+
+    # ---- pack: all indexing is within the batch row ----
+    xs = torch.gather(x, 1, tok_sorted[..., None].expand(b, t, d))  # (B,T,d)
+    buf = x.new_zeros((b, e * cap + 1, d)).scatter_(
+        1, dest[..., None].expand(b, t, d), xs)
+    buf = buf[:, :e * cap].reshape(b, e, cap, d)
+
+    # ---- expert FFN: one batched product per projection ----
+    h = F.silu(torch.einsum("becd,edf->becf", buf, p["wg"].to(dt))) \
+        * torch.einsum("becd,edf->becf", buf, p["wi"].to(dt))
+    out_buf = torch.einsum("becf,efd->becd", h, p["wo"].to(dt))
+    out_buf = out_buf.reshape(b, e * cap, d)
+
+    # ---- unpack: gather back per row, weight by gate prob ----
+    safe = dest.clamp(0, e * cap - 1)
+    contrib = torch.gather(out_buf, 1, safe[..., None].expand(b, t, d))
+    contrib = contrib * (g_sorted * keep).to(dt)[..., None]
+    # back to token order (order is a permutation of each row), then the k
+    # contributions of each token summed; JAX adds them into zeros by a
+    # scatter, which for k = 2 is the same sum
+    unsorted = torch.empty_like(contrib).scatter_(
+        1, order[..., None].expand(b, t, d), contrib)
+    out = unsorted.reshape(b, s, k, d).sum(2)
+
+    if cfg.moe_dense_ff:
+        out = out + mlp(p["dense"], x)
+    return out, aux

@@ -1,5 +1,6 @@
 """Parameter definitions and initialization (a port of
-``repro.models.params`` for the ``attn`` block kind).
+``repro.models.params`` for every block kind but the audio family's
+``enc`` and ``dec``).
 
 ``param_defs(cfg)`` builds a tree of ``PD`` (shape, init); ``init_params``
 materializes it on a device.  Stacked layer params carry a leading 'stack'
@@ -10,7 +11,7 @@ copy (``repro_torch.models.convert``).  The sharding roles of the JAX
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Iterator, NamedTuple, Tuple
+from typing import Any, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -18,11 +19,8 @@ from repro_torch.configs.base import ModelConfig
 
 # ROADMAP queue A, item 12 (model stack): the block kinds whose
 # parameters, caches and mixers are not ported yet
-NOT_PORTED = {
-    "moe": "MoE", "enc": "audio (whisper encoder)",
-    "dec": "audio (whisper decoder)", "mlstm": "recurrent mixers (xLSTM)",
-    "slstm": "recurrent mixers (xLSTM)",
-    "rglru": "recurrent mixers (RecurrentGemma)"}
+NOT_PORTED = {"enc": "audio (whisper encoder)",
+              "dec": "audio (whisper decoder)"}
 
 
 def not_ported(what: str) -> NotImplementedError:
@@ -39,22 +37,37 @@ class PD(NamedTuple):
 def _attn_defs(cfg: ModelConfig) -> Dict[str, PD]:
     d, qd, kvd, hd = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.head_dim
     if cfg.mla:
-        raise not_ported("MLA attention")
-    defs = {"wq": PD((d, qd)), "wk": PD((d, kvd)), "wv": PD((d, kvd)),
-            "wo": PD((qd, d))}
-    if cfg.qkv_bias:
-        defs["bq"] = PD((qd,), "zeros")
-        defs["bk"] = PD((kvd,), "zeros")
-        defs["bv"] = PD((kvd,), "zeros")
+        r, rq, rd, h = cfg.kv_lora_rank, cfg.q_lora_rank, cfg.rope_dim, \
+            cfg.n_heads
+        defs = {"wq_a": PD((d, rq)), "wq_b": PD((rq, h * (hd + rd))),
+                "wkv_a": PD((d, r + rd)), "wk_b": PD((r, h * hd)),
+                "wv_b": PD((r, h * hd)), "wo": PD((h * hd, d))}
+    else:
+        defs = {"wq": PD((d, qd)), "wk": PD((d, kvd)), "wv": PD((d, kvd)),
+                "wo": PD((qd, d))}
+        if cfg.qkv_bias:
+            defs["bq"] = PD((qd,), "zeros")
+            defs["bk"] = PD((kvd,), "zeros")
+            defs["bv"] = PD((kvd,), "zeros")
     if cfg.qk_norm:
         defs["q_norm"] = PD((hd,), "ones")
         defs["k_norm"] = PD((hd,), "ones")
     return defs
 
 
-def _mlp_defs(cfg: ModelConfig) -> Dict[str, PD]:
-    d, f = cfg.d_model, cfg.d_ff
+def _mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None
+              ) -> Dict[str, PD]:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     return {"wi": PD((d, f)), "wg": PD((d, f)), "wo": PD((f, d))}
+
+
+def _moe_defs(cfg: ModelConfig) -> Dict[str, Any]:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    defs: Dict[str, Any] = {"router": PD((d, e)), "wi": PD((e, d, f)),
+                            "wg": PD((e, d, f)), "wo": PD((e, f, d))}
+    if cfg.moe_dense_ff:
+        defs["dense"] = _mlp_defs(cfg, cfg.moe_dense_ff)
+    return defs
 
 
 def _norm_def(cfg: ModelConfig) -> Dict[str, PD]:
@@ -64,10 +77,48 @@ def _norm_def(cfg: ModelConfig) -> Dict[str, PD]:
     return out
 
 
+def _mlstm_defs(cfg: ModelConfig) -> Dict[str, PD]:
+    d, inner, h = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.n_heads
+    return {"w_up": PD((d, 2 * inner)), "wq": PD((inner, inner)),
+            "wk": PD((inner, inner)), "wv": PD((inner, inner)),
+            "w_if": PD((inner, 2 * h)),          # input / forget gates
+            "w_down": PD((inner, d)), "skip_scale": PD((inner,), "ones")}
+
+
+def _slstm_defs(cfg: ModelConfig) -> Dict[str, PD]:
+    d = cfg.d_model
+    up = (4 * d) // 3
+    # 4 gates (i, f, z, o) from the input and the recurrent hidden state
+    return {"w_x": PD((d, 4 * d)), "w_h": PD((d, 4 * d)),
+            "w_up": PD((d, up)), "w_gate": PD((d, up)),
+            "w_down": PD((up, d))}
+
+
+def _rglru_defs(cfg: ModelConfig) -> Dict[str, PD]:
+    d = cfg.d_model
+    r = cfg.lru_dim or d
+    return {"w_x": PD((d, r)), "w_gate": PD((d, r)),
+            "conv_w": PD((cfg.conv_width, r)), "conv_b": PD((r,), "zeros"),
+            "a_param": PD((r,), "ones"),       # recurrence decay logits
+            "w_in_gate": PD((r, r)), "w_down": PD((r, d))}
+
+
 def block_defs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
     """Parameter defs for one block of the given kind (pre-norm residual)."""
     if kind == "attn":
         return {"ln1": _norm_def(cfg), "attn": _attn_defs(cfg),
+                "ln2": _norm_def(cfg), "mlp": _mlp_defs(cfg)}
+    if kind == "moe":
+        return {"ln1": _norm_def(cfg), "attn": _attn_defs(cfg),
+                "ln2": _norm_def(cfg), "moe": _moe_defs(cfg)}
+    if kind == "mlstm":
+        return {"ln1": _norm_def(cfg), "mix": _mlstm_defs(cfg)}
+    if kind == "slstm":
+        return {"ln1": _norm_def(cfg), "mix": _slstm_defs(cfg),
+                "ln2": _norm_def(cfg),
+                "mlp": _mlp_defs(cfg, (4 * cfg.d_model) // 3)}
+    if kind == "rglru":
+        return {"ln1": _norm_def(cfg), "mix": _rglru_defs(cfg),
                 "ln2": _norm_def(cfg), "mlp": _mlp_defs(cfg)}
     if kind in NOT_PORTED:
         raise not_ported(f"block kind {kind!r} ({NOT_PORTED[kind]})")

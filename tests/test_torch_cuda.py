@@ -848,3 +848,50 @@ def test_bench_serve_meta_names_the_card(cuda):
     assert meta["device_name"] == torch.cuda.get_device_name(0)
     assert meta["power_limit"].endswith("W")
     assert meta["cuda_version"] == torch.version.cuda
+
+
+# f32 logits of a model on the card against the same model on the CPU: the
+# kernels and cuBLAS sum in other orders than the plain versions and
+# CPU matmuls, which compounds over the layers (a kernel alone is within
+# 3e-5 of its plain version in f32)
+FAMILY_LOGITS_ATOL = 1e-3
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b-smoke", "arctic-480b-smoke",
+                                  "qwen1.5-110b-smoke", "minicpm3-4b-smoke",
+                                  "xlstm-350m-smoke",
+                                  "recurrentgemma-2b-smoke"])
+def test_model_family_on_the_card_matches_the_cpu(cuda, arch):
+    """Each family at smoke size: prefill of 20 tokens (longer than the
+    smoke windows of 16) and 3 greedy decode steps on the card against the
+    same weights on the CPU: the same tokens, logits within
+    FAMILY_LOGITS_ATOL, and the attention kernels launched once per
+    attention layer in prefill and per GQA layer in each decode step."""
+    from repro_torch.models import model as M
+    from repro_torch.models.blocks import attention_layers
+    from repro_torch.models.params import tree_map
+    cfg = get_config(arch)
+    params = M.init_params(cfg, seed=0, device="cpu")
+    attn = attention_layers(cfg)
+    gqa = 0 if cfg.mla else attn
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 20)).astype(np.int32))
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        p = tree_map(lambda a: a.to(dev), params)
+        cache = M.init_cache(cfg, 2, 24, device=dev)
+        flash_prefill_cuda.launches = gqa_decode_cuda.launches = 0
+        cache, logits = M.prefill(p, {"tokens": tok.to(dev)}, cache, cfg)
+        steps = [logits]
+        for _ in range(3):
+            nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            cache, logits = M.decode_step(p, cache, nxt, cfg)
+            steps.append(logits)
+        out[dev.type] = torch.stack(steps).cpu()
+        if dev.type == "cuda":
+            assert flash_prefill_cuda.launches == attn
+            assert gqa_decode_cuda.launches == 3 * gqa
+    cpu, card = out["cpu"], out[cuda.type]
+    assert bool(torch.isfinite(card).all())
+    assert torch.equal(cpu.argmax(-1), card.argmax(-1))
+    assert float((cpu - card).abs().max()) <= FAMILY_LOGITS_ATOL
