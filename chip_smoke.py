@@ -242,6 +242,32 @@ Phases, each of which exits non-zero on failure:
    Launch counts are zeroed before each run and read after it
    (``launches_families`` in the JSON record, the kernels' rows at the
    families' shapes under ``family_shapes``).
+9. The vlm and audio front ends (``run_frontends_phase``), bf16, random
+   weights from the seed.  First the kernels at the shapes they give,
+   each against its plain version and timed beside
+   ``scaled_dot_product_attention`` with the boolean mask of the same
+   positions: ``flash_prefill`` by positions at qwen2-vl-2b's (8, 512,
+   12/2, 128) with the image layout's temporal positions, at whisper-base's
+   encoder (8, 1500, 8/8, 64, every pair live) and cross-attention (Sq
+   64, Sk 1500); ``gqa_decode`` at G 1, D 64 over 96 and 1500 slots; the
+   index path at whisper's decoder shape; then 240 edge shapes by
+   positions in f32 and bf16 (random positions with rows that have no
+   live key, repeats, Sq != Sk, windows).  Then qwen2-vl-2b at all 28
+   layers: ``serve.run`` of 8 x (512 + 16) token prompts at the default
+   M-RoPE positions with a crash of the registry; a model-level prefill
+   of 8 rows of 512 embeddings at Qwen2-VL's M-RoPE positions of 64 text
+   tokens, a 16 x 16 image and 192 text tokens (the positions path), and
+   16 decode steps.  Then whisper-base (6 + 6 layers) over 8 x 1500 frame
+   embeddings, a 64-token prompt and 32 generated, through
+   ``make_serve_steps``, twice.  Each run: tokens in range, finite
+   logits, ``flash_prefill`` launched ``attention_layers`` times in
+   prefill (28; whisper 18: 6 encoder, 6 self, 6 cross) and
+   ``gqa_decode`` ``decode_attention_layers`` times per decode step (28;
+   whisper 12), counted apart for prefill and decode; prefill and decode
+   ms against the weight-stream bound, profiled busy shares.  Then
+   decode against prefill in f32 at 2 layers of each (whisper on the
+   same frames), and the card tests whose names hold "frontend"
+   (``launches_frontends`` and ``frontend_shapes`` in the JSON record).
 
 The last two lines are the per-kernel JSON record (``hash_probe``'s entry
 carries its probe-window route under ``probe_window``) and
@@ -299,7 +325,8 @@ from repro_torch.kernels.recovery_scan.kernel import scan_cuda  # noqa: E402
 from repro_torch.kernels.recovery_scan.ref import scan_ref  # noqa: E402
 from repro_torch.launch import bench_serve, serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
-from repro_torch.models.blocks import attention_layers  # noqa: E402
+from repro_torch.models.blocks import (attention_layers,  # noqa: E402
+                                       decode_attention_layers)
 from repro_torch.models.moe import capacity as moe_capacity  # noqa: E402
 from repro_torch.models.params import tree_leaves  # noqa: E402
 from repro_torch.obs import MetricsRegistry  # noqa: E402
@@ -2535,15 +2562,20 @@ def check_decode_matches_prefill(dev, arch="qwen3-32b", s=511, b=2,
         expect(moe_capacity(s + 1, cfg) >= s + 1,
                f"{arch}: the no-drop capacity is below S + 1")
     params = M.init_params(cfg, seed=SEED, device=dev)
-    tok = torch.randint(0, cfg.vocab, (b, s + 1), device=dev,
-                        generator=torch.Generator(device=dev).manual_seed(1),
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tok = torch.randint(0, cfg.vocab, (b, s + 1), device=dev, generator=gen,
                         dtype=torch.int32)
+    frames = {}
+    if cfg.family == "audio":       # the encoder's frames, both prefills
+        frames["embeds"] = torch.randn((b, cfg.enc_seq, cfg.d_model),
+                                       generator=gen, device=dev)
     cache = M.init_cache(cfg, b, s + 1, device=dev)
-    cache, _ = M.prefill(params, {"tokens": tok[:, :s]}, cache, cfg)
+    cache, _ = M.prefill(params, {"tokens": tok[:, :s], **frames}, cache,
+                         cfg)
     _, lg_dec = M.decode_step(params, cache, tok[:, s:], cfg)
     del cache
     c2 = M.init_cache(cfg, b, s + 1, device=dev)
-    _, lg_ref = M.prefill(params, {"tokens": tok}, c2, cfg)
+    _, lg_ref = M.prefill(params, {"tokens": tok, **frames}, c2, cfg)
     sync(dev)
     expect(tuple(lg_dec.shape) == (b, cfg.vocab)
            and bool(torch.isfinite(lg_dec).all()),
@@ -2598,19 +2630,22 @@ def profile_decode(dev, cfg, params, b, prompt_len, steps):
                 wall_ms_per_step=wall_us / steps / 1e3)
 
 
-def profile_prefill(dev, cfg, params, b, prompt_len):
+def profile_prefill(dev, cfg, params, b, prompt_len, batch=None):
     """One warm prefill of the serving path under torch.profiler: the
-    device's busy share and flash_prefill's share of the busy time."""
+    device's busy share and flash_prefill's share of the busy time.  The
+    batch is ``prompt_len`` zero tokens unless ``batch`` is given."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
     prefill_step, _ = TS.make_serve_steps(cfg)
-    tok = torch.zeros((b, prompt_len), dtype=torch.int32, device=dev)
+    if batch is None:
+        batch = {"tokens": torch.zeros((b, prompt_len), dtype=torch.int32,
+                                       device=dev)}
     caches = M.init_cache(cfg, b, prompt_len + 1, device=dev)
-    prefill_step(params, {"tokens": tok}, caches)                # warm
+    prefill_step(params, batch, caches)                          # warm
     sync(dev)
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        prefill_step(params, {"tokens": tok}, caches)
+        prefill_step(params, batch, caches)
         sync(dev)
         wall_us = (time.perf_counter() - t0) * 1e6
     rows, busy = device_rows(prof)
@@ -3087,8 +3122,7 @@ def run_family(dev, smi, arch, layers, gen, requests=8, prompt_len=512):
            and res["psyncs_after_recovery"] == 0,
            f"serve {arch}: {res['psyncs']} psyncs for {requests} requests, "
            f"{res['recovery_psyncs']} in recovery")
-    attn = attention_layers(cfg)
-    gqa = 0 if cfg.mla else attn
+    attn, gqa = attention_layers(cfg), decode_attention_layers(cfg)
     expect(launches["flash_prefill"] == attn
            and launches["gqa_decode"] == gqa * (gen - 1),
            f"serve {arch}: flash_prefill {launches['flash_prefill']} and "
@@ -3143,6 +3177,382 @@ def run_families_phase(dev, smi):
     run_card_tests("model-family card tests", "family")
     print(f"phase 8: {time.perf_counter() - t0:.1f} s")
     return launches, shapes
+
+
+# ---------------------------------------------------------------------------
+# 9. the vlm and audio front ends
+# ---------------------------------------------------------------------------
+
+VLM_ARCH = "qwen2-vl-2b"
+AUDIO_ARCH = "whisper-base"
+# qwen2-vl-2b's prompt rows: 64 text tokens, one image of 16 x 16 merged
+# patches, 192 text tokens (512 in all); whisper-base's decoder prompt and
+# generation
+VLM_LAYOUT = (64, 16, 192)
+AUDIO_PROMPT, AUDIO_GEN = 64, 32
+
+
+def vlm_positions(b, dev, text0=64, grid=16, text1=192):
+    """Qwen2-VL's M-RoPE positions (arXiv:2409.12191 section 2.1;
+    ``get_rope_index`` of transformers' Qwen2VLForConditionalGeneration) of
+    rows laid out as ``text0`` text tokens (t = h = w = 0 .. text0 - 1),
+    one image of grid x grid merged patches (t = text0, h = text0 + row,
+    w = text0 + col), then ``text1`` text tokens from the image's greatest
+    position + 1: (3, B, S) int32 (temporal, height, width)."""
+    t = torch.arange(text0)
+    rows = torch.arange(grid).repeat_interleave(grid)
+    cols = torch.arange(grid).repeat(grid)
+    img = torch.stack([torch.full((grid * grid,), text0), text0 + rows,
+                       text0 + cols])
+    start = text0 + grid
+    post = torch.arange(start, start + text1)
+    pos = torch.cat([t.expand(3, -1), img, post.expand(3, -1)], 1)
+    return pos.to(torch.int32)[:, None].expand(3, b, -1).contiguous().to(dev)
+
+
+def _pos_mask(q_pos, k_pos, window):
+    """(B, Sq, Sk) live pairs of a position mask, as attention_dense."""
+    live = k_pos[:, None, :] <= q_pos[:, :, None]
+    if window:
+        live &= k_pos[:, None, :] > q_pos[:, :, None] - window
+    return live
+
+
+def check_prefill_positions(dev, label, b, sq, sk, h, kv, d, q_pos, k_pos,
+                            window=0, dtype=torch.bfloat16):
+    """flash_prefill by positions against its plain version at one shape,
+    timed beside ``scaled_dot_product_attention`` with the boolean mask of
+    the same positions.  Returns the row's fields."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + sq + sk + d)
+    q = _randn(gen, (b, sq, h, d), dtype, dev)
+    k = _randn(gen, (b, sk, kv, d), dtype, dev)
+    v = _randn(gen, (b, sk, kv, d), dtype, dev)
+
+    def kernel():
+        return flash_prefill_cuda(q, k, v, window, q_pos=q_pos, k_pos=k_pos)
+    got = kernel()
+    want = flash_prefill_ref(q, k, v, window, q_pos=q_pos, k_pos=k_pos)
+    sync(dev)
+    err = float((got.float() - want.float()).abs().max())
+    atol = ATOL["flash_prefill"][dtype]
+    tag = (f"flash_prefill by positions, {label}: B={b} Sq={sq} Sk={sk} "
+           f"H={h} KV={kv} D={d} window={window} {str(dtype)[6:]}")
+    expect(bool(torch.isfinite(got).all()), f"{tag}: non-finite output")
+    expect(err <= atol, f"{tag}: max |kernel - plain| {err} > {atol}")
+    mask = _pos_mask(q_pos, k_pos, window)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def lib_call():
+        return sdpa(qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True)
+    lib_err = float((lib_call().transpose(1, 2).float()
+                     - want.float()).abs().max())
+    expect(lib_err <= atol, f"{tag}: scaled_dot_product_attention "
+           f"disagrees with plain ({lib_err})")
+    if dtype == torch.bfloat16:
+        expect(err <= lib_err, f"{tag}: kernel error {err} above the "
+               f"library's {lib_err}")
+    ms = time_ms(kernel, dev, reps=20)
+    plain = time_ms(lambda: flash_prefill_ref(q, k, v, window, q_pos=q_pos,
+                                              k_pos=k_pos), dev, reps=5)
+    lib_ms = time_ms(lib_call, dev, reps=20)
+    live = int(mask.sum())
+    elt = q.element_size()
+    nbytes = ((2 * q.numel() + k.numel() + v.numel()) * elt
+              + 4 * (q_pos.numel() + k_pos.numel()))
+    flops = 4.0 * live * (h // kv) * kv * d
+    bound, by = bound_ms(nbytes, flops, dtype)
+    print(f"{tag}: max err {err:.3g}, library's {lib_err:.3g} (tolerance "
+          f"{atol}); kernel {ms:.6f} ms, plain {plain:.6f} ms, library "
+          f"{lib_ms:.6f} ms, bound {bound * 1e3:.3f} us ({by}; "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP, {live} live "
+          f"pairs)")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=bound,
+                bound_by=by, max_abs_err=err)
+
+
+def _edge_positions(kind, rng, b, sq, sk):
+    """Positions for the edge sweep: all zero; random in [0, 24) (repeats,
+    and rows before every key); sorted with repeats (an image's patches
+    sharing one temporal position); queries that continue the keys (a
+    chunk after a cached prefix)."""
+    if kind == "zeros":
+        qp, kp = np.zeros((b, sq)), np.zeros((b, sk))
+    elif kind == "random":
+        qp, kp = rng.integers(0, 24, (b, sq)), rng.integers(0, 24, (b, sk))
+    elif kind == "sorted":
+        top = max(sk // 2, 1)
+        qp = np.sort(rng.integers(0, top, (b, sq)), 1)
+        kp = np.sort(rng.integers(0, top, (b, sk)), 1)
+    else:
+        qp = np.broadcast_to(np.arange(sq) + sk - sq, (b, sq))
+        kp = np.broadcast_to(np.arange(sk), (b, sk))
+    return (torch.from_numpy(np.ascontiguousarray(a, np.int32))
+            for a in (qp, kp))
+
+
+def check_position_edges(dev):
+    """flash_prefill by positions against its plain version over Sq != Sk,
+    ragged Sq and Sk, head dims 8 to 256, G 1, 6 and 8, windows 0, 5 and
+    50, and positions all zero, random (rows with no live key), sorted
+    with repeats and continuing the keys, in f32 and bf16."""
+    rng = np.random.default_rng(SEED)
+    grid = [(2, sq, sk, kv * g, kv, d, w)
+            for d in (8, 64, 120, 128, 256) for sq, sk in
+            ((1, 1), (63, 100), (65, 300), (130, 64), (200, 200))
+            for g, kv in ((1, 2), (6, 2), (8, 1)) for w in (0, 5, 50)
+            if d in (64, 128) or (g == 6 and w != 5)]
+    kinds = ("zeros", "random", "sorted", "offset")
+    count, worst = 0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        atol = ATOL["flash_prefill"][dtype]
+        for i, (b, sq, sk, h, kv, d, w) in enumerate(grid):
+            kind = kinds[i % len(kinds)]
+            qp, kp = (t.to(dev) for t in _edge_positions(kind, rng, b, sq,
+                                                         sk))
+            gen = torch.Generator(device=dev).manual_seed(SEED + i)
+            q = _randn(gen, (b, sq, h, d), dtype, dev)
+            k = _randn(gen, (b, sk, kv, d), dtype, dev)
+            v = _randn(gen, (b, sk, kv, d), dtype, dev)
+            got = flash_prefill_cuda(q, k, v, w, q_pos=qp, k_pos=kp)
+            want = flash_prefill_ref(q, k, v, w, q_pos=qp, k_pos=kp)
+            err = float((got.float() - want.float()).abs().max())
+            expect(bool(torch.isfinite(got).all()) and err <= atol,
+                   f"flash_prefill by positions ({kind}) B={b} Sq={sq} "
+                   f"Sk={sk} H={h} KV={kv} D={d} window={w} "
+                   f"{str(dtype)[6:]}: max |kernel - plain| {err} > {atol}")
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+            count += 1
+    print(f"flash_prefill by positions, edge shapes: {count} held against "
+          f"plain (Sq 1-200, Sk 1-300, D 8-256, G 1, 6, 8, windows 0, 5, "
+          f"50; positions zero, random, sorted with repeats, continuing the "
+          f"keys); max err f32 {worst[torch.float32]:.3g}, bf16 "
+          f"{worst[torch.bfloat16]:.3g}")
+    return count
+
+
+def check_frontend_kernels(dev):
+    """Both attention kernels at the shapes the two front ends give them,
+    bf16: the vlm's positions path with the image mask, whisper's encoder
+    (every pair live) and cross-attention prefill, gqa_decode at G 1, D 64
+    over the decoder's 96 slots and the 1500 frames, and the index path at
+    whisper's decoder shape.  Returns the rows."""
+    vcfg, acfg = get_config(VLM_ARCH), get_config(AUDIO_ARCH)
+    b, s = 8, VLM_LAYOUT[0] + VLM_LAYOUT[1] ** 2 + VLM_LAYOUT[2]
+    tpos = vlm_positions(b, dev, *VLM_LAYOUT)[0]
+    se, hd, ha = acfg.enc_seq, acfg.head_dim, acfg.n_heads
+    zeros = torch.zeros((b, se), dtype=torch.int32, device=dev)
+    rows = {
+        "vlm_positions": check_prefill_positions(
+            dev, "qwen2-vl image layout", b, s, s, vcfg.n_heads,
+            vcfg.n_kv_heads, vcfg.head_dim, tpos, tpos),
+        "whisper_encoder": check_prefill_positions(
+            dev, "whisper encoder, all live", b, se, se, ha,
+            acfg.n_kv_heads, hd, zeros, zeros),
+        "whisper_cross": check_prefill_positions(
+            dev, "whisper cross-attention", b, AUDIO_PROMPT, se, ha,
+            acfg.n_kv_heads, hd, torch.zeros_like(zeros[:, :1]).expand(
+                b, AUDIO_PROMPT), zeros),
+        "whisper_decoder_index": check_prefill(
+            dev, b, AUDIO_PROMPT, ha, acfg.n_kv_heads, hd, 0,
+            torch.bfloat16)}
+    for name, s_dec in (("whisper_self_decode", AUDIO_PROMPT + AUDIO_GEN),
+                        ("whisper_cross_decode", se)):
+        rows[name] = check_decode(dev, b, ha, acfg.n_kv_heads, hd, s_dec,
+                                  torch.bfloat16, fill=s_dec)
+    edges = check_position_edges(dev)
+    return rows, edges
+
+
+ATTENTION_KERNELS = {"flash_prefill": flash_prefill_cuda,
+                     "gqa_decode": gqa_decode_cuda}
+
+
+def _zero_launches():
+    for fn in (scan_cuda, table_probe_cuda, gqa_decode_cuda,
+               flash_prefill_cuda):
+        fn.launches = 0
+
+
+def _attention_launches():
+    return {k: fn.launches for k, fn in ATTENTION_KERNELS.items()}
+
+
+def generate_timed(dev, cfg, params, batch, max_seq, gen):
+    """prefill + (gen - 1) greedy decode steps through the serve steps,
+    with the attention kernels' launches counted separately for each
+    (counts zeroed just before, read just after) and the device
+    synchronized around each.  Returns the tokens, the last logits, the
+    launches and the host ms."""
+    prefill_step, decode_step = TS.make_serve_steps(cfg)
+    b = next(iter(batch.values())).shape[0]
+    caches = M.init_cache(cfg, b, max_seq, device=dev)
+    sync(dev)
+    _zero_launches()
+    t0 = time.perf_counter()
+    caches, logits = prefill_step(params, batch, caches)
+    nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    sync(dev)
+    t1 = time.perf_counter()
+    pre = _attention_launches()
+    _zero_launches()
+    out = [nxt]
+    for _ in range(gen - 1):
+        caches, nxt, logits = decode_step(params, caches, nxt)
+        out.append(nxt)
+    sync(dev)
+    t2 = time.perf_counter()
+    dec = _attention_launches()
+    tokens = torch.cat(out, 1)
+    expect(tuple(tokens.shape) == (b, gen)
+           and bool(((tokens >= 0) & (tokens < cfg.vocab)).all())
+           and bool(torch.isfinite(logits).all()),
+           f"{cfg.name}: generated tokens or logits out of range")
+    return tokens, logits, {"prefill": pre, "decode": dec}, dict(
+        prefill_ms=(t1 - t0) * 1e3,
+        decode_ms_per_step=(t2 - t1) * 1e3 / max(gen - 1, 1))
+
+
+def _expect_launches(label, got, prefill, decode):
+    expect(got["prefill"] == {"flash_prefill": prefill, "gqa_decode": 0}
+           and got["decode"] == {"flash_prefill": 0, "gqa_decode": decode},
+           f"{label}: launches {got}, expected flash_prefill {prefill} in "
+           f"prefill and gqa_decode {decode} in decode")
+
+
+def run_vlm(dev, smi, requests=8, prompt_len=512, gen=16):
+    """qwen2-vl-2b at full width and depth, bf16, random weights from the
+    seed: serve.run of token prompts at the default M-RoPE positions with
+    a crash of the registry, then a model-level prefill of embedding rows
+    at Qwen2-VL's M-RoPE positions of text, an image and text (the
+    positions path) and 16 decode steps.  Returns the launches."""
+    cfg = get_config(VLM_ARCH)
+    attn, dec_attn = attention_layers(cfg), decode_attention_layers(cfg)
+    _zero_launches()
+    t0 = time.perf_counter()
+    res = serve.run(cfg, requests=requests, prompt_len=prompt_len, gen=gen,
+                    crash=True, device=dev)
+    served = {"recovery_scan": scan_cuda.launches,
+              "table_probe": table_probe_cuda.launches,
+              **_attention_launches()}
+    tokens = res["tokens"]
+    expect(tuple(tokens.shape) == (requests, gen)
+           and bool(((tokens >= 0) & (tokens < cfg.vocab)).all())
+           and bool(torch.isfinite(res["logits"]).all()),
+           f"serve {VLM_ARCH}: generated tokens or logits out of range")
+    expect(res["registered"] == requests and res["psyncs"] == requests
+           and res["registered_after_recovery"] == requests
+           and res["recovery_psyncs"] == 0,
+           f"serve {VLM_ARCH}: {res['psyncs']} psyncs for {requests} "
+           f"requests, {res['recovery_psyncs']} in recovery")
+    expect(served["flash_prefill"] == attn
+           and served["gqa_decode"] == dec_attn * (gen - 1)
+           and served["table_probe"] > 0 and served["recovery_scan"] > 0,
+           f"serve {VLM_ARCH}: launches {served}, expected flash_prefill "
+           f"{attn}, gqa_decode {dec_attn * (gen - 1)} and the registry's")
+    params = res["params"]
+    wbytes = sum(t.numel() * t.element_size()
+                 for _, t in tree_leaves(params))
+    print(f"serve {VLM_ARCH}: {cfg.n_layers} layers, {cfg.compute_dtype}, "
+          f"{M.param_count(cfg)} parameters, {wbytes / 2**30:.2f} GiB of "
+          f"weights; {requests} requests x {prompt_len} + {gen} tokens at "
+          f"the default M-RoPE positions; prefill {res['prefill_ms']:.3f} "
+          f"ms; decode {res['decode_ms_per_step']:.3f} ms per step "
+          f"(weight-stream bound {bytes_ms(wbytes):.3f} ms); "
+          f"{res['tok_per_s']:.1f} tok/s; launches {served}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del res, tokens
+
+    # embedding rows at M-RoPE positions: token embeddings for the text,
+    # N(0, 0.02^2) for the image's merged patches
+    text0, grid, text1 = VLM_LAYOUT
+    s = text0 + grid * grid + text1
+    gen_ = torch.Generator(device=dev).manual_seed(SEED + 9)
+    tok = torch.randint(0, cfg.vocab, (requests, s), generator=gen_,
+                        device=dev)
+    embeds = params["embed"]["w"][tok].clone()
+    embeds[:, text0:text0 + grid * grid] = 0.02 * torch.randn(
+        (requests, grid * grid, cfg.d_model), generator=gen_, device=dev)
+    batch = {"embeds": embeds, "positions": vlm_positions(requests, dev,
+                                                           *VLM_LAYOUT)}
+    dgen = 17
+    _, _, launches, ms = generate_timed(dev, cfg, params, batch, s + dgen,
+                                        dgen)
+    _expect_launches(f"{VLM_ARCH} embeds at M-RoPE positions", launches,
+                     attn, dec_attn * (dgen - 1))
+    torch.cuda.empty_cache()
+    pre = profile_prefill(dev, cfg, params, requests, s, batch)
+    dec = profile_decode(dev, cfg, params, requests, s, steps=4)
+    print(f"{VLM_ARCH} on {smi}: {requests} rows of {s} embeddings ({text0} "
+          f"text, a {grid} x {grid} image, {text1} text) through the "
+          f"positions path: prefill {ms['prefill_ms']:.3f} ms, "
+          f"{dgen - 1} decode steps {ms['decode_ms_per_step']:.3f} ms per "
+          f"step (weight-stream bound {bytes_ms(wbytes):.3f} ms); "
+          f"profiled: prefill busy {pre['busy_share']:.2f}%, decode "
+          f"{dec['wall_ms_per_step']:.3f} ms per step, busy "
+          f"{dec['busy_share']:.2f}%, {dec['ops_per_step'] / cfg.n_layers:.1f}"
+          f" device ops per layer per step; launches {launches}")
+    del params, embeds, batch
+    torch.cuda.empty_cache()
+    return {"serve": served, "embeds": launches}
+
+
+def run_whisper(dev, smi, requests=8):
+    """whisper-base at full width and depth (6 + 6 layers), bf16, random
+    weights from the seed: the encoder over 1500 frame embeddings (its
+    30 s window), a 64-token decoder prompt and 32 generated tokens
+    through ``make_serve_steps``.  Returns the launches."""
+    cfg = get_config(AUDIO_ARCH)
+    params = M.init_params(cfg, seed=SEED, device=dev)
+    wbytes = sum(t.numel() * t.element_size()
+                 for _, t in tree_leaves(params))
+    gen_ = torch.Generator(device=dev).manual_seed(SEED + 10)
+    batch = {"embeds": torch.randn((requests, cfg.enc_seq, cfg.d_model),
+                                   generator=gen_, device=dev).to(
+                                       torch.bfloat16),
+             "tokens": torch.randint(0, cfg.vocab, (requests, AUDIO_PROMPT),
+                                     generator=gen_, device=dev,
+                                     dtype=torch.int32)}
+    runs = []
+    for _ in range(2):      # the first also pays cuBLAS's first calls
+        runs.append(generate_timed(dev, cfg, params, batch,
+                                   AUDIO_PROMPT + AUDIO_GEN, AUDIO_GEN))
+    launches = runs[-1][2]
+    _expect_launches(AUDIO_ARCH, launches, attention_layers(cfg),
+                     decode_attention_layers(cfg) * (AUDIO_GEN - 1))
+    expect(torch.equal(runs[0][0], runs[1][0]),
+           f"{AUDIO_ARCH}: two runs on the same inputs differ")
+    pre = profile_prefill(dev, cfg, params, requests, AUDIO_PROMPT, batch)
+    dec = profile_decode(dev, cfg, params, requests, AUDIO_PROMPT, steps=4)
+    pre_ms = ", ".join("%.3f" % r[3]["prefill_ms"] for r in runs)
+    dec_ms = ", ".join("%.3f" % r[3]["decode_ms_per_step"] for r in runs)
+    print(f"{AUDIO_ARCH} on {smi}: {cfg.enc_layers} + {cfg.n_layers} layers, "
+          f"{cfg.compute_dtype}, {wbytes / 2**20:.1f} MiB of weights; "
+          f"{requests} x {cfg.enc_seq} frames, a {AUDIO_PROMPT}-token prompt, "
+          f"{AUDIO_GEN} generated; prefill {pre_ms} ms; decode {dec_ms} ms "
+          f"per step (weight-stream bound {bytes_ms(wbytes):.3f} ms); "
+          f"profiled: prefill busy {pre['busy_share']:.2f}%, decode "
+          f"{dec['wall_ms_per_step']:.3f} ms per step, busy "
+          f"{dec['busy_share']:.2f}%; launches {launches}")
+    del params, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_frontends_phase(dev, smi):
+    """Phase 9.  Returns the launches by arch and the kernels' rows at the
+    front ends' shapes."""
+    t0 = time.perf_counter()
+    rows, edges = check_frontend_kernels(dev)
+    torch.cuda.empty_cache()
+    launches = {VLM_ARCH: run_vlm(dev, smi), AUDIO_ARCH: run_whisper(dev, smi)}
+    check_decode_matches_prefill(dev, VLM_ARCH, s=511, layers=2)
+    torch.cuda.empty_cache()
+    check_decode_matches_prefill(dev, AUDIO_ARCH, s=63, layers=2)
+    torch.cuda.empty_cache()
+    run_card_tests("front-end card tests", "frontend")
+    print(f"phase 9: {time.perf_counter() - t0:.1f} s")
+    return launches, rows, edges
 
 
 def main() -> int:
@@ -3276,6 +3686,10 @@ def main() -> int:
 
     # 8. the model families at their published widths
     families, family_shapes = run_families_phase(dev, smi)
+    torch.cuda.empty_cache()
+
+    # 9. the vlm and audio front ends at their published widths
+    frontends, frontend_shapes, position_edges = run_frontends_phase(dev, smi)
 
     record = {"kernels": [
         {"name": "recovery_scan", "route": "cuda",
@@ -3293,6 +3707,8 @@ def main() -> int:
          "launches_open_loop": open_loop["recovery_scan"],
          "launches_families": {a: n["recovery_scan"]
                                for a, n in families.items()},
+         "launches_frontends": {
+             VLM_ARCH: frontends[VLM_ARCH]["serve"]["recovery_scan"]},
          "queue_shape": queue["shapes"]},
         {"name": "hash_probe", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hash_probe.cu",
@@ -3320,6 +3736,8 @@ def main() -> int:
              "launches_open_loop": open_loop["table_probe"],
              "launches_families": {a: n["table_probe"]
                                    for a, n in families.items()},
+             "launches_frontends": {
+                 VLM_ARCH: frontends[VLM_ARCH]["serve"]["table_probe"]},
              "shard_shape": sharded["shapes"]["table_probe"], **window,
              "bound_by": "bytes", "library_ms": None,
              "table_build_ms_2e21": probe_build_ms}},
@@ -3332,7 +3750,14 @@ def main() -> int:
          "launches_families": {a: n["gqa_decode"]
                                for a, n in families.items()},
          "family_shapes": {a: r["decode"] for a, r in family_shapes.items()
-                           if "decode" in r}},
+                           if "decode" in r},
+         "launches_frontends": {
+             VLM_ARCH: {"serve": frontends[VLM_ARCH]["serve"]["gqa_decode"],
+                        "embeds": frontends[VLM_ARCH]["embeds"]["decode"][
+                            "gqa_decode"]},
+             AUDIO_ARCH: frontends[AUDIO_ARCH]["decode"]["gqa_decode"]},
+         "frontend_shapes": {k: r for k, r in frontend_shapes.items()
+                             if k.endswith("_decode")}},
         {"name": "flash_prefill", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
          "replaces": "src/repro/kernels/flash_prefill/kernel.py:81",
@@ -3342,7 +3767,16 @@ def main() -> int:
          "launches_families": {a: n["flash_prefill"]
                                for a, n in families.items()},
          "family_shapes": {a: r["prefill"]
-                           for a, r in family_shapes.items()}},
+                           for a, r in family_shapes.items()},
+         "launches_frontends": {
+             VLM_ARCH: {
+                 "serve": frontends[VLM_ARCH]["serve"]["flash_prefill"],
+                 "embeds": frontends[VLM_ARCH]["embeds"]["prefill"][
+                     "flash_prefill"]},
+             AUDIO_ARCH: frontends[AUDIO_ARCH]["prefill"]["flash_prefill"]},
+         "frontend_shapes": {k: r for k, r in frontend_shapes.items()
+                             if not k.endswith("_decode")},
+         "position_edge_shapes": position_edges},
     ]}
     print(smi)
     print(json.dumps(record))

@@ -1,7 +1,7 @@
 """Model configuration schema + registry (a copy of ``repro.configs.base``:
 the port imports nothing of the JAX package).
 
-Only the families whose serving path is ported register here; see
+Every config of the JAX package registers here; see
 ``repro_torch.configs.all``."""
 from __future__ import annotations
 

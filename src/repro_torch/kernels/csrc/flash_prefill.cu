@@ -1,7 +1,17 @@
-// Causal, optionally sliding-window, GQA flash attention for prefill.
+// GQA flash attention for prefill, masked by sequence index or by
+// per-token positions, optionally windowed.
 // out[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h / G] / sqrt(D)) v[b, j,
-// h / G] over the keys j <= i (and j > i - window when window > 0), with
-// G = H / KV query heads sharing each KV head.
+// h / G] with G = H / KV query heads sharing each KV head, over the live
+// keys j:
+//  - by index (no positions; Sq == Sk = S): j <= i, and j > i - window
+//    when window > 0 (causal prefill at the default positions);
+//  - by positions (int32 qpos [B, Sq], kpos [B, Sk]; Sk free): kpos[b, j]
+//    <= qpos[b, i], and kpos[b, j] > qpos[b, i] - window when window > 0,
+//    the masks of the JAX model's attention_dense.  M-RoPE's temporal
+//    positions repeat (an image's patches share one); all-zero positions
+//    make every pair live (whisper's encoder and cross-attention, Sk the
+//    1500 frames).  A query with no live key averages every value, as the
+//    plain version's -1e30 logits do.
 //
 // Replaces the Pallas kernel `flash_prefill_pallas` / `_kernel` of
 // src/repro/kernels/flash_prefill/kernel.py.  The TPU version runs the key
@@ -55,6 +65,13 @@
 //    apply the element mask; O is rescaled only when a row's max moved.
 //  - Head dims that are not a multiple of 64 (D = 8, 120, ...) run in the
 //    next instantiation up (64, 128, 192, 256) with zero columns.
+//  - By positions (a second instantiation of each, so the index path's code
+//    is as before): the K and V maps take Sk rows; every tile applies the
+//    element mask, with the tile's 64 key positions staged in shared memory
+//    while its Q K^T runs and each thread's two query rows' positions in
+//    registers; keys past Sk are -inf, so they weigh nothing even in a row
+//    with no live key.  Every key tile is visited (no tile is skipped by
+//    positions); the launch order stays the index path's.
 // What is left for later: warp specialization (a producer warp and two
 // consumer warpgroups in ping-pong, as in FlashAttention-3) and 128-query
 // tiles, so that K and V tiles are read from L2 fewer times; issuing the
@@ -63,7 +80,8 @@
 //
 // f32 inputs (`flash_prefill_kernel`) keep the CUDA-core design, so that
 // they keep f32 accuracy (3e-5): both products in f32 from shared memory
-// with 4 x 2 and 4 x 8 register tiles per thread.
+// with 4 x 2 and 4 x 8 register tiles per thread.  By positions it visits
+// every key tile and masks each element.
 //
 // Per process, not per launch: each instantiation's shared-memory opt-in
 // and libcuda's cuTensorMapEncodeTiled are set up once (function-local
@@ -94,21 +112,39 @@ struct Strides {            // element strides of one [B, S, heads, D] tensor
 };
 
 // Shared memory, in floats: qs[BQ][D + 1], ks[BK][D + 1], vs[BK][D],
-// ss[BQ][BK + 1], then m[BQ], l[BQ], alpha[BQ].  The odd row pitches put
-// the rows that one warp reads together in distinct banks.
-size_t smem_bytes(int d) {
+// ss[BQ][BK + 1], then m[BQ], l[BQ], alpha[BQ], and with positions the
+// int32 positions of the block's queries and of the current key tile.  The
+// odd row pitches put the rows that one warp reads together in distinct
+// banks.
+size_t smem_bytes(int d, bool pos) {
   return sizeof(float) * ((size_t)kBQ * (d + 1) + (size_t)kBK * (d + 1) +
                           (size_t)kBK * d + (size_t)kBQ * (kBK + 1) +
-                          3 * (size_t)kBQ);
+                          3 * (size_t)kBQ + (pos ? kBQ + kBK : 0));
 }
 
-// NJ: head-dim columns each thread accumulates (D <= 16 * NJ).
-template <typename T, int NJ>
+// -inf: a key past the end of the keys, which weighs nothing even in a
+// query row that has no live key (masked keys weigh exp(0) there)
+__device__ __forceinline__ float neg_inf() {
+  return __int_as_float(0xff800000);
+}
+
+// Position masks (POS): a pair is live when kpos <= qpos and, with a
+// window, kpos > qpos - window, in int32 arithmetic that wraps as JAX's
+__device__ __forceinline__ bool pos_live(int kp, int qp, int window) {
+  return kp <= qp &&
+         (window == 0 || kp > (int)((unsigned)qp - (unsigned)window));
+}
+
+// NJ: head-dim columns each thread accumulates (D <= 16 * NJ).  S is the
+// number of queries; Sk the number of keys, equal to S without positions.
+template <typename T, int NJ, bool POS>
 __global__ void __launch_bounds__(kThreads)
 flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
                      Strides qs_, Strides ks_, Strides vs_, Strides os_, int S,
-                     int G, int D, int window, float scale) {
+                     int Sk, int G, int D, int window, float scale,
+                     const int* __restrict__ qpos,
+                     const int* __restrict__ kpos) {
   extern __shared__ float smem[];
   const int DP = D + 1;
   float* qsm = smem;
@@ -118,6 +154,8 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* ms = ssm + kBQ * (kBK + 1);
   float* ls = ms + kBQ;
   float* as = ls + kBQ;
+  int* qps = reinterpret_cast<int*>(as + kBQ);   // POS only
+  int* kps = qps + kBQ;
 
   // the heaviest query tiles (most key tiles) are scheduled first
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
@@ -135,6 +173,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = tid; r < kBQ; r += kThreads) {
     ms[r] = kNegInf;
     ls[r] = 0.f;
+    if (POS) qps[r] = q0 + r < S ? qpos[(long long)b * S + q0 + r] : 0;
   }
   float acc[4][NJ];
 #pragma unroll
@@ -142,16 +181,20 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
 
-  const int q_last = min(q0 + kBQ, S) - 1;
-  const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
-  for (int k0 = k_first / kBK * kBK; k0 <= q_last; k0 += kBK) {
+  // by index: the live key tiles only (through the tile of the last
+  // query); by positions: every key tile
+  const int k_last = POS ? Sk - 1 : min(q0 + kBQ, S) - 1;
+  const int k_first = !POS && window > 0 ? max(0, q0 - window + 1) : 0;
+  for (int k0 = k_first / kBK * kBK; k0 <= k_last; k0 += kBK) {
     __syncthreads();   // the previous tile's readers are done
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int j = i / D, d = i - j * D;
-      const bool in = k0 + j < S;
+      const bool in = k0 + j < Sk;
       ksm[j * DP + d] = in ? to_f32(kb[(k0 + j) * ks_.s + d]) : 0.f;
       vsm[j * D + d] = in ? to_f32(vb[(k0 + j) * vs_.s + d]) : 0.f;
     }
+    if (POS && tid < kBK && k0 + tid < Sk)
+      kps[tid] = kpos[(long long)b * Sk + k0 + tid];
     __syncthreads();
 
     // logits: rows ty + 16 i, keys tx + 16 j
@@ -172,10 +215,17 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int qp = q0 + ty + 16 * i, kp = k0 + tx + 16 * j;
-        bool live = kp < S && kp <= qp;
-        if (window > 0) live = live && kp > qp - window;
-        ssm[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] =
-            live ? sacc[i][j] * scale : kNegInf;
+        float x;
+        if (POS) {   // keys past Sk weigh nothing, even in a dead row
+          x = kp >= Sk ? neg_inf()
+              : pos_live(kps[tx + 16 * j], qps[ty + 16 * i], window)
+                  ? sacc[i][j] * scale : kNegInf;
+        } else {
+          bool live = kp < S && kp <= qp;
+          if (window > 0) live = live && kp > qp - window;
+          x = live ? sacc[i][j] * scale : kNegInf;
+        }
+        ssm[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] = x;
       }
     __syncthreads();
 
@@ -244,19 +294,22 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int NJ>
+template <typename T, int NJ, bool POS>
 int launch(const T* q, const T* k, const T* v, T* out, Strides sq,
-           Strides sk, Strides sv, Strides so, int B, int S, int H, int KV,
-           int D, int window, cudaStream_t s) {
+           Strides sk, Strides sv, Strides so, int B, int S, int Sk, int H,
+           int KV, int D, int window, const int* qpos, const int* kpos,
+           cudaStream_t s) {
   // the opt-in covers the largest D of this instantiation, once per process
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_prefill_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes(16 * NJ));
+      flash_prefill_kernel<T, NJ, POS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes(16 * NJ, POS));
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((unsigned)((S + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
-  flash_prefill_kernel<T, NJ><<<grid, kThreads, smem_bytes(D), s>>>(
-      q, k, v, out, sq, sk, sv, so, S, H / KV, D, window,
-      1.0f / sqrtf((float)D));
+  flash_prefill_kernel<T, NJ, POS>
+      <<<grid, kThreads, smem_bytes(D, POS), s>>>(
+          q, k, v, out, sq, sk, sv, so, S, Sk, H / KV, D, window,
+          1.0f / sqrtf((float)D), qpos, kpos);
   return (int)cudaGetLastError();
 }
 
@@ -280,10 +333,13 @@ constexpr float kLog2e = 1.4426950408889634f;
 // K-major (Q, K: rows along M or N, D along K) and as MN-major (V: keys
 // along K, D along N).  At D = 128 that is 65 KB and 157 registers a
 // thread: 3 blocks per SM.
-template <int DP>
+// With positions (POS), 256 bytes more after the barriers: the current key
+// tile's positions (64 ints).
+template <int DP, bool POS>
 struct TcShape {
   static constexpr int kTile = DP / 64 * kBox;
-  static constexpr size_t kSmem = 4 * (size_t)kTile + 32 + 1024;
+  static constexpr size_t kSmem = 4 * (size_t)kTile + 32 + 1024 +
+                                  (POS ? 256 : 0);
   static constexpr int kMinBlocks = DP <= 64 ? 4 : (DP <= 128 ? 3 : 1);
 };
 
@@ -395,15 +451,18 @@ __device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi,
 
 // One warpgroup per (query tile, batch row, query head): blockIdx.x runs
 // over the heads fastest, then the batch rows, then the query tiles from
-// the last (most key tiles) to the first.
-template <int DP>
-__global__ void __launch_bounds__(kTcThreads, TcShape<DP>::kMinBlocks)
+// the last (most key tiles, by index) to the first.  S queries, Sk keys
+// (Sk == S without positions).
+template <int DP, bool POS>
+__global__ void __launch_bounds__(kTcThreads, TcShape<DP, POS>::kMinBlocks)
 flash_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
-                        const __grid_constant__ CUtensorMap to, int S, int H,
-                        int G, int n_qt, int window, float scale_log2) {
-  constexpr int kTile = TcShape<DP>::kTile;
+                        const __grid_constant__ CUtensorMap to, int S, int Sk,
+                        int H, int G, int n_qt, int window, float scale_log2,
+                        const int* __restrict__ qpos,
+                        const int* __restrict__ kpos) {
+  constexpr int kTile = TcShape<DP, POS>::kTile;
   extern __shared__ unsigned char smem_tc[];
   const uint32_t q_addr = (smem_u32(smem_tc) + 1023) & ~1023u;
   const uint32_t bars = q_addr + 4 * kTile;   // Q, then the 3 slots
@@ -413,9 +472,26 @@ flash_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int q0 = (n_qt - 1 - t) * kTcBQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  const int q_last = min(q0 + kTcBQ, S) - 1;
-  const int kt_first = (window > 0 ? max(0, q0 - window + 1) : 0) / kTcBK;
-  const int n_kt = q_last / kTcBK - kt_first + 1;
+  int kt_first, n_kt;
+  int* kps = nullptr;   // POS: the current key tile's positions
+  int qp[2] = {0, 0};   // POS: the positions of rows r0 and r0 + 8
+  if constexpr (POS) {
+    qpos += (long long)b * S;
+    kpos += (long long)b * Sk;
+    kps = reinterpret_cast<int*>(smem_tc +
+                                 (bars + 32 - smem_u32(smem_tc)));
+    kt_first = 0;   // every key tile, each element masked
+    n_kt = (Sk + kTcBK - 1) / kTcBK;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + warp * 16 + (lane >> 2) + 8 * r;
+      if (row < S) qp[r] = qpos[row];
+    }
+  } else {
+    const int q_last = min(q0 + kTcBQ, S) - 1;
+    kt_first = (window > 0 ? max(0, q0 - window + 1) : 0) / kTcBK;
+    n_kt = q_last / kTcBK - kt_first + 1;
+  }
 
   // the block's K and V tiles form one sequence K0 V0 K1 V1 ...; element e
   // lands in slot e % 3.  K_t's slot is refilled (with V_t+1) as soon as
@@ -459,6 +535,9 @@ flash_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
 
   for (int it = 0; it < n_kt; ++it) {
     const int kt = kt_first + it;
+    int kp_next = 0;   // POS: this tile's key positions, on their way
+    if (POS && threadIdx.x < kTcBK && kt * kTcBK + threadIdx.x < Sk)
+      kp_next = kpos[kt * kTcBK + threadIdx.x];
     const uint32_t k_addr = wait_elem(2 * it);
 
     // S = Q K^T: 64 queries x 64 keys, 16 rows per warp; a 16-column step
@@ -473,18 +552,26 @@ flash_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
     }
     wg_commit_wait();
     fence_regs(s);
+    if (POS && threadIdx.x < kTcBK) kps[threadIdx.x] = kp_next;
     __syncthreads();   // every warp has read K_t: refill its slot
     if (threadIdx.x == 0 && it + 1 < n_kt) load_elem(2 * it + 3);
 
-    // scale to log2 units; the element mask only on the diagonal and
-    // window-edge tiles and the ragged tile at S
+    // scale to log2 units; by index the element mask only on the diagonal
+    // and window-edge tiles and the ragged tile at S, by positions on
+    // every tile (keys past Sk at -inf)
     const int k0 = kt * kTcBK;
     const bool edge = k0 + kTcBK - 1 > q0 || k0 + kTcBK > S ||
                       (window > 0 && k0 <= q0 + kTcBQ - 1 - window);
 #pragma unroll
     for (int e = 0; e < 32; ++e) {
       float x = s[e] * scale_log2;
-      if (edge) {
+      if constexpr (POS) {
+        const int c = (e >> 2) * 8 + (lane & 3) * 2 + (e & 1);
+        if (k0 + c >= Sk)
+          x = neg_inf();
+        else if (!pos_live(kps[c], qp[(e >> 1) & 1], window))
+          x = kNegInf;
+      } else if (edge) {
         const int qp = r0 + ((e >> 1) & 1) * 8;
         const int kp = k0 + (e >> 2) * 8 + (lane & 3) * 2 + (e & 1);
         const bool live = kp < S && kp <= qp &&
@@ -624,33 +711,36 @@ bool make_map(CUtensorMap* map, const void* ptr, Strides st, int B, int S,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DP>
+template <int DP, bool POS>
 int launch_tc(const bf16* q, const bf16* k, const bf16* v, bf16* out,
               Strides sq, Strides sk, Strides sv, Strides so, int B, int S,
-              int H, int KV, int D, int window, cudaStream_t s) {
-  constexpr size_t smem = TcShape<DP>::kSmem;
+              int Sk, int H, int KV, int D, int window, const int* qpos,
+              const int* kpos, cudaStream_t s) {
+  constexpr size_t smem = TcShape<DP, POS>::kSmem;
   // the shared-memory opt-in, once per process and instantiation
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_prefill_tc_kernel<DP>,
+      flash_prefill_tc_kernel<DP, POS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   CUtensorMap tq, tk, tv, to;
   if (!make_map(&tq, q, sq, B, S, H, D) ||
-      !make_map(&tk, k, sk, B, S, KV, D) ||
-      !make_map(&tv, v, sv, B, S, KV, D) ||
+      !make_map(&tk, k, sk, B, Sk, KV, D) ||
+      !make_map(&tv, v, sv, B, Sk, KV, D) ||
       !make_map(&to, out, so, B, S, H, D))
     return (int)cudaErrorInvalidValue;
   const int n_qt = (S + kTcBQ - 1) / kTcBQ;
   const unsigned grid = (unsigned)n_qt * (unsigned)B * (unsigned)H;
-  flash_prefill_tc_kernel<DP><<<grid, kTcThreads, smem, s>>>(
-      tq, tk, tv, to, S, H, H / KV, n_qt, window,
-      kLog2e / sqrtf((float)D));
+  flash_prefill_tc_kernel<DP, POS><<<grid, kTcThreads, smem, s>>>(
+      tq, tk, tv, to, S, Sk, H, H / KV, n_qt, window,
+      kLog2e / sqrtf((float)D), qpos, kpos);
   return (int)cudaGetLastError();
 }
 
+template <bool POS>
 int dispatch(const void* q, const void* k, const void* v, void* out,
-             const long long* strides, int B, int S, int H, int KV, int D,
-             int window, int dtype, cudaStream_t s) {
+             const long long* strides, int B, int S, int Sk, int H, int KV,
+             int D, int window, int dtype, const int* qpos, const int* kpos,
+             cudaStream_t s) {
   const Strides sq{strides[0], strides[1], strides[2]};
   const Strides sk{strides[3], strides[4], strides[5]};
   const Strides sv{strides[6], strides[7], strides[8]};
@@ -661,48 +751,59 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
     const float* vt = static_cast<const float*>(v);
     float* ot = static_cast<float*>(out);
     if (D <= 64)
-      return launch<float, 4>(qt, kt, vt, ot, sq, sk, sv, so, B, S, H, KV,
-                              D, window, s);
+      return launch<float, 4, POS>(qt, kt, vt, ot, sq, sk, sv, so, B, S, Sk,
+                                   H, KV, D, window, qpos, kpos, s);
     if (D <= 128)
-      return launch<float, 8>(qt, kt, vt, ot, sq, sk, sv, so, B, S, H, KV,
-                              D, window, s);
-    return launch<float, 16>(qt, kt, vt, ot, sq, sk, sv, so, B, S, H, KV, D,
-                             window, s);
+      return launch<float, 8, POS>(qt, kt, vt, ot, sq, sk, sv, so, B, S, Sk,
+                                   H, KV, D, window, qpos, kpos, s);
+    return launch<float, 16, POS>(qt, kt, vt, ot, sq, sk, sv, so, B, S, Sk,
+                                  H, KV, D, window, qpos, kpos, s);
   }
   const bf16* qt = static_cast<const bf16*>(q);
   const bf16* kt = static_cast<const bf16*>(k);
   const bf16* vt = static_cast<const bf16*>(v);
   bf16* ot = static_cast<bf16*>(out);
   if (D <= 64)
-    return launch_tc<64>(qt, kt, vt, ot, sq, sk, sv, so, B, S, H, KV, D,
-                         window, s);
+    return launch_tc<64, POS>(qt, kt, vt, ot, sq, sk, sv, so, B, S, Sk, H,
+                              KV, D, window, qpos, kpos, s);
   if (D <= 128)
-    return launch_tc<128>(qt, kt, vt, ot, sq, sk, sv, so, B, S, H, KV, D,
-                          window, s);
+    return launch_tc<128, POS>(qt, kt, vt, ot, sq, sk, sv, so, B, S, Sk, H,
+                               KV, D, window, qpos, kpos, s);
   if (D <= 192)
-    return launch_tc<192>(qt, kt, vt, ot, sq, sk, sv, so, B, S, H, KV, D,
-                          window, s);
-  return launch_tc<256>(qt, kt, vt, ot, sq, sk, sv, so, B, S, H, KV, D,
-                        window, s);
+    return launch_tc<192, POS>(qt, kt, vt, ot, sq, sk, sv, so, B, S, Sk, H,
+                               KV, D, window, qpos, kpos, s);
+  return launch_tc<256, POS>(qt, kt, vt, ot, sq, sk, sv, so, B, S, Sk, H,
+                             KV, D, window, qpos, kpos, s);
 }
 
 }  // namespace
 
-// q, out: [B, S, H, D]; k, v: [B, S, KV, D], each with a unit stride along
-// D and the element strides (batch, sequence, head) given in `strides`
-// (q, k, v, out: 12 values).  dtype 0 = float32, 1 = bfloat16 (then every
-// pointer 16-byte aligned and every stride a multiple of 8); D a multiple
-// of 8 in [8, 256]; window 0 = full causal.
+// q, out: [B, Sq, H, D]; k, v: [B, Sk, KV, D], each with a unit stride
+// along D and the element strides (batch, sequence, head) given in
+// `strides` (q, k, v, out: 12 values).  dtype 0 = float32, 1 = bfloat16
+// (then every pointer 16-byte aligned and every stride a multiple of 8); D
+// a multiple of 8 in [8, 256]; window 0 = no window.  qpos and kpos: both
+// null (the mask is causal by index; Sq == Sk), or contiguous int32
+// [B, Sq] and [B, Sk] (the mask is by position).
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
                              void* out, const long long* strides, int B,
-                             int S, int H, int KV, int D, int window,
-                             int dtype, void* stream) {
-  if (B <= 0 || S <= 0) return (int)cudaGetLastError();
+                             int Sq, int Sk, int H, int KV, int D, int window,
+                             int dtype, const void* qpos, const void* kpos,
+                             void* stream) {
+  if (B <= 0 || Sq <= 0) return (int)cudaGetLastError();
+  const bool pos = qpos != nullptr;
   if (KV <= 0 || H % KV != 0 || D < 8 || D > 256 || D % 8 != 0 ||
-      window < 0 || (dtype != 0 && dtype != 1))
+      window < 0 || (dtype != 0 && dtype != 1) || Sk <= 0 ||
+      pos != (kpos != nullptr) || (!pos && Sk != Sq))
     return (int)cudaErrorInvalidValue;
-  return dispatch(q, k, v, out, strides, B, S, H, KV, D, window, dtype,
-                  static_cast<cudaStream_t>(stream));
+  const int* qp = static_cast<const int*>(qpos);
+  const int* kp = static_cast<const int*>(kpos);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (pos)
+    return dispatch<true>(q, k, v, out, strides, B, Sq, Sk, H, KV, D,
+                          window, dtype, qp, kp, st);
+  return dispatch<false>(q, k, v, out, strides, B, Sq, Sk, H, KV, D, window,
+                         dtype, qp, kp, st);
 }
 
 extern "C" const char* cuda_error_string(int err) {

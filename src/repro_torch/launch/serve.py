@@ -55,14 +55,18 @@ ack finished while the generation still ran (``ack_overlapped``).
 (``--duration``, ``--rate``, ``--utilization``, ``--quick``, ``--out``,
 ``--device``, ...), as the JAX driver does.
 
-``--arch`` takes every config of ``repro_torch.configs.all``: the dense
-GQA models (qwen3-32b, h2o-danube-3-4b, qwen1.5-110b with its QKV bias),
-MoE (mixtral-8x22b, arctic-480b), MLA (minicpm3-4b), xLSTM (xlstm-350m)
-and RG-LRU with local attention (recurrentgemma-2b), each with its
+``--arch`` takes every config of ``repro_torch.configs.all`` but the
+audio family's: the dense GQA models (qwen3-32b, h2o-danube-3-4b,
+qwen1.5-110b with its QKV bias), MoE (mixtral-8x22b, arctic-480b), MLA
+(minicpm3-4b), xLSTM (xlstm-350m), RG-LRU with local attention
+(recurrentgemma-2b) and the vlm qwen2-vl-2b, whose token prompts run at
+the default M-RoPE positions, as in ``repro.launch.serve``, each with its
 ``-smoke`` variant.  Attention layers run ``flash_prefill`` in prefill and
 ``gqa_decode`` in decode, except MLA's decode, which attends in the latent
 space with plain products as the JAX package does; the recurrent layers
-run no kernel.
+run no kernel.  whisper-base is refused with a ``ValueError``: its prefill
+reads frame embeddings, which serve, having token prompts only, has none
+of (``repro.launch.serve`` fails on the missing ``embeds`` the same way).
 
 It runs on the GPU unless given ``--device cpu``.  ``run`` is the same path
 for a caller that holds a config object.
@@ -99,6 +103,11 @@ PIPELINE_NEEDS_SHARDS = ("--pipeline > 1 requires --shards > 1 (the "
 AUTOSPLIT_RANGE = "--autosplit must be a fill factor in (0, 1]"
 AUTOSPLIT_NEEDS = ("--autosplit requires --router v2 and --pipeline 1 (the "
                    "split frontier commits at dispatch boundaries)")
+AUDIO_NEEDS_EMBEDS = ("serve drives token prompts only, and the audio "
+                      "family's prefill also reads the encoder's frame "
+                      "embeddings (batch['embeds']), which no serve flag "
+                      "provides (repro.launch.serve never passes them "
+                      "either)")
 
 
 def _sync(dev: torch.device) -> None:
@@ -144,6 +153,8 @@ def run(cfg: ModelConfig, requests: int = 8, prompt_len: int = 32,
     Returns the generated tokens, the structures' counts and the timings
     (for one wave, the device synchronized around prefill and around the
     decode loop)."""
+    if cfg.family == "audio":
+        raise ValueError(f"{cfg.name}: {AUDIO_NEEDS_EMBEDS}")
     if pipeline < 1:
         raise ValueError("--pipeline must be >= 1")
     if pipeline > 1 and shards <= 1:

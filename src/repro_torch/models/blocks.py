@@ -1,16 +1,22 @@
 """Per-kind block application for prefill / decode (a port of
-``repro.models.blocks``): the ``attn`` and ``moe`` kinds, MLA, and the
-recurrent ``mlstm``, ``slstm`` and ``rglru`` kinds.
+``repro.models.blocks``): the ``attn`` and ``moe`` kinds, MLA, the
+recurrent ``mlstm``, ``slstm`` and ``rglru`` kinds, and whisper's
+bidirectional encoder (``enc``) and cross-attending decoder (``dec``).
 
 Pre-norm residual throughout.  GQA attention runs through the port's
 ``flash_prefill`` and ``gqa_decode`` kernels; the hybrid family's ``attn``
-blocks are local attention over its window.  MLA (minicpm3) prefill
-materializes per-head keys from the latent and goes through
-``flash_prefill`` with its narrower values padded; its decode runs
+blocks are local attention over its window.  Prefill masks by sequence
+index at the default positions and by the given positions otherwise
+(``mask_pos``, M-RoPE's temporal row).  The encoder's attention and the
+decoder's cross-attention prefill go through ``flash_prefill`` at all-zero
+positions (every pair live, ``attention_dense``'s ``causal=False``); the
+cross-attention decode through ``gqa_decode`` over the whole cross cache.
+MLA (minicpm3) prefill materializes per-head keys from the latent and goes
+through ``flash_prefill`` with its narrower values padded; its decode runs
 *absorbed* attention in the latent space as f32 einsums, as the JAX
 package does outside any kernel, so the cache is only (r + rope_dim) per
-token.  The audio family's ``enc`` and ``dec`` kinds raise
-``NotImplementedError`` naming their ROADMAP item, as does the train mode.
+token.  The train mode raises ``NotImplementedError`` naming its ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -35,9 +41,9 @@ RECURRENT = {"mlstm": (SM.mlstm_seq, SM.mlstm_decode, SM.mlstm_cache),
 # Attention sub-block (standard GQA path)
 # ---------------------------------------------------------------------------
 
-def _attn_prefill(p, x, cfg, positions, window, cache):
+def _attn_prefill(p, x, cfg, positions, window, cache, mask_pos=None):
     q, k, v = L.qkv_project(p, x, cfg, positions)
-    out = L.attention_prefill(q, k, v, window)
+    out = L.attention_prefill(q, k, v, window, mask_pos, mask_pos)
     pos0 = torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
     L.cache_write(cache["k"], cache["v"], k, v, pos0)
     return out.reshape(x.shape[0], x.shape[1], -1) @ p["wo"].to(x.dtype)
@@ -46,6 +52,8 @@ def _attn_prefill(p, x, cfg, positions, window, cache):
 def _attn_decode(p, x, cfg, pos, cache):
     b = x.shape[0]
     positions = pos[:, None]                              # (B,1)
+    if cfg.mrope:       # the cache counter in all three sections, as JAX
+        positions = pos[None, :, None].expand(3, b, 1)
     q, k, v = L.qkv_project(p, x, cfg, positions)
     w = cache["k"].shape[1]
     ck, cv = L.cache_write(cache["k"], cache["v"], k, v, pos)
@@ -82,7 +90,7 @@ def _mla_cache_write(cache, lat, k_rope, pos0):
                   lat[..., None, :], k_rope[..., None, :], pos0)
 
 
-def _mla_prefill(p, x, cfg, positions, window, cache):
+def _mla_prefill(p, x, cfg, positions, window, cache, mask_pos=None):
     b, s = x.shape[0], x.shape[1]
     dt = x.dtype
     rd, h, hd = cfg.rope_dim, cfg.n_heads, cfg.head_dim
@@ -93,7 +101,8 @@ def _mla_prefill(p, x, cfg, positions, window, cache):
     v = (lat @ p["wv_b"].to(dt)).reshape(b, s, h, hd)
     q = torch.cat([q_nope, q_rope], -1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, rd)], -1)
-    out = L.attention_prefill(q, k, v, window)            # (B,S,H,hd)
+    out = L.attention_prefill(q, k, v, window, mask_pos,
+                              mask_pos)                   # (B,S,H,hd)
     pos0 = torch.zeros((b,), dtype=torch.int32, device=x.device)
     _mla_cache_write(cache, lat, k_rope, pos0)
     return out.reshape(b, s, h * hd) @ p["wo"].to(dt)
@@ -130,29 +139,96 @@ def _mla_decode(p, x, cfg, pos, cache):
 
 
 # ---------------------------------------------------------------------------
+# Whisper: the encoder's self-attention and the decoder's cross-attention
+# ---------------------------------------------------------------------------
+
+def _zero_positions(b: int, s: int, device) -> torch.Tensor:
+    """All-zero positions, filled on the device: every pair live."""
+    return torch.zeros((b, s), dtype=torch.int32, device=device)
+
+
+def _enc_attn(p, x, cfg, positions):
+    """Bidirectional self-attention (``attention_dense`` with causal=False
+    and no window) through ``flash_prefill`` at zero positions; rotary at
+    ``positions``, as the JAX encoder."""
+    b, s = x.shape[0], x.shape[1]
+    q, k, v = L.qkv_project(p, x, cfg, positions)
+    zero = _zero_positions(b, s, x.device)
+    out = L.attention_prefill(q, k, v, None, zero, zero)
+    return out.reshape(b, s, -1) @ p["wo"].to(x.dtype)
+
+
+def _cross_attn(p, x, xk, xv, cfg, mode):
+    """x (B,S,d) against the encoder's keys and values xk, xv (B,Senc,KV,hd):
+    every pair live.  Prefill runs ``flash_prefill`` at zero positions with
+    Sk = Senc; a decode step runs ``gqa_decode`` over all Senc slots (the
+    JAX ``attention_dense`` at qp = kp = 0), the length filled on the
+    device."""
+    b, s = x.shape[0], x.shape[1]
+    dt = x.dtype
+    q = (x @ p["wq"].to(dt)).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    se = xk.shape[1]
+    if mode == "prefill":
+        out = L.attention_prefill(q, xk, xv, None,
+                                  _zero_positions(b, s, x.device),
+                                  _zero_positions(b, se, x.device))
+    else:
+        length = torch.full((b,), se, dtype=torch.int32, device=x.device)
+        out = L.attention_decode(q, xk, xv, length)
+    return out.reshape(b, s, -1) @ p["wo"].to(dt)
+
+
+def cross_kv(p, enc_out, cfg):
+    b, se = enc_out.shape[0], enc_out.shape[1]
+    dt = enc_out.dtype
+    k = (enc_out @ p["wk"].to(dt)).reshape(b, se, cfg.n_kv_heads,
+                                           cfg.head_dim)
+    v = (enc_out @ p["wv"].to(dt)).reshape(b, se, cfg.n_kv_heads,
+                                           cfg.head_dim)
+    return k, v
+
+
+# ---------------------------------------------------------------------------
 # Block dispatch
 # ---------------------------------------------------------------------------
 
+ATTENTION_KINDS = ("attn", "moe", "enc", "dec")
+
+
 def attention_layers(cfg: ModelConfig) -> int:
-    """Layers that run attention: the attn and moe kinds (MLA included)."""
-    return sum(count * sum(k in ("attn", "moe") for k in period)
+    """``flash_prefill`` launches of one prefill: one per attn and moe
+    layer (MLA included) and per encoder layer, two per decoder layer
+    (self and cross)."""
+    per = {"attn": 1, "moe": 1, "dec": 2}
+    return cfg.enc_layers + sum(count * sum(per.get(k, 0) for k in period)
+                                for period, count in cfg.stacks())
+
+
+def decode_attention_layers(cfg: ModelConfig) -> int:
+    """``gqa_decode`` launches of one decode step: one per GQA attn and moe
+    layer (none for MLA, which attends in the latent space), two per
+    decoder layer (self and cross)."""
+    per = {"dec": 2} if cfg.mla else {"attn": 1, "moe": 1, "dec": 2}
+    return sum(count * sum(per.get(k, 0) for k in period)
                for period, count in cfg.stacks())
 
 
 def _check_kind(kind: str) -> None:
     if kind in NOT_PORTED:
         raise not_ported(f"block kind {kind!r} ({NOT_PORTED[kind]})")
-    if kind not in ("attn", "moe") and kind not in RECURRENT:
+    if kind not in ATTENTION_KINDS and kind not in RECURRENT:
         raise ValueError(kind)
 
 
 def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_seq: int,
                      dtype, device) -> Dict[str, Any]:
     _check_kind(kind)
+    if kind == "enc":
+        raise ValueError("the encoder keeps no cache")
     if kind in RECURRENT:
         return RECURRENT[kind][2](cfg, batch, device)    # f32 states
     w = L.cache_window(cfg, max_seq)
-    if cfg.mla:
+    if cfg.mla and kind != "dec":
         return {"lat": torch.zeros((batch, w, cfg.kv_lora_rank),
                                    dtype=dtype, device=device),
                 "kr": torch.zeros((batch, w, cfg.rope_dim), dtype=dtype,
@@ -160,17 +236,26 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_seq: int,
     if kind == "attn" and cfg.family == "hybrid":
         w = min(w, cfg.window)                            # local attention
     shape = (batch, w, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    c = {"k": torch.zeros(shape, dtype=dtype, device=device),
+         "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kind == "dec":   # the cross-attention cache, filled by prefill
+        xshape = (batch, cfg.enc_seq, cfg.n_kv_heads, cfg.head_dim)
+        c["xk"] = torch.zeros(xshape, dtype=dtype, device=device)
+        c["xv"] = torch.zeros(xshape, dtype=dtype, device=device)
+    return c
 
 
 def apply_block(kind: str, p: Dict[str, Any], x: torch.Tensor, *,
                 cfg: ModelConfig, mode: str, positions=None, cache=None,
-                pos=None) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+                pos=None, enc_out=None, mask_pos=None
+                ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Returns (x, cache).  ``cache`` is the same dict, its tensors updated
-    in place.  The JAX version also returns an auxiliary loss, which only
-    MoE blocks make and only training reads; ``moe_ffn`` computes it and
-    it is dropped here."""
+    in place (None for the encoder, which keeps none).  ``mask_pos`` (B,S)
+    masks prefill attention by position; None masks by index.  ``enc_out``
+    is the encoder's output, which a ``dec`` block's prefill projects into
+    its cross cache.  The JAX version also returns an auxiliary loss, which
+    only MoE blocks make and only training reads; ``moe_ffn`` computes it
+    and it is dropped here."""
     _check_kind(kind)
     if mode == "train":
         raise not_ported("training (forward_train, loss and optimizer)")
@@ -195,16 +280,29 @@ def apply_block(kind: str, p: Dict[str, Any], x: torch.Tensor, *,
         h2 = L.norm(p["ln2"], x, cfg)
         return x + L.mlp(p["mlp"], h2), cache
 
-    if cfg.mla:
+    if kind == "enc":
+        mix = _enc_attn(p["attn"], h, cfg, positions)
+    elif cfg.mla and kind != "dec":
         if mode == "prefill":
-            mix = _mla_prefill(p["attn"], h, cfg, positions, window, cache)
+            mix = _mla_prefill(p["attn"], h, cfg, positions, window, cache,
+                               mask_pos)
         else:
             mix = _mla_decode(p["attn"], h, cfg, pos, cache)
     elif mode == "prefill":
-        mix = _attn_prefill(p["attn"], h, cfg, positions, window, cache)
+        mix = _attn_prefill(p["attn"], h, cfg, positions, window, cache,
+                            mask_pos)
     else:
         mix = _attn_decode(p["attn"], h, cfg, pos, cache)
     x = x + mix
+    if kind == "dec":   # whisper cross-attention
+        hx = L.norm(p["lnx"], x, cfg)
+        if mode == "prefill":
+            xk, xv = cross_kv(p["xattn"], enc_out, cfg)
+            cache["xk"].copy_(xk)
+            cache["xv"].copy_(xv)
+        else:
+            xk, xv = cache["xk"], cache["xv"]
+        x = x + _cross_attn(p["xattn"], hx, xk, xv, cfg, mode)
     h2 = L.norm(p["ln2"], x, cfg)
     if kind == "moe":
         ff, _ = moe_ffn(p["moe"], h2, cfg)

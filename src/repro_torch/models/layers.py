@@ -18,7 +18,6 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_prefill.ops import flash_prefill
 from repro_torch.kernels.gqa_decode.ops import gqa_decode
-from repro_torch.models.params import not_ported
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -46,7 +45,7 @@ def head_rms(scale: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Rotary embeddings
+# Rotary embeddings (standard + M-RoPE)
 # ---------------------------------------------------------------------------
 
 def _rope_angles(positions: torch.Tensor, dim: int, theta: float
@@ -66,11 +65,24 @@ def _rope_angles(positions: torch.Tensor, dim: int, theta: float
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                mrope_sections: Optional[Tuple[int, int, int]] = None
                ) -> torch.Tensor:
-    """x (B, S, H, D); positions (B, S).  Half-split rotation."""
-    if mrope_sections is not None:
-        raise not_ported("M-RoPE (the vlm family)")
-    half = x.shape[-1] // 2
-    cos, sin = _rope_angles(positions, x.shape[-1], theta)   # (B, S, half)
+    """x (B, S, H, D); positions (B, S), or (3, B, S) for M-RoPE, whose
+    temporal, height and width sections rotate the first, next and last
+    ``mrope_sections`` frequency pairs.  Half-split rotation."""
+    d = x.shape[-1]
+    half = d // 2
+    if mrope_sections is not None and positions.dim() == 3:
+        if sum(mrope_sections) != half:
+            raise ValueError(f"M-RoPE sections {mrope_sections} do not sum "
+                             f"to half the head dim {half}")
+        cos_p, sin_p = _rope_angles(positions, d, theta)   # (3, B, S, half)
+        parts_c, parts_s, off = [], [], 0
+        for i, n in enumerate(mrope_sections):
+            parts_c.append(cos_p[i, ..., off:off + n])
+            parts_s.append(sin_p[i, ..., off:off + n])
+            off += n
+        cos, sin = torch.cat(parts_c, -1), torch.cat(parts_s, -1)
+    else:
+        cos, sin = _rope_angles(positions, d, theta)        # (B, S, half)
     cos = cos[:, :, None, :]
     sin = sin[:, :, None, :]
     x1, x2 = x[..., :half].float(), x[..., half:].float()
@@ -83,23 +95,31 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 # ---------------------------------------------------------------------------
 
 def attention_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      window: Optional[int]) -> torch.Tensor:
-    """Causal (optionally windowed) GQA attention over a whole prompt at
-    the default positions arange(S), through the port's ``flash_prefill``
-    op: the counterpart of the JAX package's ``attention_dense`` on the
-    prefill path, where ``serve`` only ever passes those positions.  The
-    kernel masks by sequence index, so ``model.prefill`` refuses any other
-    positions before it reaches this function.
+                      window: Optional[int],
+                      q_pos: Optional[torch.Tensor] = None,
+                      k_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """GQA attention over a whole prompt through the port's
+    ``flash_prefill`` op: the counterpart of the JAX package's
+    ``attention_dense`` on the prefill path.
 
-    q (B,S,H,D); k (B,S,KV,D); v (B,S,KV,Dv) with Dv <= D (MLA's values
+    Without positions the mask is causal by sequence index (optionally
+    windowed), which is ``attention_dense`` at the default positions
+    arange(S), and needs Sq == Sk.  With ``q_pos`` (B,Sq) and ``k_pos``
+    (B,Sk) a pair is live when k_pos <= q_pos (and k_pos > q_pos - window
+    with a window): ``attention_dense`` at those positions.  All-zero
+    positions make every pair live, which is its ``causal=False`` without
+    a window (whisper's encoder and cross-attention).
+
+    q (B,Sq,H,D); k (B,Sk,KV,D); v (B,Sk,KV,Dv) with Dv <= D (MLA's values
     are narrower than its queries and keys).  The kernel takes one head
     dim, so V is padded with zeros to D and the output sliced back to Dv;
     the scale stays 1/sqrt(D), as ``attention_dense`` takes it from q."""
     dv = v.shape[-1]
     if dv < q.shape[-1]:
         v = F.pad(v, (0, q.shape[-1] - dv))
-        return flash_prefill(q, k, v, window=window or 0)[..., :dv]
-    return flash_prefill(q, k, v, window=window or 0)
+    out = flash_prefill(q, k, v, window=window or 0, q_pos=q_pos,
+                        k_pos=k_pos)
+    return out[..., :dv] if dv < q.shape[-1] else out
 
 
 def attention_decode(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,

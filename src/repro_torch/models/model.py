@@ -9,8 +9,17 @@ a time: ``prefill`` and ``decode_step`` return the same cache dict they
 were given, where the JAX functions return new stacked caches (at
 qwen3-32b's serving shape that saves a 1 GiB copy per step); the
 recurrent blocks copy their new states into theirs.  The hybrid family's
-embedding is scaled by sqrt(d_model), as in JAX.  Training
-(``forward_train``, the loss) is not ported yet.
+embedding is scaled by sqrt(d_model), as in JAX.
+
+The front ends are the JAX package's stubs: a vlm batch may carry patch
+embeddings (``embeds``, (B, S, d_model)) in place of tokens, and its
+default positions are M-RoPE's (3, B, S) arange; an audio batch carries
+frame embeddings (``embeds``, (B, enc_seq, d_model)) for the encoder and
+decoder ``tokens``.  Positions given in the batch ((B, S), or (3, B, S)
+for M-RoPE) go to rotary and, through ``flash_prefill``'s positions
+operand, to the attention mask (M-RoPE's temporal row), as in JAX; without
+them the mask is by sequence index.  Nothing reads them on the host.
+Training (``forward_train``, the loss) is not ported yet.
 """
 from __future__ import annotations
 
@@ -21,7 +30,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import apply_block, init_block_cache
-from repro_torch.models.params import (init_params, not_ported,  # noqa: F401
+from repro_torch.models.params import (init_params,  # noqa: F401
                                        param_count, tree_map)
 
 __all__ = ["init_params", "param_count", "init_cache", "prefill",
@@ -47,13 +56,27 @@ def _unembed_w(params, cfg: ModelConfig):
 
 
 def _default_positions(cfg: ModelConfig, b: int, s: int, device):
+    pos = torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
     if cfg.mrope:
-        raise not_ported("M-RoPE (the vlm family)")
-    return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+        return pos[None].expand(3, b, s)
+    return pos
+
+
+def _given_positions(given, cfg: ModelConfig, b: int, s: int, device):
+    """A batch's positions as int32 on ``device`` (a cast on the device, no
+    host read): (B, S), or (3, B, S) for M-RoPE.  Returns them and their
+    (B, S) mask row (M-RoPE's temporal section, as JAX's ``_pos2d``)."""
+    want = [(b, s)] + ([(3, b, s)] if cfg.mrope else [])
+    if tuple(given.shape) not in want:
+        raise ValueError(f"prefill: positions of shape {tuple(given.shape)}"
+                         f" for a prompt of {b} x {s}; expected "
+                         + " or ".join(str(w) for w in want))
+    given = given.to(device=device, dtype=torch.int32)
+    return given, given[0] if given.dim() == 3 else given
 
 
 def _run_stacks(params, x, cfg: ModelConfig, mode: str, positions, caches,
-                pos=None):
+                pos=None, enc_out=None, mask_pos=None):
     """Apply all decoder stacks, layer by layer, updating ``caches`` in
     place.  Returns x."""
     for si, (period, count) in enumerate(cfg.stacks()):
@@ -66,8 +89,31 @@ def _run_stacks(params, x, cfg: ModelConfig, mode: str, positions, caches,
                 key = f"b{bi}_{kind}"
                 x, _ = apply_block(kind, pi[key], x, cfg=cfg, mode=mode,
                                    positions=positions, cache=ci[key],
-                                   pos=pos)
+                                   pos=pos, enc_out=enc_out,
+                                   mask_pos=mask_pos)
     return x
+
+
+def _run_encoder(params, embeds, cfg: ModelConfig):
+    """Whisper encoder over precomputed frame embeddings (the front end is
+    a stub): learned positions, bidirectional blocks, final norm."""
+    b, s, _ = embeds.shape
+    x = embeds.to(getattr(torch, cfg.compute_dtype))
+    x = x + params["pos_enc"]["w"][:s].to(x.dtype)[None]
+    positions = _default_positions(cfg, b, s, x.device)
+    sp = params["enc_stack_0"]
+    for i in range(cfg.enc_layers):
+        pi = tree_map(lambda a: a[i], sp)
+        x, _ = apply_block("enc", pi["b0_enc"], x, cfg=cfg, mode="prefill",
+                           positions=positions)
+    return L.norm(params["enc_final_norm"], x, cfg)
+
+
+def _pos_dec(params, idx):
+    """Whisper's learned decoder positions at ``idx``, clamped to the
+    table as in JAX (a gather on the device)."""
+    w = params["pos_dec"]["w"]
+    return w[torch.clamp(idx, max=w.shape[0] - 1).long()]
 
 
 # ---------------------------------------------------------------------------
@@ -91,24 +137,33 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
 
 def prefill(params, batch, caches, cfg: ModelConfig):
     """Run the prompt through the model, filling caches in place.
-    Returns (caches, logits of the last position (B, V) f32).  Positions
-    other than the default arange(S) raise (checking given positions costs
-    one host synchronization)."""
-    if cfg.family in ("audio", "vlm") or "embeds" in batch:
-        raise not_ported(f"the {cfg.family} family's frontend")
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    x = _embed(params, tokens, cfg)
-    positions = _default_positions(cfg, b, s, x.device)
+    Returns (caches, logits of the last position (B, V) f32).  An audio
+    batch holds ``embeds`` (the encoder's frames) and ``tokens``; a vlm
+    batch ``embeds`` or ``tokens``; any batch may hold ``positions``, which
+    then mask attention by position (else by index)."""
+    enc_out = None
+    if cfg.family == "audio":
+        enc_out = _run_encoder(params, batch["embeds"], cfg)
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = _embed(params, tokens, cfg)
+        idx = torch.arange(s, device=x.device)
+        x = x + _pos_dec(params, idx).to(x.dtype)[None]
+    elif "embeds" in batch:
+        x = batch["embeds"].to(getattr(torch, cfg.compute_dtype))
+        b, s = x.shape[0], x.shape[1]
+    else:
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = _embed(params, tokens, cfg)
     given = batch.get("positions")
-    if given is not None and not torch.equal(given.to(positions),
-                                             positions):
-        # the flash_prefill kernel masks by sequence index
-        raise NotImplementedError(
-            "prefill takes only the default positions arange(S); other "
-            "positions need the dense masked attention (ROADMAP queue A, "
-            "item 12: model stack)")
-    x = _run_stacks(params, x, cfg, "prefill", positions, caches)
+    if given is None:
+        positions = _default_positions(cfg, b, s, x.device)
+        mask_pos = None
+    else:
+        positions, mask_pos = _given_positions(given, cfg, b, s, x.device)
+    x = _run_stacks(params, x, cfg, "prefill", positions, caches,
+                    enc_out=enc_out, mask_pos=mask_pos)
     caches["pos"] = torch.full((b,), s, dtype=torch.int32, device=x.device)
     x = L.norm(params["final_norm"], x, cfg)
     logits = (x[:, -1] @ _unembed_w(params, cfg).to(x.dtype)).float()
@@ -120,6 +175,8 @@ def decode_step(params, caches, tokens, cfg: ModelConfig):
     the caches updated in place."""
     pos = caches["pos"]
     x = _embed(params, tokens, cfg)
+    if cfg.family == "audio":
+        x = x + _pos_dec(params, pos).to(x.dtype)[:, None]
     x = _run_stacks(params, x, cfg, "decode", None, caches, pos=pos)
     caches["pos"] = pos + 1
     x = L.norm(params["final_norm"], x, cfg)

@@ -895,3 +895,91 @@ def test_model_family_on_the_card_matches_the_cpu(cuda, arch):
     assert bool(torch.isfinite(card).all())
     assert torch.equal(cpu.argmax(-1), card.argmax(-1))
     assert float((cpu - card).abs().max()) <= FAMILY_LOGITS_ATOL
+
+
+# ---------------------------------------------------------------------------
+# the vlm and audio front ends: flash_prefill by positions, the two
+# families on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", sorted(PREFILL_ATOL))
+def test_frontend_positions_at_arange_equal_the_index_path(cuda, dtype):
+    """Positions arange(S) mask as the index path does: the same output
+    within the tolerance, causal and windowed."""
+    rng = np.random.default_rng(11)
+    b, s, h, kv, d = 2, 190, 8, 2, 64
+    q = _randn(rng, (b, s, h, d), dtype, cuda)
+    k = _randn(rng, (b, s, kv, d), dtype, cuda)
+    v = _randn(rng, (b, s, kv, d), dtype, cuda)
+    pos = torch.arange(s, dtype=torch.int32, device=cuda)[None].expand(b, s)
+    for window in (0, 40):
+        got = flash_prefill_cuda(q, k, v, window, q_pos=pos, k_pos=pos)
+        idx = flash_prefill_cuda(q, k, v, window)
+        torch.cuda.synchronize()
+        assert float((got.float() - idx.float()).abs().max()) <= \
+            PREFILL_ATOL[dtype]
+
+
+def test_frontend_positions_refused_on_bad_shapes(cuda):
+    q = torch.zeros((1, 8, 2, 8), device=cuda)
+    k = torch.zeros((1, 5, 1, 8), device=cuda)
+    pos = torch.zeros((1, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="do not fit"):
+        flash_prefill_cuda(q, k, k)              # Sq != Sk by index
+    with pytest.raises(ValueError, match="k_pos has shape"):
+        flash_prefill_cuda(q, k, k, q_pos=pos, k_pos=pos)
+    with pytest.raises(ValueError, match="both"):
+        flash_prefill_cuda(q, k, k, q_pos=pos)
+
+
+@pytest.mark.parametrize("arch,given", [("qwen2-vl-2b-smoke", False),
+                                        ("qwen2-vl-2b-smoke", True),
+                                        ("whisper-base-smoke", False)])
+def test_frontend_model_on_the_card_matches_the_cpu(cuda, arch, given):
+    """Each front end at smoke size, f32: prefill (the vlm's token prompt
+    at the default positions or its embedding rows at given M-RoPE
+    positions; whisper's frames and a decoder prompt) and 3 greedy decode
+    steps on the card against the same weights on the CPU: the same
+    tokens, logits within FAMILY_LOGITS_ATOL, and flash_prefill and
+    gqa_decode launched as ``attention_layers`` and
+    ``decode_attention_layers`` say."""
+    from repro_torch.models import model as M
+    from repro_torch.models.blocks import (attention_layers,
+                                           decode_attention_layers)
+    from repro_torch.models.params import tree_map
+    cfg = get_config(arch)
+    params = M.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    b, s = 2, 20
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (b, s)).astype(np.int32))}
+    if cfg.family == "audio":
+        batch["embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    elif given:
+        row = np.concatenate([np.arange(6), np.full(9, 6), 9 + np.arange(5)])
+        batch = {"embeds": torch.from_numpy((0.02 * rng.standard_normal(
+                     (b, s, cfg.d_model))).astype(np.float32)),
+                 "positions": torch.from_numpy(np.ascontiguousarray(
+                     np.broadcast_to(row, (3, b, s)), np.int32))}
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        p = tree_map(lambda a: a.to(dev), params)
+        cache = M.init_cache(cfg, b, s + 4, device=dev)
+        flash_prefill_cuda.launches = gqa_decode_cuda.launches = 0
+        cache, logits = M.prefill(p, {k: a.to(dev) for k, a in batch.items()},
+                                  cache, cfg)
+        steps = [logits]
+        for _ in range(3):
+            nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            cache, logits = M.decode_step(p, cache, nxt, cfg)
+            steps.append(logits)
+        out[dev.type] = torch.stack(steps).cpu()
+        if dev.type == "cuda":
+            assert flash_prefill_cuda.launches == attention_layers(cfg)
+            assert gqa_decode_cuda.launches == \
+                3 * decode_attention_layers(cfg)
+    cpu, card = out["cpu"], out[cuda.type]
+    assert bool(torch.isfinite(card).all())
+    assert torch.equal(cpu.argmax(-1), card.argmax(-1))
+    assert float((cpu - card).abs().max()) <= FAMILY_LOGITS_ATOL
