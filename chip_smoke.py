@@ -269,6 +269,26 @@ Phases, each of which exits non-zero on failure:
    same frames), and the card tests whose names hold "frontend"
    (``launches_frontends`` and ``frontend_shapes`` in the JSON record).
 
+10. Training (``run_training_phase``): ``launch/train.py``'s train step
+   at h2o-danube-3-4b's full width and depth (24 layers, d_model 3840,
+   bf16 params, f32 AdamW, remat "full", random weights from the seed)
+   on one fixed ``SyntheticTokens`` batch of 4 x 2048 tokens, AdamW at lr
+   3e-4 (warmup 1, cosine over 10): 2 warm steps and 8 timed, each
+   synchronized; the loss finite and ending below its first value, the
+   grad norm > 0, the params changed, ``flash_prefill`` and
+   ``gqa_decode`` launched 0 times (training attention is
+   ``attention_dense``, plain PyTorch under autograd); ms a step,
+   tokens/s, peak memory against the state's bytes, ``train_mfu`` (6 x
+   params x tokens over the step at the bf16 dense peak) and the busy
+   share of one profiled step.  Then ``launch/train.py``'s main at the
+   same width for 2 steps (a finite loss printed).  Then
+   ``launch/train.py`` on the card at
+   h2o-danube-3-4b-smoke, 20 steps saved every 5, crashed at 10 and
+   resumed: the final checkpoint within 1e-5 of each leaf's largest
+   magnitude of an uninterrupted run's; then the card tests whose names
+   hold "train" (``launches_training`` in the JSON record, the step's
+   numbers on the ``training`` line before it).
+
 The last two lines are the per-kernel JSON record (``hash_probe``'s entry
 carries its probe-window route under ``probe_window``) and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -323,13 +343,17 @@ from repro_torch.kernels.hash_probe.ref import (  # noqa: E402
     probe_ref, table_lookup_ref, window_rows)
 from repro_torch.kernels.recovery_scan.kernel import scan_cuda  # noqa: E402
 from repro_torch.kernels.recovery_scan.ref import scan_ref  # noqa: E402
+from repro_torch.data.pipeline import SyntheticTokens  # noqa: E402
 from repro_torch.launch import bench_serve, serve  # noqa: E402
+from repro_torch.launch import train as train_driver  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.blocks import (attention_layers,  # noqa: E402
                                        decode_attention_layers)
 from repro_torch.models.moe import capacity as moe_capacity  # noqa: E402
-from repro_torch.models.params import tree_leaves  # noqa: E402
+from repro_torch.models.params import param_count, tree_leaves  # noqa: E402
 from repro_torch.obs import MetricsRegistry  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.store.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.store.snapshot import (Snapshotter,  # noqa: E402
                                         load_resharded)
 from repro_torch.train import steps as TS  # noqa: E402
@@ -3555,6 +3579,200 @@ def run_frontends_phase(dev, smi):
     return launches, rows, edges
 
 
+# ---------------------------------------------------------------------------
+# 10. training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "h2o-danube-3-4b"
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048       # 8192 tokens a step
+TRAIN_WARM, TRAIN_TIMED = 2, 8
+TRAIN_LR = 3e-4                        # AdamW, warmup 1, cosine over 10
+TRAIN_DRILL_ARCH = "h2o-danube-3-4b-smoke"
+TRAIN_DRILL_RTOL = 1e-5                # of each leaf's largest magnitude
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for _, t in tree_leaves(tree))
+
+
+def run_train_steps(dev, smi, arch=TRAIN_ARCH, b=TRAIN_BATCH, s=TRAIN_SEQ,
+                    warm=TRAIN_WARM, timed=TRAIN_TIMED):
+    """``launch/train.py``'s train step at full width and depth: bf16
+    params, f32 AdamW, the config's remat, one fixed ``SyntheticTokens``
+    batch of b x s.  ``warm`` + ``timed`` steps, each synchronized; then
+    one more under the profiler.  The loss is finite and ends below its
+    first value, the grad norm is > 0, the params change, and neither
+    attention kernel is launched.  Returns the numbers printed."""
+    cfg = get_config(arch)
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup=1,
+                                total_steps=warm + timed,
+                                state_dtype=cfg.opt_dtype)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = TS.init_train_state(cfg, SEED, opt_cfg, device=dev)
+    n_params = param_count(cfg)
+    step_fn = TS.make_train_step(cfg, opt_cfg)
+    data = SyntheticTokens(cfg.vocab, s, b, seed=SEED)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in next(iter(data)).items()}
+    probe = state.params["stack_0"]["b0_attn"]["mlp"]["wi"][0, :4, :64]
+    before = probe.clone()
+    sync(dev)
+    _zero_launches()
+    metrics, times = [], []
+    for _ in range(warm + timed):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+        metrics.append(m)
+    launches = _attention_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    changed = float((probe.float() - before.float()).abs().max())
+    print(f"train {arch}: losses {[round(x, 4) for x in losses]}; "
+          f"grad norms {[round(x, 4) for x in gnorms]}")
+    expect(launches == {"flash_prefill": 0, "gqa_decode": 0},
+           f"train {arch}: attention kernels launched {launches}, "
+           "expected none (training attention is attention_dense)")
+    expect(all(np.isfinite(losses)) and losses[-1] < losses[0],
+           f"train {arch}: the loss did not fall: {losses}")
+    expect(all(g > 0 and np.isfinite(g) for g in gnorms),
+           f"train {arch}: grad norms {gnorms}")
+    expect(changed > 0, f"train {arch}: the params did not change")
+
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, batch)
+        sync(dev)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows, busy = device_rows(prof)
+    del prof
+
+    step_s = float(np.mean(times[warm:]))
+    tokens = b * s
+    flops = 6 * n_params * tokens
+    peak_flops = PEAK_FLOPS[torch.bfloat16]
+    res = dict(
+        ms_per_step=step_s * 1e3, ms_steps=[t * 1e3 for t in times[warm:]],
+        tokens_per_s=tokens / step_s, peak_gib=peak / 2**30,
+        state_gib=sum(_tree_bytes(t) for t in (
+            state.params, state.opt.m, state.opt.v)) / 2**30,
+        grads_gib=_tree_bytes(state.params) / 2**30,
+        busy_share=100 * busy / wall_us, profiled_ms=wall_us / 1e3,
+        device_ops=sum(r[1] for r in rows),
+        train_mfu=flops / step_s / peak_flops,
+        bound_ms=flops / peak_flops * 1e3, loss_first=losses[0],
+        loss_last=losses[-1], params=n_params)
+    print(f"train {arch} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params} params, {cfg.param_dtype} params, "
+          f"{cfg.opt_dtype} AdamW, remat {cfg.remat}), {b} x {s} tokens "
+          f"a step, lr {TRAIN_LR}, {smi}: {res['ms_per_step']:.3f} ms a "
+          f"step over {timed} (each {[round(t, 3) for t in res['ms_steps']]}"
+          f"), {res['tokens_per_s']:.1f} tokens/s; peak memory "
+          f"{res['peak_gib']:.2f} GiB against "
+          f"{res['state_gib']:.2f} GiB of params, m and v plus "
+          f"{res['grads_gib']:.2f} GiB of gradients; "
+          f"train_mfu {res['train_mfu']:.4f} (6 x params x tokens = "
+          f"{flops:.4e} FLOPs, {res['bound_ms']:.3f} ms at the bf16 peak)")
+    print(f"train profile (one step, profiler on): wall "
+          f"{res['profiled_ms']:.3f} ms, device busy {busy / 1e3:.3f} ms "
+          f"({res['busy_share']:.2f}%), {res['device_ops']} device "
+          f"operations")
+    for us, n, key in rows[:10]:
+        print(f"  {us:12.1f} us {n:6d}x  {key[:90]}")
+    del state, batch, metrics, probe, before
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def train_driver_full_width(dev, arch=TRAIN_ARCH, steps=2):
+    """``launch/train.py``'s own main at full width and depth for a few
+    steps (its data pipeline, a fresh batch a step, no checkpoint): return
+    code 0 and a finite loss on its printed line.  Returns its seconds."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = train_driver.main(["--arch", arch, "--batch", str(TRAIN_BATCH),
+                                "--seq", str(TRAIN_SEQ), "--steps",
+                                str(steps), "--lr", str(TRAIN_LR),
+                                "--device", str(dev)])
+    seconds = time.perf_counter() - t0
+    lines = [ln for ln in out.getvalue().splitlines()
+             if ln.startswith("step ")]
+    loss = float(lines[0].split("loss=")[1].split()[0]) if lines else None
+    expect(rc == 0 and loss is not None and np.isfinite(loss),
+           f"train driver at {arch}: rc {rc}:\n{out.getvalue()}")
+    print(f"train driver ({arch}, launch/train.py --batch {TRAIN_BATCH} "
+          f"--seq {TRAIN_SEQ} --steps {steps}): {lines[0]}; "
+          f"{seconds:.1f} s with the init")
+    torch.cuda.empty_cache()
+    return seconds
+
+
+def _checkpoint_arrays(path):
+    mgr = CheckpointManager(path)
+    try:
+        return mgr.latest_step(), mgr.restore()
+    finally:
+        mgr.close()
+
+
+def train_drill(dev, arch=TRAIN_DRILL_ARCH):
+    """``launch/train.py`` on the card: 20 steps saved every 5, once
+    uninterrupted and once with ``--crash-at 10`` then resumed; the two
+    final checkpoints within TRAIN_DRILL_RTOL of each leaf's largest
+    magnitude (the embedding's gradient sums by index on the card, in no
+    fixed order), ``step`` equal."""
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["--arch", arch, "--steps", "20", "--batch", "4", "--seq",
+                  "64", "--save-every", "5", "--device", str(dev)]
+        a, b = os.path.join(tmp, "clean"), os.path.join(tmp, "crashed")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = (train_driver.main(common + ["--ckpt", a]),
+                  train_driver.main(common + ["--ckpt", b, "--crash-at",
+                                              "10"]),
+                  train_driver.main(common + ["--ckpt", b]))
+        text = out.getvalue()
+        expect(rc == (0, 1, 0) and "[restore] resumed from step 10" in text,
+               f"train drill: return codes {rc}:\n{text}")
+        (sa, want), (sb, got) = _checkpoint_arrays(a), _checkpoint_arrays(b)
+        expect(sa == sb == 20 and sorted(got) == sorted(want),
+               f"train drill: final steps {sa}, {sb}")
+        worst = 0.0
+        for k, w in want.items():
+            w = np.asarray(w, np.float64)
+            d = float(np.abs(np.asarray(got[k], np.float64) - w).max())
+            rel = d / max(float(np.abs(w).max()), 1e-30)
+            worst = max(worst, rel)
+            expect(rel <= TRAIN_DRILL_RTOL if k != ".opt/.step" else d == 0,
+                   f"train drill: {k} differs by {d} ({rel:.3e} of its "
+                   "largest)")
+    last = [ln for ln in text.splitlines() if ln.startswith("step ")][-1]
+    print(f"train drill ({arch}, launch/train.py --crash-at 10, resumed): "
+          f"final state within {worst:.3e} of the uninterrupted run's "
+          f"(each leaf against its largest); {last}")
+    return worst
+
+
+def run_training_phase(dev, smi):
+    """Phase 10.  Returns the full-width step's numbers and its launches."""
+    t0 = time.perf_counter()
+    held = torch.cuda.memory_allocated(dev)
+    print(f"phase 10: {held / 2**30:.2f} GiB still allocated from earlier "
+          f"phases")
+    res, launches = run_train_steps(dev, smi)
+    res["driver_s"] = train_driver_full_width(dev)
+    res["drill_rel_err"] = train_drill(dev)
+    torch.cuda.empty_cache()
+    run_card_tests("training card tests", "train")
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    return res, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3690,6 +3908,10 @@ def main() -> int:
 
     # 9. the vlm and audio front ends at their published widths
     frontends, frontend_shapes, position_edges = run_frontends_phase(dev, smi)
+    torch.cuda.empty_cache()
+
+    # 10. training at h2o-danube-3-4b's full width and depth
+    training, train_launches = run_training_phase(dev, smi)
 
     record = {"kernels": [
         {"name": "recovery_scan", "route": "cuda",
@@ -3757,7 +3979,8 @@ def main() -> int:
                             "gqa_decode"]},
              AUDIO_ARCH: frontends[AUDIO_ARCH]["decode"]["gqa_decode"]},
          "frontend_shapes": {k: r for k, r in frontend_shapes.items()
-                             if k.endswith("_decode")}},
+                             if k.endswith("_decode")},
+         "launches_training": train_launches["gqa_decode"]},
         {"name": "flash_prefill", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
          "replaces": "src/repro/kernels/flash_prefill/kernel.py:81",
@@ -3776,8 +3999,11 @@ def main() -> int:
              AUDIO_ARCH: frontends[AUDIO_ARCH]["prefill"]["flash_prefill"]},
          "frontend_shapes": {k: r for k, r in frontend_shapes.items()
                              if not k.endswith("_decode")},
-         "position_edge_shapes": position_edges},
+         "position_edge_shapes": position_edges,
+         "launches_training": train_launches["flash_prefill"]},
     ]}
+    print("training " + json.dumps({"arch": TRAIN_ARCH, "card": smi,
+                                    **training}))
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

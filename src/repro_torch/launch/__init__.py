@@ -1,1 +1,2 @@
-"""Entry points: serving (``serve``)."""
+"""Entry points: serving (``serve``, ``bench_serve``) and training
+(``train``)."""

@@ -1,9 +1,9 @@
-"""Per-kind block application for prefill / decode (a port of
+"""Per-kind block application for train / prefill / decode (a port of
 ``repro.models.blocks``): the ``attn`` and ``moe`` kinds, MLA, the
 recurrent ``mlstm``, ``slstm`` and ``rglru`` kinds, and whisper's
 bidirectional encoder (``enc``) and cross-attending decoder (``dec``).
 
-Pre-norm residual throughout.  GQA attention runs through the port's
+Pre-norm residual throughout.  Serving attention runs through the port's
 ``flash_prefill`` and ``gqa_decode`` kernels; the hybrid family's ``attn``
 blocks are local attention over its window.  Prefill masks by sequence
 index at the default positions and by the given positions otherwise
@@ -15,8 +15,14 @@ MLA (minicpm3) prefill materializes per-head keys from the latent and goes
 through ``flash_prefill`` with its narrower values padded; its decode runs
 *absorbed* attention in the latent space as f32 einsums, as the JAX
 package does outside any kernel, so the cache is only (r + rope_dim) per
-token.  The train mode raises ``NotImplementedError`` naming its ROADMAP
-item.
+token.
+
+The train mode is the JAX package's: every attention through
+``attention_dense`` (plain PyTorch, differentiated by autograd; neither
+kernel has a backward), masked by the (B, S) positions, the encoder and
+the cross-attention at zero positions and not causal; the recurrent kinds
+run their sequence forms and drop the final states.  Nothing in train
+mode touches a cache or writes in place into a tensor autograd saved.
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ from repro_torch.models import seqmix as SM
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import NOT_PORTED, not_ported
 
-NEG_INF = -1e30
+NEG_INF = L.NEG_INF
 RECURRENT = {"mlstm": (SM.mlstm_seq, SM.mlstm_decode, SM.mlstm_cache),
              "slstm": (SM.slstm_seq, SM.slstm_decode, SM.slstm_cache),
              "rglru": (SM.rglru_seq, SM.rglru_decode, SM.rglru_cache)}
@@ -62,6 +68,18 @@ def _attn_decode(p, x, cfg, pos, cache):
     return out.reshape(b, 1, -1) @ p["wo"].to(x.dtype)
 
 
+def _pos2d(positions):
+    """(B,S) view of positions (M-RoPE's temporal section masks)."""
+    return positions[0] if positions.dim() == 3 else positions
+
+
+def _attn_train(p, x, cfg, positions, window):
+    q, k, v = L.qkv_project(p, x, cfg, positions)
+    pos2 = _pos2d(positions)
+    out = L.attention_dense(q, k, v, pos2, pos2, window)
+    return out.reshape(x.shape[0], x.shape[1], -1) @ p["wo"].to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # MLA attention (minicpm3)
 # ---------------------------------------------------------------------------
@@ -90,7 +108,10 @@ def _mla_cache_write(cache, lat, k_rope, pos0):
                   lat[..., None, :], k_rope[..., None, :], pos0)
 
 
-def _mla_prefill(p, x, cfg, positions, window, cache, mask_pos=None):
+def _mla_qkv(p, x, cfg, positions):
+    """Per-head q, k (nope and the shared rotary part, broadcast over the
+    heads) and v (at its own width hd) from the latent, with the latent
+    and the rotary key."""
     b, s = x.shape[0], x.shape[1]
     dt = x.dtype
     rd, h, hd = cfg.rope_dim, cfg.n_heads, cfg.head_dim
@@ -101,11 +122,25 @@ def _mla_prefill(p, x, cfg, positions, window, cache, mask_pos=None):
     v = (lat @ p["wv_b"].to(dt)).reshape(b, s, h, hd)
     q = torch.cat([q_nope, q_rope], -1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, rd)], -1)
+    return q, k, v, lat, k_rope
+
+
+def _mla_train(p, x, cfg, positions, window):
+    b, s = x.shape[0], x.shape[1]
+    q, k, v, _, _ = _mla_qkv(p, x, cfg, positions)
+    pos2 = _pos2d(positions)
+    out = L.attention_dense(q, k, v, pos2, pos2, window)  # (B,S,H,hd)
+    return out.reshape(b, s, -1) @ p["wo"].to(x.dtype)
+
+
+def _mla_prefill(p, x, cfg, positions, window, cache, mask_pos=None):
+    b, s = x.shape[0], x.shape[1]
+    q, k, v, lat, k_rope = _mla_qkv(p, x, cfg, positions)
     out = L.attention_prefill(q, k, v, window, mask_pos,
                               mask_pos)                   # (B,S,H,hd)
     pos0 = torch.zeros((b,), dtype=torch.int32, device=x.device)
     _mla_cache_write(cache, lat, k_rope, pos0)
-    return out.reshape(b, s, h * hd) @ p["wo"].to(dt)
+    return out.reshape(b, s, -1) @ p["wo"].to(x.dtype)
 
 
 def _mla_decode(p, x, cfg, pos, cache):
@@ -147,28 +182,37 @@ def _zero_positions(b: int, s: int, device) -> torch.Tensor:
     return torch.zeros((b, s), dtype=torch.int32, device=device)
 
 
-def _enc_attn(p, x, cfg, positions):
+def _enc_attn(p, x, cfg, positions, mode):
     """Bidirectional self-attention (``attention_dense`` with causal=False
-    and no window) through ``flash_prefill`` at zero positions; rotary at
-    ``positions``, as the JAX encoder."""
+    and no window): in train mode ``attention_dense`` itself, else
+    ``flash_prefill`` at zero positions; rotary at ``positions``, as the
+    JAX encoder."""
     b, s = x.shape[0], x.shape[1]
     q, k, v = L.qkv_project(p, x, cfg, positions)
-    zero = _zero_positions(b, s, x.device)
-    out = L.attention_prefill(q, k, v, None, zero, zero)
+    if mode == "train":
+        pos2 = _pos2d(positions)
+        out = L.attention_dense(q, k, v, pos2, pos2, None, causal=False)
+    else:
+        zero = _zero_positions(b, s, x.device)
+        out = L.attention_prefill(q, k, v, None, zero, zero)
     return out.reshape(b, s, -1) @ p["wo"].to(x.dtype)
 
 
 def _cross_attn(p, x, xk, xv, cfg, mode):
     """x (B,S,d) against the encoder's keys and values xk, xv (B,Senc,KV,hd):
-    every pair live.  Prefill runs ``flash_prefill`` at zero positions with
-    Sk = Senc; a decode step runs ``gqa_decode`` over all Senc slots (the
-    JAX ``attention_dense`` at qp = kp = 0), the length filled on the
-    device."""
+    every pair live (the JAX ``attention_dense`` at qp = kp = 0, not
+    causal).  Train mode runs that itself; prefill runs ``flash_prefill``
+    at zero positions with Sk = Senc; a decode step runs ``gqa_decode``
+    over all Senc slots, the length filled on the device."""
     b, s = x.shape[0], x.shape[1]
     dt = x.dtype
     q = (x @ p["wq"].to(dt)).reshape(b, s, cfg.n_heads, cfg.head_dim)
     se = xk.shape[1]
-    if mode == "prefill":
+    if mode == "train":
+        out = L.attention_dense(q, xk, xv, _zero_positions(b, s, x.device),
+                                _zero_positions(b, se, x.device), None,
+                                causal=False)
+    elif mode == "prefill":
         out = L.attention_prefill(q, xk, xv, None,
                                   _zero_positions(b, s, x.device),
                                   _zero_positions(b, se, x.device))
@@ -248,19 +292,21 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_seq: int,
 def apply_block(kind: str, p: Dict[str, Any], x: torch.Tensor, *,
                 cfg: ModelConfig, mode: str, positions=None, cache=None,
                 pos=None, enc_out=None, mask_pos=None
-                ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """Returns (x, cache).  ``cache`` is the same dict, its tensors updated
-    in place (None for the encoder, which keeps none).  ``mask_pos`` (B,S)
-    masks prefill attention by position; None masks by index.  ``enc_out``
-    is the encoder's output, which a ``dec`` block's prefill projects into
-    its cross cache.  The JAX version also returns an auxiliary loss, which
-    only MoE blocks make and only training reads; ``moe_ffn`` computes it
-    and it is dropped here."""
+                ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]],
+                           Optional[torch.Tensor]]:
+    """Returns (x, cache, aux), as the JAX version does.  In prefill and
+    decode ``cache`` is the same dict, its tensors updated in place (None
+    for the encoder, which keeps none); in train mode it is None and no
+    cache is read.  ``aux`` is the MoE blocks' auxiliary loss (f32 scalar)
+    and None for the blocks that make none (JAX's zeros).  ``mask_pos``
+    (B,S) masks prefill attention by position; None masks by index.  In
+    train mode ``positions`` masks attention (its (B,S) row).  ``enc_out``
+    is the encoder's output, which a ``dec`` block projects into its cross
+    keys and values (into its cross cache in prefill)."""
     _check_kind(kind)
-    if mode == "train":
-        raise not_ported("training (forward_train, loss and optimizer)")
-    if mode not in ("prefill", "decode"):
+    if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
+    train = mode == "train"
     window = cfg.window if cfg.attn_kind == "swa" else None
     if kind == "attn" and cfg.family == "hybrid":
         window = cfg.window                               # local attention
@@ -268,26 +314,31 @@ def apply_block(kind: str, p: Dict[str, Any], x: torch.Tensor, *,
 
     if kind in RECURRENT:
         seq, decode, _ = RECURRENT[kind]
-        if mode == "prefill":
-            mix, state = seq(p["mix"], h, cfg)
-        else:
+        if mode == "decode":
             mix, state = decode(p["mix"], h, cache, cfg)
-        for key, val in state.items():
-            cache[key].copy_(val)
+        else:
+            mix, state = seq(p["mix"], h, cfg)
+        if not train:
+            for key, val in state.items():
+                cache[key].copy_(val)
         x = x + mix
         if kind == "mlstm":
-            return x, cache
+            return x, cache, None
         h2 = L.norm(p["ln2"], x, cfg)
-        return x + L.mlp(p["mlp"], h2), cache
+        return x + L.mlp(p["mlp"], h2), cache, None
 
     if kind == "enc":
-        mix = _enc_attn(p["attn"], h, cfg, positions)
+        mix = _enc_attn(p["attn"], h, cfg, positions, mode)
     elif cfg.mla and kind != "dec":
-        if mode == "prefill":
+        if train:
+            mix = _mla_train(p["attn"], h, cfg, positions, window)
+        elif mode == "prefill":
             mix = _mla_prefill(p["attn"], h, cfg, positions, window, cache,
                                mask_pos)
         else:
             mix = _mla_decode(p["attn"], h, cfg, pos, cache)
+    elif train:
+        mix = _attn_train(p["attn"], h, cfg, positions, window)
     elif mode == "prefill":
         mix = _attn_prefill(p["attn"], h, cfg, positions, window, cache,
                             mask_pos)
@@ -296,16 +347,18 @@ def apply_block(kind: str, p: Dict[str, Any], x: torch.Tensor, *,
     x = x + mix
     if kind == "dec":   # whisper cross-attention
         hx = L.norm(p["lnx"], x, cfg)
-        if mode == "prefill":
-            xk, xv = cross_kv(p["xattn"], enc_out, cfg)
-            cache["xk"].copy_(xk)
-            cache["xv"].copy_(xv)
-        else:
+        if mode == "decode":
             xk, xv = cache["xk"], cache["xv"]
+        else:
+            xk, xv = cross_kv(p["xattn"], enc_out, cfg)
+            if not train:
+                cache["xk"].copy_(xk)
+                cache["xv"].copy_(xv)
         x = x + _cross_attn(p["xattn"], hx, xk, xv, cfg, mode)
     h2 = L.norm(p["ln2"], x, cfg)
+    aux = None
     if kind == "moe":
-        ff, _ = moe_ffn(p["moe"], h2, cfg)
+        ff, aux = moe_ffn(p["moe"], h2, cfg)
     else:
         ff = L.mlp(p["mlp"], h2)
-    return x + ff, cache
+    return x + ff, cache, aux

@@ -1,7 +1,8 @@
-"""Parameter and cache trees of the JAX package, as numpy arrays, into the
-port's torch trees, so that both packages compute on the same weights and
-caches.  Both packages stack layer params and caches on a leading dim with
-the same keys, so the conversion is a plain copy, leaf by leaf.
+"""Parameter, cache and training-state trees of the JAX package, as numpy
+arrays, into the port's torch trees, so that both packages compute (and
+train) from the same state.  Both packages stack layer params and caches
+on a leading dim with the same keys, so the conversion is a plain copy,
+leaf by leaf.
 
 The trees come in as numpy (``jax.tree.map(np.asarray, tree)`` on the JAX
 side): the port imports nothing of JAX.
@@ -12,6 +13,8 @@ import numpy as np
 import torch
 
 from repro_torch.models.params import tree_map
+from repro_torch.optim.adamw import AdamWState
+from repro_torch.train.steps import TrainState
 
 
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
@@ -36,3 +39,16 @@ def cache_from_jax(tree, device="cuda"):
     and decode_step return), leaves as numpy arrays, as the port's cache
     tree on ``device``."""
     return tree_map(lambda a: tensor_from_numpy(a, device), tree)
+
+
+def train_state_from_jax(tree, device="cuda"):
+    """A JAX ``TrainState`` (``repro.train.steps``), leaves as numpy arrays,
+    as the port's ``TrainState`` on ``device``: the params, the AdamW
+    ``step`` (an int32 0-d tensor), ``m`` and ``v`` in their dtypes."""
+    opt = tree.opt
+    return TrainState(
+        params_from_jax(tree.params, device),
+        AdamWState(step=tensor_from_numpy(
+                       np.asarray(opt.step, np.int32), device),
+                   m=params_from_jax(opt.m, device),
+                   v=params_from_jax(opt.v, device)))

@@ -1,6 +1,7 @@
-"""Shared neural building blocks (a port of ``repro.models.layers`` for the
-serving path): norms, rotary embeddings, prefill and decode attention
-through the port's kernels, the KV cache ring, SwiGLU MLP.
+"""Shared neural building blocks (a port of ``repro.models.layers``): norms,
+rotary embeddings, prefill and decode attention through the port's
+kernels, training attention (``attention_dense``, plain PyTorch under
+autograd), the KV cache ring, SwiGLU MLP.
 
 Params are dict subtrees produced by ``params.py``.  Compute dtype follows
 the config; norms, rotary and softmax run in f32.  Large matrix products
@@ -10,6 +11,7 @@ ported: the port runs on one card.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -18,6 +20,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_prefill.ops import flash_prefill
 from repro_torch.kernels.gqa_decode.ops import gqa_decode
+
+NEG_INF = -1e30
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -120,6 +124,57 @@ def attention_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = flash_prefill(q, k, v, window=window or 0, q_pos=q_pos,
                         k_pos=k_pos)
     return out[..., :dv] if dv < q.shape[-1] else out
+
+
+def _grouped_logits(q: torch.Tensor, kf: torch.Tensor) -> torch.Tensor:
+    """q (B,Sq,KV,G,D) x kf (B,Sk,KV,D) f32 -> (B,KV,G,Sq,Sk) f32 logits."""
+    return torch.einsum("bqngd,bknd->bngqk", q.float(), kf)
+
+
+def attention_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_pos: torch.Tensor, k_pos: torch.Tensor,
+                    window: Optional[int], causal: bool = True,
+                    q_chunk: int = 512) -> torch.Tensor:
+    """Memory-chunked multi-query attention for training: the JAX
+    package's ``attention_dense``, plain PyTorch that autograd
+    differentiates (no kernel of the port has a backward).
+
+    q (B,Sq,H,D); k (B,Sk,KV,D); v (B,Sk,KV,Dv) (MLA's Dv < D); positions
+    are absolute per token, (B,Sq) and (B,Sk).  A pair is live when
+    k_pos <= q_pos (if ``causal``) and k_pos > q_pos - window (with a
+    window).  Chunking over Sq (the largest divisor of Sq at or under
+    ``q_chunk``) bounds the live logits to (B,KV,G,chunk,Sk).  Logits and
+    softmax in f32; the probabilities are cast to v's dtype, and their
+    product with v (accumulated in f32 by the matmul) to q's dtype."""
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = h // kv
+    scale = 1.0 / math.sqrt(d)
+    qg = q.reshape(b, sq, kv, g, d)
+    kf = k.float()                  # cast once, not once per chunk
+
+    def chunk_fn(qc, qpc):
+        logits = _grouped_logits(qc, kf) * scale         # (B,KV,G,C,Sk)
+        mask = None
+        if causal:
+            mask = k_pos[:, None, :] <= qpc[:, :, None]
+        if window:
+            live = k_pos[:, None, :] > qpc[:, :, None] - window
+            mask = live if mask is None else mask & live
+        if mask is not None:
+            logits = torch.where(mask[:, None, None], logits, NEG_INF)
+        p = torch.softmax(logits, dim=-1).to(v.dtype)
+        out = torch.einsum("bngqk,bknd->bqngd", p, v)
+        return out.reshape(b, qc.shape[1], h, dv)
+
+    if sq <= q_chunk:
+        return chunk_fn(qg, q_pos).to(q.dtype)
+    while sq % q_chunk:
+        q_chunk -= 1          # largest divisor (e.g. whisper's 1500 -> 500)
+    outs = [chunk_fn(qg[:, i:i + q_chunk], q_pos[:, i:i + q_chunk])
+            for i in range(0, sq, q_chunk)]
+    return torch.cat(outs, dim=1).to(q.dtype)
 
 
 def attention_decode(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,

@@ -1,40 +1,74 @@
-"""Top-level model for serving (a port of the serving half of
-``repro.models.model``): embedding -> block stacks -> final norm -> logits
-of the last position, with per-layer KV caches.
+"""Top-level model (a port of ``repro.models.model``): embedding -> block
+stacks -> final norm, then the chunked cross-entropy loss in training and
+the logits of the last position in serving, with per-layer KV caches.
 
 Layer params are stacked on a leading dim as in the JAX package; a Python
-loop over that dim replaces ``lax.scan``, and each layer reads views of its
-slices (no copies).  The KV caches are updated IN PLACE, one layer slice at
-a time: ``prefill`` and ``decode_step`` return the same cache dict they
-were given, where the JAX functions return new stacked caches (at
-qwen3-32b's serving shape that saves a 1 GiB copy per step); the
-recurrent blocks copy their new states into theirs.  The hybrid family's
-embedding is scaled by sqrt(d_model), as in JAX.
+loop over that dim replaces ``lax.scan``.  Serving reads views of each
+layer's slices (no copies), and updates the KV caches IN PLACE, one layer
+slice at a time: ``prefill`` and ``decode_step`` return the same cache
+dict they were given, where the JAX functions return new stacked caches
+(at qwen3-32b's serving shape that saves a 1 GiB copy per step); the
+recurrent blocks copy their new states into theirs.  Training takes each
+stacked leaf apart once with ``torch.unbind`` (whose backward stacks the
+layers' gradients once; a view ``a[i]`` per layer would zero-fill a
+stack-sized gradient for every layer) and runs each layer body under
+``cfg.remat``: plain, ``torch.utils.checkpoint`` ("full"), or a selective
+checkpoint that saves the outputs of weight products and recomputes the
+rest ("dots", JAX's ``dots_with_no_batch_dims_saveable``).  The hybrid
+family's embedding is scaled by sqrt(d_model), as in JAX.
 
 The front ends are the JAX package's stubs: a vlm batch may carry patch
 embeddings (``embeds``, (B, S, d_model)) in place of tokens, and its
 default positions are M-RoPE's (3, B, S) arange; an audio batch carries
 frame embeddings (``embeds``, (B, enc_seq, d_model)) for the encoder and
 decoder ``tokens``.  Positions given in the batch ((B, S), or (3, B, S)
-for M-RoPE) go to rotary and, through ``flash_prefill``'s positions
-operand, to the attention mask (M-RoPE's temporal row), as in JAX; without
-them the mask is by sequence index.  Nothing reads them on the host.
-Training (``forward_train``, the loss) is not ported yet.
+for M-RoPE) go to rotary and to the attention mask (M-RoPE's temporal
+row), as in JAX: in serving through ``flash_prefill``'s positions
+operand, without them the mask is by sequence index.  Nothing reads them
+on the host.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import apply_block, init_block_cache
 from repro_torch.models.params import (init_params,  # noqa: F401
-                                       param_count, tree_map)
+                                       param_count, tree_leaves, tree_map,
+                                       tree_unflatten)
 
-__all__ = ["init_params", "param_count", "init_cache", "prefill",
-           "decode_step"]
+__all__ = ["init_params", "param_count", "forward_train", "loss_fn",
+           "ce_loss_chunked", "init_cache", "prefill", "decode_step"]
+
+_WEIGHT_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Remat "dots": keep the outputs of weight products (2-D ``mm`` and
+    ``addmm``, what a (B,S,d) @ (d,f) product lowers to), recompute the
+    rest (the batched attention products included)."""
+    if op in _WEIGHT_PRODUCTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under the config's remat policy: every tensor it needs from
+    outside must be one of its arguments."""
+    if cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
+
+
 
 
 def _embed(params, tokens, cfg: ModelConfig):
@@ -68,8 +102,8 @@ def _given_positions(given, cfg: ModelConfig, b: int, s: int, device):
     (B, S) mask row (M-RoPE's temporal section, as JAX's ``_pos2d``)."""
     want = [(b, s)] + ([(3, b, s)] if cfg.mrope else [])
     if tuple(given.shape) not in want:
-        raise ValueError(f"prefill: positions of shape {tuple(given.shape)}"
-                         f" for a prompt of {b} x {s}; expected "
+        raise ValueError(f"positions of shape {tuple(given.shape)}"
+                         f" for a batch of {b} x {s}; expected "
                          + " or ".join(str(w) for w in want))
     given = given.to(device=device, dtype=torch.int32)
     return given, given[0] if given.dim() == 3 else given
@@ -87,14 +121,40 @@ def _run_stacks(params, x, cfg: ModelConfig, mode: str, positions, caches,
             ci = tree_map(lambda a: a[i], sc)
             for bi, kind in enumerate(period):
                 key = f"b{bi}_{kind}"
-                x, _ = apply_block(kind, pi[key], x, cfg=cfg, mode=mode,
-                                   positions=positions, cache=ci[key],
-                                   pos=pos, enc_out=enc_out,
-                                   mask_pos=mask_pos)
+                x, _, _ = apply_block(kind, pi[key], x, cfg=cfg, mode=mode,
+                                      positions=positions, cache=ci[key],
+                                      pos=pos, enc_out=enc_out,
+                                      mask_pos=mask_pos)
     return x
 
 
-def _run_encoder(params, embeds, cfg: ModelConfig):
+def _train_stack(sp, period, x, aux, cfg: ModelConfig, positions,
+                 enc_out=None):
+    """One layer stack in train mode, no caches: each layer's body under
+    the remat policy, its param slices passed in as arguments.  ``aux``
+    carries the sum of the MoE blocks' auxiliary losses (None while no
+    block has made one).  Returns (x, aux)."""
+    # each stacked leaf taken apart once; layer i's slices in
+    # tree_leaves order
+    layers = zip(*(torch.unbind(a, 0) for _, a in tree_leaves(sp)))
+
+    def body(xc, auxc, positions, enc_out, *leaves):
+        pi = tree_unflatten(sp, leaves)
+        for bi, kind in enumerate(period):
+            xc, _, a = apply_block(kind, pi[f"b{bi}_{kind}"], xc, cfg=cfg,
+                                   mode="train", positions=positions,
+                                   enc_out=enc_out)
+            if a is not None:
+                auxc = a if auxc is None else auxc + a
+        return xc, auxc
+
+    body = _remat(body, cfg)
+    for leaves in layers:
+        x, aux = body(x, aux, positions, enc_out, *leaves)
+    return x, aux
+
+
+def _run_encoder(params, embeds, cfg: ModelConfig, mode: str = "prefill"):
     """Whisper encoder over precomputed frame embeddings (the front end is
     a stub): learned positions, bidirectional blocks, final norm."""
     b, s, _ = embeds.shape
@@ -102,10 +162,13 @@ def _run_encoder(params, embeds, cfg: ModelConfig):
     x = x + params["pos_enc"]["w"][:s].to(x.dtype)[None]
     positions = _default_positions(cfg, b, s, x.device)
     sp = params["enc_stack_0"]
-    for i in range(cfg.enc_layers):
-        pi = tree_map(lambda a: a[i], sp)
-        x, _ = apply_block("enc", pi["b0_enc"], x, cfg=cfg, mode="prefill",
-                           positions=positions)
+    if mode == "train":
+        x, _ = _train_stack(sp, ("enc",), x, None, cfg, positions)
+    else:
+        for i in range(cfg.enc_layers):
+            pi = tree_map(lambda a: a[i], sp)
+            x, _, _ = apply_block("enc", pi["b0_enc"], x, cfg=cfg,
+                                  mode=mode, positions=positions)
     return L.norm(params["enc_final_norm"], x, cfg)
 
 
@@ -114,6 +177,94 @@ def _pos_dec(params, idx):
     table as in JAX (a gather on the device)."""
     w = params["pos_dec"]["w"]
     return w[torch.clamp(idx, max=w.shape[0] - 1).long()]
+
+
+def _decoder_input(params, batch, cfg: ModelConfig, mode: str):
+    """The first hidden state, its (B, S) and the encoder's output (audio
+    only): decoder tokens plus learned positions and the encoder over the
+    frames (audio), given embeddings (vlm), else embedded tokens."""
+    enc_out = None
+    if cfg.family == "audio":
+        enc_out = _run_encoder(params, batch["embeds"], cfg, mode)
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = _embed(params, tokens, cfg)
+        idx = torch.arange(s, device=x.device)
+        x = x + _pos_dec(params, idx).to(x.dtype)[None]
+    elif "embeds" in batch:
+        x = batch["embeds"].to(getattr(torch, cfg.compute_dtype))
+        b, s = x.shape[0], x.shape[1]
+    else:
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = _embed(params, tokens, cfg)
+    return x, b, s, enc_out
+
+
+# ---------------------------------------------------------------------------
+# Training forward + loss
+# ---------------------------------------------------------------------------
+
+def forward_train(params, batch: Dict[str, Any], cfg: ModelConfig):
+    """Returns (final hidden (B,S,d), aux_loss f32 scalar): the batch's
+    ``positions`` (or the default arange) drive rotary and the attention
+    masks; the MoE blocks' auxiliary losses are summed in f32."""
+    x, b, s, enc_out = _decoder_input(params, batch, cfg, "train")
+    given = batch.get("positions")
+    if given is None:
+        positions = _default_positions(cfg, b, s, x.device)
+    else:
+        positions, _ = _given_positions(given, cfg, b, s, x.device)
+    aux = None
+    for si, (period, _) in enumerate(cfg.stacks()):
+        x, aux = _train_stack(params[f"stack_{si}"], period, x, aux, cfg,
+                              positions, enc_out)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = L.norm(params["final_norm"], x, cfg)
+    return x, aux
+
+
+def _ce_chunk(xc, w_un, lc):
+    """(sum of token losses, count of labelled tokens) over one chunk, in
+    f32; a label < 0 masks its token."""
+    logits = (xc @ w_un.to(xc.dtype)).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        torch.clamp(lc, min=0).long()[..., None])[..., 0]
+    valid = (lc >= 0).float()
+    return ((lse - gold) * valid).sum(), valid.sum()
+
+
+def ce_loss_chunked(x, w_un, labels, tokens_per_chunk: int = 65536):
+    """Mean cross entropy without materializing the full (B, S, V) logits.
+
+    Chunks along the sequence, as JAX does: c = max(1, min(S, tokens //
+    B)), decreased until it divides S.  With two or more chunks each is
+    recomputed in backward (``torch.utils.checkpoint``) instead of saving
+    its (B, c, V) f32 logits."""
+    b, s, _ = x.shape
+    c = max(1, min(s, tokens_per_chunk // b))
+    while s % c:
+        c -= 1
+    nc = s // c
+    if nc == 1:
+        num, den = _ce_chunk(x, w_un, labels)
+    else:
+        parts = [ckpt.checkpoint(_ce_chunk, x[:, i * c:(i + 1) * c], w_un,
+                                 labels[:, i * c:(i + 1) * c],
+                                 use_reentrant=False)
+                 for i in range(nc)]
+        num = sum(p[0] for p in parts)
+        den = sum(p[1] for p in parts)
+    return num / torch.clamp(den, min=1.0)
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    """Returns (ce + aux, {"ce": ce, "aux": aux}), device tensors."""
+    x, aux = forward_train(params, batch, cfg)
+    loss = ce_loss_chunked(x, _unembed_w(params, cfg), batch["labels"])
+    return loss + aux, {"ce": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -141,21 +292,7 @@ def prefill(params, batch, caches, cfg: ModelConfig):
     batch holds ``embeds`` (the encoder's frames) and ``tokens``; a vlm
     batch ``embeds`` or ``tokens``; any batch may hold ``positions``, which
     then mask attention by position (else by index)."""
-    enc_out = None
-    if cfg.family == "audio":
-        enc_out = _run_encoder(params, batch["embeds"], cfg)
-        tokens = batch["tokens"]
-        b, s = tokens.shape
-        x = _embed(params, tokens, cfg)
-        idx = torch.arange(s, device=x.device)
-        x = x + _pos_dec(params, idx).to(x.dtype)[None]
-    elif "embeds" in batch:
-        x = batch["embeds"].to(getattr(torch, cfg.compute_dtype))
-        b, s = x.shape[0], x.shape[1]
-    else:
-        tokens = batch["tokens"]
-        b, s = tokens.shape
-        x = _embed(params, tokens, cfg)
+    x, b, s, enc_out = _decoder_input(params, batch, cfg, "prefill")
     given = batch.get("positions")
     if given is None:
         positions = _default_positions(cfg, b, s, x.device)

@@ -18,8 +18,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 # ROADMAP queue A, item 12 (model stack): the block kinds whose
-# parameters, caches and mixers are not ported yet (none: what is left of
-# item 12 is training, which raises through ``not_ported``)
+# parameters, caches and mixers are not ported yet (none: every kind
+# serves and trains)
 NOT_PORTED: Dict[str, str] = {}
 
 
@@ -175,6 +175,19 @@ def tree_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
                                    else key)
     else:
         yield prefix, tree
+
+
+def tree_unflatten(tree, leaves):
+    """``tree``'s structure (nested dicts) holding ``leaves``, given in
+    ``tree_leaves`` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), _sorted(tree))
+
+
+def _sorted(tree):
+    if isinstance(tree, dict):
+        return {key: _sorted(tree[key]) for key in sorted(tree)}
+    return tree
 
 
 # ---------------------------------------------------------------------------

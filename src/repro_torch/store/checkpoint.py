@@ -49,8 +49,9 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.store.tensorstore import (DurableArea, Record,
-                                           encode_array, decode_array)
+from repro_torch.store.tensorstore import (BF16_BITS, DurableArea, Record,
+                                           decode_array, encode_array,
+                                           write_npy)
 
 COMMIT = "__commit__"
 
@@ -76,8 +77,13 @@ def _map_with_path(fn, tree, path=()):
 
 
 def _to_numpy(leaf, copy: bool = False) -> np.ndarray:
+    """A leaf as a host array; a bf16 tensor as its 16-bit pattern viewed
+    as ``BF16_BITS``, which the store writes with the JAX store's header."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=copy).numpy()
+        host = leaf.detach().to("cpu", copy=copy)
+        if host.dtype == torch.bfloat16:
+            return host.view(torch.int16).numpy().view(BF16_BITS)
+        return host.numpy()
     return np.array(leaf, copy=True) if copy else np.asarray(leaf)
 
 
@@ -92,8 +98,13 @@ def _flatten(tree) -> Dict[str, np.ndarray]:
 
 def _like(arr: np.ndarray, leaf):
     """``arr`` as the kind of ``leaf``: a tensor on its device at its dtype,
-    else a numpy array at its dtype."""
+    else a numpy array at its dtype.  A 2-byte void array (a bf16 leaf
+    written by either package) restores into a bf16 tensor by its bit
+    pattern."""
     if isinstance(leaf, torch.Tensor):
+        if arr.dtype == BF16_BITS and leaf.dtype == torch.bfloat16:
+            bits = torch.from_numpy(np.array(arr.view(np.int16)))
+            return bits.view(torch.bfloat16).to(leaf.device)
         return torch.tensor(arr, dtype=leaf.dtype, device=leaf.device)
     return np.asarray(arr, dtype=getattr(leaf, "dtype", None))
 
@@ -178,7 +189,7 @@ class CheckpointManager:
             fn = name.replace("/", "__") + ".npy"
             p = os.path.join(tmp, fn)
             with open(p, "wb") as f:
-                np.save(f, arr)
+                write_npy(f, arr)
                 f.flush()
                 os.fsync(f.fileno())
             self._dir_fsyncs += 1

@@ -143,12 +143,32 @@ class DurableArea:
 # numpy (de)serialization envelope
 # ---------------------------------------------------------------------------
 
+# A bfloat16 leaf travels as its 16-bit pattern, a 2-byte void array.
+# The JAX store writes ml_dtypes' bfloat16, whose npy descr is '<V2' (a
+# plain void array's is '|V2'); the port writes that descr too, so both
+# stores write the same bytes for the same values.
+BF16_DESCR = "<V2"
+BF16_BITS = np.dtype("V2")
+
+
+def write_npy(f, arr: np.ndarray) -> None:
+    """``arr`` in npy format to the file object ``f``: ``np.save``'s bytes,
+    and for a bf16 bit pattern (``BF16_BITS``) the JAX store's header."""
+    arr = np.asarray(arr)
+    if arr.dtype != BF16_BITS:
+        np.save(f, arr, allow_pickle=False)
+        return
+    np.lib.format.write_array_header_1_0(
+        f, {"descr": BF16_DESCR, "fortran_order": False, "shape": arr.shape})
+    f.write(arr.tobytes())                 # C order, as write_array
+
+
 def encode_array(arr: np.ndarray) -> bytes:
     buf = io.BytesIO()
     arr = np.asarray(arr)
     if arr.ndim and not arr.flags.c_contiguous:
         arr = np.ascontiguousarray(arr)   # (0-d arrays: ascontiguous -> 1-d!)
-    np.lib.format.write_array(buf, arr, allow_pickle=False)
+    write_npy(buf, arr)
     return buf.getvalue()
 
 

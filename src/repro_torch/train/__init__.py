@@ -1,1 +1,1 @@
-"""Serving step builders (training is not ported yet)."""
+"""Train and serve step builders (``steps``)."""

@@ -983,3 +983,115 @@ def test_frontend_model_on_the_card_matches_the_cpu(cuda, arch, given):
     assert bool(torch.isfinite(card).all())
     assert torch.equal(cpu.argmax(-1), card.argmax(-1))
     assert float((cpu - card).abs().max()) <= FAMILY_LOGITS_ATOL
+
+
+# ---------------------------------------------------------------------------
+# training: the train step of every config on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCHS = ["qwen2-vl-2b", "qwen3-32b", "h2o-danube-3-4b", "minicpm3-4b",
+               "qwen1.5-110b", "xlstm-350m", "arctic-480b", "mixtral-8x22b",
+               "whisper-base", "recurrentgemma-2b"]
+TRAIN_LR = 1e-3
+
+
+def _train_batch(cfg, b=2, s=16):
+    """A numpy-seeded batch of ``tests/test_arch_smoke.py``'s layout: the
+    vlm's patch embeddings at M-RoPE positions, whisper's frames and
+    decoder tokens, else tokens."""
+    rng = np.random.default_rng(0)
+    tok = rng.integers(0, cfg.vocab, (b, s + 1)).astype(np.int32)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    if cfg.family == "vlm":
+        batch = {"embeds": (0.02 * rng.standard_normal(
+                     (b, s, cfg.d_model))).astype(np.float32),
+                 "labels": tok[:, 1:],
+                 "positions": np.broadcast_to(
+                     np.arange(s, dtype=np.int32), (3, b, s))}
+    if cfg.family == "audio":
+        batch["embeds"] = (0.02 * rng.standard_normal(
+            (b, cfg.enc_seq, cfg.d_model))).astype(np.float32)
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("grad_accum", (1, 2))
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch, grad_accum):
+    """One train step of each smoke config (f32) on the card against the
+    same step on the CPU, from the same state and batch: the gradients
+    within 1e-4 of each leaf's largest magnitude; the loss and the grad
+    norm within 1e-5 relative; ``step`` equal; m and v within lr x 1e-3;
+    the params within lr x 1e-3 of the CPU's AdamW update applied to the
+    card's gradients (the first AdamW step divides each gradient by its
+    magnitude + 1e-8, so at gradients of about 1e-8 the rounding of the
+    two devices' gradients moves the update by up to a tenth of lr).
+    With grad_accum 2 the card also holds the accumulated gradients and
+    loss against one whole batch on the CPU, where the model has no MoE
+    auxiliary loss (a mean over the batch, not over its halves)."""
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as TS
+    cfg = get_config(arch + "-smoke")
+    opt = adamw.AdamWConfig(lr=TRAIN_LR, warmup=1, total_steps=10,
+                            state_dtype=cfg.opt_dtype)
+    cpu = torch.device("cpu")
+    state0 = TS.init_train_state(cfg, 0, opt, device=cpu)
+    batch = _train_batch(cfg)
+
+    def on(dev, tree):
+        return tree_map(lambda a: a.to(dev).clone(), tree)
+
+    def state_on(dev):
+        return TS.TrainState(on(dev, state0.params), adamw.AdamWState(
+            state0.opt.step.to(dev), on(dev, state0.opt.m),
+            on(dev, state0.opt.v)))
+
+    def grads(dev, ga):
+        """The step's gradients (each microbatch's summed, then divided)
+        and loss, on the CPU."""
+        total, loss = None, 0.0
+        for i in range(ga):
+            li, _, g = TS.loss_and_grads(
+                cfg, on(dev, state0.params),
+                TS.microbatch(on(dev, batch), i, ga))
+            total = g if total is None else _add(total, g)
+            loss = loss + li
+        return tree_map(lambda v: (v / ga).cpu(), total), float(loss / ga)
+
+    def close_grads(got, want):
+        for (key, a), (_, b) in zip(tree_leaves(got), tree_leaves(want)):
+            assert float((a - b).abs().max()) <= \
+                1e-4 * float(b.abs().max()), key
+
+    g_card, loss_card = grads(cuda, grad_accum)
+    g_cpu, loss_cpu = grads(cpu, grad_accum)
+    close_grads(g_card, g_cpu)
+    assert abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu)
+    if grad_accum == 2 and not cfg.n_experts:
+        g_one, loss_one = grads(cpu, 1)
+        close_grads(g_card, g_one)
+        assert abs(loss_card - loss_one) <= 1e-5 * abs(loss_one)
+
+    step = TS.make_train_step(cfg, opt, grad_accum)
+    flash_prefill_cuda.launches = gqa_decode_cuda.launches = 0
+    card, m_card = step(state_on(cuda), on(cuda, batch))
+    assert flash_prefill_cuda.launches == gqa_decode_cuda.launches == 0
+    host, m_cpu = step(state_on(cpu), batch)
+    assert int(card.opt.step) == int(host.opt.step) == 1
+    for key in ("loss", "grad_norm"):
+        assert abs(float(m_card[key]) - float(m_cpu[key])) <= \
+            1e-5 * abs(float(m_cpu[key])), key
+    ref = state_on(cpu)
+    want_params, _, _ = adamw.update(g_card, ref.opt, ref.params, opt)
+    for got, want in ((card.params, want_params), (card.opt.m, host.opt.m),
+                      (card.opt.v, host.opt.v)):
+        for (key, a), (_, b) in zip(tree_leaves(got), tree_leaves(want)):
+            assert float((a.cpu() - b).abs().max()) <= TRAIN_LR * 1e-3, key
+
+
+def _add(a, b):
+    """Leafwise a + b of two nested dicts of tensors."""
+    if isinstance(a, dict):
+        return {k: _add(a[k], b[k]) for k in a}
+    return a + b

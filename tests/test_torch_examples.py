@@ -49,3 +49,25 @@ def test_examples_default_to_the_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _load("quickstart_torch").main([])
+
+
+def test_train_lm_example_crashes_and_resumes_on_the_cpu(capsys):
+    """The training example at 40 steps: the crash at step 20 (after its
+    save), the restart from step 20, the final checkpoint at 40.  One
+    intra-op thread: the smoke model's operations are tiny, and with
+    several test workers on one host each op spread over every core waits
+    on the others."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert _load("train_lm_torch").main(
+            ["--device", "cpu", "--steps", "40"]) == 0
+    finally:
+        torch.set_num_threads(n)
+    out = capsys.readouterr().out
+    assert "[crash] simulated power failure at step 20" in out
+    assert "[restore] resumed from step 20" in out
+    assert "[done] final checkpoint at step 40" in out
+    assert out.rstrip().endswith("crash/restart training round-trip "
+                                 "complete.")

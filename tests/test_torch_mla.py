@@ -69,10 +69,10 @@ def test_mla_prefill_and_absorbed_decode_match_jax(monkeypatch):
                                      ctx=CPU_CTX, mode="prefill"))
     jout, jcache, _ = jpre(jp, jnp.asarray(x[:, :s]),
                            positions=jnp.asarray(pos), cache=jcache)
-    tout, tcache = B.apply_block("attn", p, torch.from_numpy(x[:, :s]),
-                                 cfg=cfg, mode="prefill",
-                                 positions=torch.from_numpy(pos.copy()),
-                                 cache=tcache)
+    tout, tcache, _ = B.apply_block("attn", p, torch.from_numpy(x[:, :s]),
+                                    cfg=cfg, mode="prefill",
+                                    positions=torch.from_numpy(pos.copy()),
+                                    cache=tcache)
     _close(tout, jout, "prefill output")
     # one launch, with V padded from head_dim to head_dim + rope_dim
     qk = cfg.head_dim + cfg.rope_dim
@@ -86,10 +86,10 @@ def test_mla_prefill_and_absorbed_decode_match_jax(monkeypatch):
         posv = np.full((b,), t, np.int32)
         jout, jcache, _ = jdec(jp, jnp.asarray(x[:, t:t + 1]),
                                cache=jcache, pos=jnp.asarray(posv))
-        tout, tcache = B.apply_block("attn", p,
-                                     torch.from_numpy(x[:, t:t + 1]),
-                                     cfg=cfg, mode="decode", cache=tcache,
-                                     pos=torch.from_numpy(posv))
+        tout, tcache, _ = B.apply_block("attn", p,
+                                        torch.from_numpy(x[:, t:t + 1]),
+                                        cfg=cfg, mode="decode", cache=tcache,
+                                        pos=torch.from_numpy(posv))
         _close(tout, jout, f"decode output at {t}")
         for key in ("lat", "kr"):
             _close(tcache[key], jcache[key], f"decode cache {key} at {t}")
