@@ -25,10 +25,15 @@ Phases, each of which exits non-zero on failure:
    recovery's ``table_build``, timed) at B = 1024 and 65536, where it also
    equals the first-match lookup; on small arbitrary tables whose windows
    wrap past T - 1 and with TOMBs and full 128-slot chains, at B = 1, 7
-   and 8 and max_probe 5, 128 and 200; and at the serving registry's shape
-   (1024 slots, B = 8).  Each at max_probe 128 timed beside its plain
-   version, the TPU route carried over literally (window gather +
-   ``hash_probe`` at W = 128) and the timing floor (an empty spin).
+   and 8 and max_probe 5, 128 and 200; untimed, at the kernel's edges
+   (T 4, 8, 256 and 1024; B 1, 3, 5 and 257; max_probe 1, 3, 5, 127, 128,
+   129 and 200; every window offset mod 4); at the serving registry's
+   shape (1024 slots, B = 8); and at one shard's (T 2^20, B = 256).  Each
+   at max_probe 128 timed beside its plain version, the TPU route carried
+   over literally (window gather + ``hash_probe`` at W = 128) and the
+   timing floor (an empty spin).  Then the wrapper's host cost by part.
+   ``python3 chip_smoke.py --probe-window`` runs phase 1 and this part of
+   phase 2 alone (to time two trees of the kernel in turns).
 3. Main path: the paper's hash-set experiment (key range 2^20, 90% reads)
    on a bucket-backend ``DurableMap`` of 2^21 slots in SOFT mode.  Prefill
    2^19 keys, 200 mixed batches of 1024 lanes, crash, recover, 20 more
@@ -326,6 +331,7 @@ from repro_torch.core import queue as TQ  # noqa: E402
 from repro_torch.core import router as RT  # noqa: E402
 from repro_torch.core import shard as SH  # noqa: E402
 from repro_torch.core import engine as TE  # noqa: E402
+from repro_torch.core.nvm import np_hash32  # noqa: E402
 from repro_torch.core.resize import PLANES  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_prefill.kernel import (  # noqa: E402
@@ -336,7 +342,7 @@ from repro_torch.kernels.gqa_decode.kernel import (  # noqa: E402
     gqa_decode_cuda, split_plan)
 from repro_torch.kernels.gqa_decode.ref import gqa_decode_ref  # noqa: E402
 from repro_torch.kernels.hash_probe.kernel import (  # noqa: E402
-    probe_cuda, table_probe_cuda)
+    _lib, probe_cuda, table_probe_cuda)
 from repro_torch.kernels.hash_probe.ops import (bucket_of,  # noqa: E402
                                                 build_buckets)
 from repro_torch.kernels.hash_probe.ref import (  # noqa: E402
@@ -638,12 +644,141 @@ def _arbitrary_table(rng, dev, t, n, fill, tomb, dense=0):
     return torch.from_numpy(table).to(dev)
 
 
+def _offset_queries(rng, pool, t, b):
+    """b queries over a T-slot table, drawn from the pool keys and 64
+    absent keys, whose home slots take every offset mod 4 in turn (the
+    kernel reads aligned 4-slot groups, so the offset sets how many the
+    window touches)."""
+    cand = np.concatenate([pool, rng.integers(2 * 10 ** 8, 3 * 10 ** 8,
+                                              64)]).astype(np.int32)
+    home = np_hash32(cand) & np.uint32(t - 1)
+    by_off = [cand[home % 4 == o] for o in range(4)]
+    q = [by_off[j % 4][rng.integers(by_off[j % 4].size)] for j in range(b)]
+    return np.asarray(q, np.int32)
+
+
+def check_table_probe_edges(dev, rng):
+    """The probe-window kernel against its plain version, untimed, at the
+    edges of its design: every window offset mod 4, max_probe from 1 to
+    200 (one pass of the kernel covers 160 slots), B not a multiple of the
+    queries a warp or a block serves, and tables of 4 and 8 slots whose
+    windows wrap many times.  Returns the number of cases."""
+    tables = {4: (0.75, 0.25, 0), 8: (0.5, 0.25, 0), 256: (0.5, 0.1, 0),
+              1024: (0.3, 0.3, 512)}
+    cases = 0
+    for t, (fill, tomb, dense) in tables.items():
+        n = max(4, t // 4)
+        tb = _arbitrary_table(rng, dev, t, n, fill, tomb, dense)
+        pool = rng.choice(10 ** 8, n, replace=False).astype(np.int32)
+        pk = torch.from_numpy(pool).to(dev)
+        for b in (1, 3, 5, 257):
+            q = torch.from_numpy(_offset_queries(rng, pool, t, b)).to(dev)
+            for mp in (1, 3, 5, 127, 128, 129, 200):
+                check_table_probe(dev, f"edge T={t} B={b} max_probe={mp}",
+                                  tb, pk, q, mp, timed=False)
+                cases += 1
+    print(f"table_probe edges: {cases} cases equal to plain (T 4, 8, 256, "
+          "1024; B 1, 3, 5, 257; max_probe 1, 3, 5, 127, 128, 129, 200; "
+          "every window offset mod 4)")
+    return cases
+
+
+def host_us(fn, dev, reps=200, repeats=7) -> float:
+    """Host microseconds per call of ``fn``: the median over ``repeats``
+    loops of ``reps`` calls, each loop timed without its closing
+    synchronization (a launch is measured as the host's enqueue; 200 stay
+    within the card's launch queue)."""
+    times = []
+    for _ in range(repeats):
+        sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e6 / reps)
+        sync(dev)
+    return float(np.median(times))
+
+
+def table_probe_host_parts(dev, table, pool, q, max_probe=128):
+    """The host's cost of one ``table_probe_cuda`` call, by part, in
+    microseconds: the whole wrapper back to back, the wrapper at B = 0
+    (its argument checks and ``torch.empty``), and each later step in the
+    form the wrapper takes and in the per-call form it replaced; the
+    back-to-back ms per call of the whole wrapper as phase 2 prints it,
+    median of 11.  Returns the fields."""
+    lib = _lib()
+    out = torch.empty_like(q)
+    idx = table.device.index
+    args = (table, pool, q)
+    b, t, n = q.shape[0], table.shape[0], pool.shape[0]
+    fast = torch.cuda.current_stream().cuda_stream
+    same = contextlib.nullcontext()
+
+    def guard_once():
+        with (same if idx == torch.cuda.current_device()
+              else torch.cuda.device(idx)):
+            pass
+
+    def guard_always():
+        with torch.cuda.device(table.device):
+            pass
+
+    def launch():
+        return lib.table_probe(table.data_ptr(), pool.data_ptr(),
+                               q.data_ptr(), out.data_ptr(), b, t, n,
+                               max_probe, fast)
+
+    q0 = q[:0]
+    parts = {
+        "wrapper": lambda: table_probe_cuda(table, pool, q, max_probe),
+        "wrapper at B=0 (checks + torch.empty)":
+            lambda: table_probe_cuda(table, pool, q0, max_probe),
+        "torch.empty": lambda: torch.empty((b,), dtype=torch.int32,
+                                           device=dev),
+        "contiguous() x3": lambda: [x.contiguous() for x in args],
+        "device guard if another card": guard_once,
+        "device guard (per-call form)": guard_always,
+        "raw current stream":
+            lambda: torch._C._cuda_getCurrentRawStream(idx),
+        "current_stream().cuda_stream (per-call form)":
+            lambda: torch.cuda.current_stream().cuda_stream,
+        "ctypes launch (4 data_ptr + call)": launch,
+        "_build.check": lambda: _build.check(lib, 0, "table_probe"),
+    }
+    us = {k: host_us(fn, dev) for k, fn in parts.items()}
+    wall = float(np.median([wall_ms(parts["wrapper"], dev)
+                            for _ in range(11)]))
+    print("table_probe host us per call: " + "; ".join(
+        f"{k} {v:.3f}" for k, v in us.items())
+        + f"; wrapper ms per call back to back (median of 11) {wall:.6f}")
+    return {"host_us": us, "wrapper_ms": wall}
+
+
+def check_shard_table_probe(dev, cap, key_range, b):
+    """The probe-window kernel at one shard's shapes: a shard's pool of
+    cap / S slots holding a quarter of a key range of key_range / S, its
+    table, and the lanes a ``b``-lane batch routes to the shard (the next
+    power of two above b / S, here 2b / S).  Returns the row's fields."""
+    per, per_range = cap // N_SHARDS, key_range // N_SHARDS
+    lanes = 2 * b // N_SHARDS
+    keys, member, live_keys = probe_pool(dev, per, per_range, per // 4)
+    table, ovf, _ = build_probe_table(dev, keys, member)
+    expect(not ovf, "a shard's probe table overflowed")
+    q = _queries(np.random.default_rng(SEED), live_keys, per_range, lanes,
+                 dev)
+    return check_table_probe(dev, f"shard T={table.shape[0]} B={lanes}",
+                             table, keys, q, pool_member=member)
+
+
 def check_table_probes(dev, cap=1 << 21, batches=(1024, 65536)):
     """Phase 2b: the probe-window kernel at every shape of the probe
     backend's paths: the table of a ``cap``-slot map holding cap / 4 of a
-    key range of cap / 2 at each batch, then small and registry tables.
-    Returns the first batch's row with the second's times beside it, and
-    the map table's build time."""
+    key range of cap / 2 at each batch, small and registry tables, the
+    kernel's edge shapes, and one shard's table (cap / 8 slots, a quarter
+    live, T 2^20) at the 256 lanes a 1024-lane batch routes to it; then
+    the wrapper's host cost by part.  Returns the first batch's row with
+    the second batch's and the shard's times beside it, and the map
+    table's build time."""
     rng = np.random.default_rng(SEED)
     key_range, live = cap // 2, cap // 4
     keys, member, live_keys = probe_pool(dev, cap, key_range, live)
@@ -659,6 +794,9 @@ def check_table_probes(dev, cap=1 << 21, batches=(1024, 65536)):
                                     pool_member=member)
         expect(int((table_probe_cuda(table, keys, q) >= 0).sum()) == b // 2,
                f"table_probe missed present keys at B={b}")
+    host = table_probe_host_parts(
+        dev, table, keys, _queries(rng, live_keys, key_range, batches[0],
+                                   dev))
     # windows that wrap past T - 1; TOMBs and full 128-slot chains; B 1,
     # 7, 8; max_probe below and above a warp's sweep (arbitrary tables)
     pool = torch.from_numpy(rng.choice(10 ** 8, 1024, replace=False)
@@ -677,6 +815,7 @@ def check_table_probes(dev, cap=1 << 21, batches=(1024, 65536)):
             for mp in (5, 128, 200):
                 check_table_probe(dev, f"{name} T={t} B={b} max_probe={mp}",
                                   tb, pk, q, mp, timed=(mp == 128))
+    edges = check_table_probe_edges(dev, rng)
     # the serving registry's shape: 1024 slots, B = 8, a table holding the
     # 8 served requests and a full one
     reg = serve.REGISTRY_CAPACITY
@@ -687,11 +826,28 @@ def check_table_probes(dev, cap=1 << 21, batches=(1024, 65536)):
                           "B=8", tb, keys_r,
                           _queries(rng, live_r, 4 * reg, 8, dev),
                           pool_member=member_r)
+    shard = check_shard_table_probe(dev, cap, key_range, batches[0])
+    lanes = 2 * batches[0] // N_SHARDS
     big = rows[batches[1]]
     row = dict(rows[batches[0]], **{f"{k}_b{batches[1]}": big[k] for k in
                                     ("ms", "plain_ms", "composition_ms",
-                                     "bound_ms")})
+                                     "bound_ms")},
+               **{f"{k}_shard_b{lanes}": shard[k] for k in
+                  ("ms", "plain_ms", "bound_ms", "floor_ms")},
+               **host, edge_cases=edges)
     return row, build_ms
+
+
+def probe_window_main() -> int:
+    """``--probe-window``: phase 1's build and phase 2b alone, for timing
+    two trees of the probe-window kernel in turns on one card."""
+    dev = torch.device("cuda")
+    smi = environment()
+    window, build_ms = check_table_probes(dev)
+    print(smi)
+    print(json.dumps({"probe_window": window, "table_build_ms": build_ms,
+                      "card": smi}))
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -1458,14 +1614,7 @@ def check_shard_kernels(dev, cap, key_range, b):
     rows["hash_probe"] = check_probe(dev, capacity=per, key_range=per_range,
                                      live=per // 4, nb=nb, w=w,
                                      batches=[lanes_per_shard])
-    keys, member, live_keys = probe_pool(dev, per, per_range, per // 4)
-    table, ovf, _ = build_probe_table(dev, keys, member)
-    expect(not ovf, "a shard's probe table overflowed")
-    q = _queries(np.random.default_rng(SEED), live_keys, per_range,
-                 lanes_per_shard, dev)
-    rows["table_probe"] = check_table_probe(
-        dev, f"shard T={table.shape[0]} B={lanes_per_shard}", table, keys,
-        q, pool_member=member)
+    rows["table_probe"] = check_shard_table_probe(dev, cap, key_range, b)
     return {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms")}
             for k, v in rows.items()}
 
@@ -3778,6 +3927,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--probe-window"]:
+        return probe_window_main()
     dev = torch.device("cuda")
     smi = environment()
 

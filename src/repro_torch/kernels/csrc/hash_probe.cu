@@ -29,25 +29,54 @@
 // h = hash32(q) & (T - 1): the largest live id (>= 0) among the slots
 // table[(h + d) & (T - 1)], d < max_probe, whose pool key pool_keys[id]
 // equals q, else -1.  The whole window is read (no early exit), so the
-// answer is right for any table, as the TPU route's is.
+// answer is right for any table, as the TPU route's is.  A window of T or
+// more slots holds every slot of the table, so the launcher reads
+// min(max_probe, T) slots: the same set, each slot once.
 //
-// Bound on an H100: memory, and at the map's shapes latency.  The function
-// must read each query key and write its id (8 bytes), read the windows the
-// queries touch (4 bytes a slot, 512 bytes a query at max_probe 128), and
-// gather the pool key of each live slot in them.  The design:
-//   * one warp per query: lane l reads the aligned 4-slot group l of the
-//     window with one 16-byte load, so the warp sweeps the 512-byte window
-//     in one coalesced pass (a window that does not start on a 4-slot
-//     boundary touches 33 groups; lane 0 reads the last one).  The table's
-//     length is a power of two of at least 4 and its start is 16-byte
-//     aligned (the wrapper copies a table that is not), so an aligned group
-//     never straddles the wrap at T - 1;
-//   * pool keys are gathered only for live slots, in the same pass;
-//   * `__reduce_max_sync` folds the lanes' bests; lane 0 stores.  No
-//     shared memory, no atomics, and no (B, max_probe) plane in device
-//     memory, where the TPU route materialises two.
-//   * the hash is computed in the kernel, so the wrapper launches nothing
-//     else.
+// Bound on an H100: memory, and at the map's shapes (a shard's B = 256,
+// the map's B = 1024) latency.  The function must read each query key and
+// write its id (8 bytes), read the windows the queries touch (4 bytes a
+// slot, 512 bytes a query at max_probe 128), and gather the pool key of
+// each live slot in them.  Each query is a chain of three dependent round
+// trips to device memory: its key, then its window (the key's hash says
+// where), then the pool keys of the window's live ids.  The design keeps
+// every query to those three, whatever the window's offset, and many
+// queries' chains in flight at once:
+//   * a group of G = 8 lanes serves one query, four queries a warp.  The
+//     group's lanes load the query key from one address (one request a
+//     warp for its four consecutive keys), and each lane hashes it;
+//   * lane s of the group holds the aligned 4-slot groups s, s + 8, ...,
+//     s + 32 of the window in K = 5 int4 registers, and issues all five
+//     16-byte loads before it uses any of them.  40 groups (160 slots)
+//     cover a 128-slot window at every start offset (it touches 33 groups
+//     when h % 4 != 0).  The table's length is a power of two of at least
+//     4 and its start is 16-byte aligned (the wrapper copies a table that
+//     is not), so an aligned group never straddles the wrap at T - 1;
+//   * then the lane issues the pool-key gathers of every live slot it
+//     holds, all together, and only then compares them with q;
+//   * three `__shfl_xor_sync` steps fold the group's bests, and one lane
+//     stores.  Every lane of a warp takes part in the shuffles (a group
+//     past B loads nothing and stores nothing), so no lane leaves early;
+//   * a window longer than 160 slots (max_probe up to 2^30 by the
+//     wrapper's check, cut to T) runs the same load-then-gather pass once
+//     per 40 groups;
+//   * 64-thread blocks, eight queries a block: a shard's B = 256 spreads
+//     over 32 SMs and the map's B = 1024 over 128, where larger blocks
+//     would leave most SMs idle at those batches.  At B = 65536 there are
+//     8192 blocks, so every SM holds as many as its registers allow, each
+//     with its chains in flight.
+// Why G = 8 and K = 5: one pass covers a 128-slot window with five 16-byte
+// loads and at most twenty 4-byte gathers in flight in each lane.  Fewer
+// lanes a query need more registers a lane for the same window.  More
+// lanes (a warp a query) spread a window over lanes that then load
+// nothing, and at 33 groups leave one lane a second load and gather in
+// series behind its first pair.
+// Not TMA, `wgmma` or shared memory: this is a gather of 512-byte windows
+// at random addresses, then 4-byte gathers at addresses read from them.
+// There is no tile to stage, nothing a block reads twice, and no product.
+// No atomics, and no (B, max_probe) plane in device memory, where the TPU
+// route materialises two.  The hash is computed in the kernel, so the
+// wrapper launches nothing else.
 //
 // C interface, loaded with ctypes: every launcher returns cudaGetLastError()
 // as an int, and never synchronises.
@@ -95,7 +124,11 @@ hash_probe_kernel(const int* __restrict__ bucket_keys,
 }
 
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kProbeLanes = 8;     // G: lanes serving one query
+constexpr int kProbeLoads = 5;     // K: window loads a lane holds in flight
+constexpr int kProbeGroups = kProbeLanes * kProbeLoads;  // groups a pass
+constexpr int kProbeThreads = 64;
+constexpr int kProbeQueries = kProbeThreads / kProbeLanes;  // a block's
 
 // The JAX package's hash32 (splitmix-style avalanche) in uint32.
 __device__ __forceinline__ unsigned hash32(unsigned x) {
@@ -104,44 +137,63 @@ __device__ __forceinline__ unsigned hash32(unsigned x) {
   return x ^ (x >> 16);
 }
 
-// The id of a slot if it is live and its pool key is q, else -1.  An id past
-// the pool reads the last key, as the reference's clipped gather does.
-__device__ __forceinline__ int slot_match(int id, int q,
-                                          const int* __restrict__ pool_keys,
-                                          int n) {
-  if (id < 0) return -1;
-  return __ldg(pool_keys + min(id, n - 1)) == q ? id : -1;
+__device__ __forceinline__ int slot_of(const int4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
 }
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+// window: the slots read, min(max_probe, T).
+__global__ void __launch_bounds__(kProbeThreads)
 table_probe_kernel(const int* __restrict__ table,
                    const int* __restrict__ pool_keys,
                    const int* __restrict__ q_keys, int* __restrict__ out,
-                   int b, unsigned tmask, int n, int max_probe) {
-  const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (i >= b) return;  // the whole warp leaves together
-  const int q = __ldg(q_keys + i);
+                   int b, unsigned tmask, int n, int window) {
+  const int s = threadIdx.x % kProbeLanes;
+  const long long i = static_cast<long long>(blockIdx.x) * kProbeQueries +
+                      threadIdx.x / kProbeLanes;
+  const bool active = i < b;
+  const int q = active ? __ldg(q_keys + i) : 0;
   const unsigned h = hash32(static_cast<unsigned>(q)) & tmask;
   const int r = static_cast<int>(h & 3u);  // window start within group 0
   const unsigned base = h - r;
-  const int groups = (max_probe + r + 3) / 4;
+  const int groups = active ? (window + r + 3) / 4 : 0;
   int best = -1;
-  for (int g = lane; g < groups; g += 32) {
-    const unsigned p = (base + 4u * static_cast<unsigned>(g)) & tmask;
-    const int4 v = __ldg(reinterpret_cast<const int4*>(table + p));
-    const int d = 4 * g - r;  // probe step of v.x
-    if (d >= 0 && d < max_probe)
-      best = max(best, slot_match(v.x, q, pool_keys, n));
-    if (d + 1 >= 0 && d + 1 < max_probe)
-      best = max(best, slot_match(v.y, q, pool_keys, n));
-    if (d + 2 >= 0 && d + 2 < max_probe)
-      best = max(best, slot_match(v.z, q, pool_keys, n));
-    if (d + 3 < max_probe)
-      best = max(best, slot_match(v.w, q, pool_keys, n));
+  for (int g0 = 0; g0 < groups; g0 += kProbeGroups) {
+    // every window load of the pass, before any of them is used
+    int4 v[kProbeLoads];
+#pragma unroll
+    for (int k = 0; k < kProbeLoads; ++k) {
+      const int g = g0 + s + kProbeLanes * k;
+      v[k] = make_int4(-1, -1, -1, -1);
+      if (g < groups)
+        v[k] = __ldg(reinterpret_cast<const int4*>(
+            table + ((base + 4u * static_cast<unsigned>(g)) & tmask)));
+    }
+    // then the pool key of every live slot in the window, all gathered
+    // before any is compared; an id past the pool reads the last key, as
+    // the reference's clipped gather does
+    int id[kProbeLoads][4], key[kProbeLoads][4];
+#pragma unroll
+    for (int k = 0; k < kProbeLoads; ++k) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int d = 4 * (g0 + s + kProbeLanes * k) + c - r;  // probe step
+        id[k][c] = (d >= 0 && d < window) ? slot_of(v[k], c) : -1;
+        key[k][c] = 0;
+        if (id[k][c] >= 0)
+          key[k][c] = __ldg(pool_keys + min(id[k][c], n - 1));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kProbeLoads; ++k)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (id[k][c] >= 0 && key[k][c] == q) best = max(best, id[k][c]);
   }
-  best = __reduce_max_sync(0xffffffffu, best);
-  if (lane == 0) out[i] = best;
+  // the lanes of a group differ only in their low three bits
+#pragma unroll
+  for (int off = kProbeLanes / 2; off > 0; off /= 2)
+    best = max(best, __shfl_xor_sync(0xffffffffu, best, off));
+  if (active && s == 0) out[i] = best;
 }
 
 }  // namespace
@@ -177,15 +229,15 @@ extern "C" int table_probe(const void* table, const void* pool_keys,
                            int max_probe, void* stream) {
   if (b <= 0) return (int)cudaGetLastError();
   const unsigned blocks =
-      (unsigned)((b + kWarpsPerBlock - 1) / kWarpsPerBlock);
+      (unsigned)(((long long)b + kProbeQueries - 1) / kProbeQueries);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* tb = static_cast<const int*>(table);
   const int* pk = static_cast<const int*>(pool_keys);
   const int* qk = static_cast<const int*>(q_keys);
   int* o = static_cast<int*>(out);
   const unsigned tmask = static_cast<unsigned>(t) - 1u;
-  table_probe_kernel<<<blocks, kWarpsPerBlock * 32, 0, s>>>(
-      tb, pk, qk, o, b, tmask, n, max_probe);
+  table_probe_kernel<<<blocks, kProbeThreads, 0, s>>>(
+      tb, pk, qk, o, b, tmask, n, max_probe < t ? max_probe : t);
   return (int)cudaGetLastError();
 }
 

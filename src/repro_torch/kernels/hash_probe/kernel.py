@@ -17,6 +17,7 @@ launches.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -40,6 +41,19 @@ def _lib():
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
     return lib
+
+
+@functools.cache
+def _table_probe_launcher():
+    """``table_probe``'s C launcher and the query of a card's current stream
+    as a raw handle, resolved once.  ``torch.cuda.current_stream()`` builds
+    a Stream object on every call; the launcher takes only the handle, the
+    one PyTorch's own generated launchers pass."""
+    return _lib().table_probe, torch._C._cuda_getCurrentRawStream
+
+
+# the device guard where the tensors' card is already the current one
+_SAME_DEVICE = contextlib.nullcontext()
 
 
 def probe_cuda(bucket_keys: torch.Tensor, bucket_ids: torch.Tensor,
@@ -88,15 +102,17 @@ def table_probe_cuda(table: torch.Tensor, pool_keys: torch.Tensor,
     where the kernel reads 4-slot groups; a table that does not start on a
     16-byte boundary is copied first), pool_keys i32[N] with N >= 1,
     q_keys i32[B]; any B (0 launches nothing)."""
-    args = (table, pool_keys, q_keys)
-    if all(t.device.type == "cpu" for t in args):
-        return table_lookup_ref(table, pool_keys, q_keys, max_probe)
     dev = table.device
-    if dev.type != "cuda" or any(t.device != dev for t in args):
+    if (dev.type == "cpu" and pool_keys.device.type == "cpu"
+            and q_keys.device.type == "cpu"):
+        return table_lookup_ref(table, pool_keys, q_keys, max_probe)
+    if (dev.type != "cuda" or pool_keys.device != dev
+            or q_keys.device != dev):
         raise ValueError("table_probe_cuda: all tensors must be on one CUDA "
                          "device")
-    if any(t.dtype != torch.int32 or t.dim() != 1 for t in args):
-        raise ValueError("table_probe_cuda: expected 1-D int32 tensors")
+    for x in (table, pool_keys, q_keys):
+        if x.dtype != torch.int32 or x.dim() != 1:
+            raise ValueError("table_probe_cuda: expected 1-D int32 tensors")
     t, n, b = table.shape[0], pool_keys.shape[0], q_keys.shape[0]
     if t < 4 or t & (t - 1) or t > (1 << 30):
         raise ValueError(f"table_probe_cuda: table length {t} is not a "
@@ -108,17 +124,20 @@ def table_probe_cuda(table: torch.Tensor, pool_keys: torch.Tensor,
     out = torch.empty((b,), dtype=torch.int32, device=dev)
     if b == 0:
         return out
-    table, pool_keys, q_keys = (x.contiguous() for x in args)
+    table, pool_keys, q_keys = (x.contiguous()
+                                for x in (table, pool_keys, q_keys))
     # the window arrives by 16-byte loads: from an aligned start
     if table.data_ptr() % 16:
         table = table.clone(memory_format=torch.contiguous_format)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.table_probe(table.data_ptr(), pool_keys.data_ptr(),
-                              q_keys.data_ptr(), out.data_ptr(), b, t, n,
-                              max_probe, stream)
-    _build.check(lib, err, "table_probe")
+    launch, raw_stream = _table_probe_launcher()
+    idx = dev.index
+    # the launch goes to the current device: switch only to another card
+    with (_SAME_DEVICE if idx == torch.cuda.current_device()
+          else torch.cuda.device(idx)):
+        err = launch(table.data_ptr(), pool_keys.data_ptr(),
+                     q_keys.data_ptr(), out.data_ptr(), b, t, n, max_probe,
+                     raw_stream(idx))
+    _build.check(_lib(), err, "table_probe")
     table_probe_cuda.launches += 1
     return out
 

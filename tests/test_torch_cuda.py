@@ -88,11 +88,15 @@ def test_probe_kernel_matches_plain(cuda, nb, w, b):
     assert torch.equal(got, probe_ref(bk, bi, qb, q))
 
 
-def _probe_table(rng, t, n, fill, tomb=0.0, dense=0, wrap=False, b=8):
+def _probe_table(rng, t, n, fill, tomb=0.0, dense=0, wrap=False, b=8,
+                 offsets=False):
     """An arbitrary linear-probe table over a pool of n keys (ids past the
     pool too) and b queries, half of them pool keys: ``dense`` slots from 0
     hold no EMPTY (chains that reach max_probe); ``wrap`` draws half the
-    queries from keys whose home slot is among the last 16."""
+    queries from keys whose home slot is among the last 16; ``offsets``
+    puts query j's home slot j mod 4 past a 4-slot boundary, so every
+    window start the kernel's aligned 16-byte loads meet is covered, and
+    writes each present query's id into its window."""
     pool = rng.choice(10 ** 8, n, replace=False).astype(np.int32)
     table = np.full(t, EMPTY, np.int32)
     slots = rng.choice(t, int(t * fill), replace=False)
@@ -105,25 +109,46 @@ def _probe_table(rng, t, n, fill, tomb=0.0, dense=0, wrap=False, b=8):
         cand = rng.choice(pool, min(n, 64 * b))
         late = cand[(np_hash32(cand) & np.uint32(t - 1)) >= t - 16]
         q[: min(b // 2, late.size)] = late[: b // 2]
+    if offsets:
+        m = 4 * b + 64
+        src = np.concatenate([rng.integers(0, n, m), np.full(m, -1)])
+        cand = np.where(src >= 0, pool[src.clip(0)],
+                        rng.integers(2 * 10 ** 8, 3 * 10 ** 8, 2 * m))
+        home = np_hash32(cand.astype(np.int32)).astype(np.int64) & (t - 1)
+        for o in range(4):
+            pick = rng.choice(np.flatnonzero(home % 4 == o), q[o::4].size)
+            q[o::4] = cand[pick]
+            # a pool key's id at a random step of its window, below and
+            # above every max_probe tested
+            live = pick[src[pick] >= 0]
+            step = rng.integers(0, 256, live.size)
+            table[(home[live] + step) & (t - 1)] = src[live]
     return table, pool, q
 
 
-# (T, N, fill, TOMB share, dense slots, wrap) of chip_smoke.py's phase: the
-# 2^21-slot map's table, wrapping windows, TOMBs and full chains, and the
-# serving registry's table
-PROBE_TABLES = {"map": (1 << 23, 1 << 21, 1 / 16, 0.0, 0, False),
-                "wrap": (256, 64, 0.5, 0.1, 0, True),
-                "tombs-chains": (1024, 256, 0.3, 0.3, 512, False),
-                "registry": (4096, 1024, 0.25, 0.0, 0, False)}
+# (T, N, fill, TOMB share, dense slots, wrap, offsets): chip_smoke.py's
+# phase: the 2^21-slot map's table, wrapping windows, TOMBs and full
+# chains, and the serving registry's table; then the kernel's edges:
+# tables of 4 and 8 slots that a window wraps many times, every window
+# offset mod 4, and one shard's table (2^18 slots of 8, T 2^20)
+PROBE_TABLES = {"map": (1 << 23, 1 << 21, 1 / 16, 0.0, 0, False, False),
+                "wrap": (256, 64, 0.5, 0.1, 0, True, False),
+                "tombs-chains": (1024, 256, 0.3, 0.3, 512, False, False),
+                "registry": (4096, 1024, 0.25, 0.0, 0, False, False),
+                "t4": (4, 64, 0.75, 0.25, 0, False, True),
+                "t8": (8, 64, 0.5, 0.25, 0, False, True),
+                "offsets": (1024, 256, 0.4, 0.1, 300, False, True),
+                "shard": (1 << 20, 1 << 18, 1 / 16, 0.0, 0, False, True)}
 
 
-@pytest.mark.parametrize("b", (0, 1, 7, 8, 1024, 65536))
-@pytest.mark.parametrize("max_probe", (5, 128, 200))
+@pytest.mark.parametrize("b", (0, 1, 3, 5, 7, 8, 256, 257, 1024, 65536))
+@pytest.mark.parametrize("max_probe", (1, 3, 5, 127, 128, 129, 200))
 @pytest.mark.parametrize("kind", sorted(PROBE_TABLES))
 def test_table_probe_kernel_matches_plain(cuda, kind, max_probe, b):
-    t, n, fill, tomb, dense, wrap = PROBE_TABLES[kind]
+    t, n, fill, tomb, dense, wrap, offsets = PROBE_TABLES[kind]
     rng = np.random.default_rng(b + max_probe)
-    table, pool, q = _probe_table(rng, t, n, fill, tomb, dense, wrap, b)
+    table, pool, q = _probe_table(rng, t, n, fill, tomb, dense, wrap, b,
+                                  offsets)
     table, pool, q = (torch.from_numpy(a).to(cuda) for a in (table, pool, q))
     before = table_probe_cuda.launches
     got = table_probe_cuda(table, pool, q, max_probe)

@@ -45,6 +45,17 @@ def _eq(got, want, what=""):
     np.testing.assert_array_equal(got, want, err_msg=what)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port while this module runs: its
+    operations are tiny, and with several test workers on one host each
+    op spread over every core spends its time waiting on the others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_probe_constants_match():
     assert TDS.MAX_PROBE == JDS.MAX_PROBE
 
@@ -168,11 +179,14 @@ LOOKUP_CASES = [
     ("b1", _lookup_case(5, 256, 64, 1, 0.5, 0.1, present=1.0)),
     ("b7", _lookup_case(6, 256, 64, 7, 0.5, 0.1)),
     ("b8-registry", _lookup_case(7, 4096, 1024, 8, 0.25, 0.02)),
+    # tables shorter than the window, which wraps over them many times
+    ("t4", _lookup_case(8, 4, 16, 8, 0.75, 0.25)),
+    ("t8", _lookup_case(9, 8, 16, 8, 0.5, 0.25)),
 ]
 
 
 @pytest.mark.parametrize("case", LOOKUP_CASES, ids=lambda c: c[0])
-@pytest.mark.parametrize("max_probe", (5, 128))
+@pytest.mark.parametrize("max_probe", (5, 128, 129, 200))
 def test_table_lookup_ref_matches_jax_kernel(case, max_probe):
     table, pool, q = case[1]
     want = JHP.table_lookup(_j(table), _j(pool), _j(q), max_probe=max_probe,
