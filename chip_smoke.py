@@ -9,16 +9,29 @@ Phases, each of which exits non-zero on failure:
    the four CUDA kernels are built from ``src/repro_torch/kernels/csrc``
    (one nvcc each, started together).
 2. Kernel vs plain version on the card, bit for bit: ``recovery_scan`` on
-   random legal stages at N = 2^21, 2^23 and 2^21 + 3; ``hash_probe`` at
-   NB = 2^19, W = 8 over a table that ``build_buckets`` filled from a real
-   pool, B = 1024 and 65536, half present keys and half absent.  Each
-   kernel's median time (L2 flushed between launches), its plain version's
-   time and its bound from bytes moved at 3.35 TB/s.  Then both again at
-   the shapes the serving registry gives them: ``recovery_scan`` over its
-   pool of 1024 slots, ``hash_probe`` at the bucket geometry of its SOFT
-   1024-slot spec (NB 256, W 8) with B = 8, half present and half absent,
-   over a table holding 8 keys (the served requests) and one holding 1024
-   (a full registry).
+   random legal stages at N = 2^21, 2^23, 2^21 + 3, 8 (a padded delta)
+   and 2^16 (the queue's ring), then its wrapper's host cost by part; the
+   bucket lookup at NB = 2^19, W = 8 over a table that ``build_buckets``
+   filled from a real pool, B = 1024 and 65536, and at one shard's
+   (2^18 slots, B = 256), half present keys and half absent:
+   ``hp_lookup`` whole (one launch, the kernel hashing each key), the
+   kernel hashing and the kernel reading given buckets.  Each kernel's
+   median time (L2 flushed between launches), its plain version's time,
+   the timing floor (an empty launch) and its bound from bytes moved at
+   3.35 TB/s; the lookup's device and back-to-back wall ms, and its host
+   cost by part.  Then the hashed entry's edges, the card tests whose
+   names hold "hashed_probe" (NB 24, 64 and 1000; W 1, 3, 8 and 16; B 1,
+   7 and 257; unaligned tables; the map's table at B 65536).  Then both
+   kernels again at the shapes the serving registry gives them:
+   ``recovery_scan`` over its pool of 1024 slots, ``hash_probe`` at the
+   bucket geometry of its SOFT 1024-slot spec (NB 256, W 8) with B = 8,
+   half present and half absent, over a table holding 8 keys (the served
+   requests) and one holding 1024 (a full registry).
+   ``python3 chip_smoke.py --bucket-scan`` runs phase 1 and the
+   ``recovery_scan`` and bucket parts alone, to time two trees of these
+   kernels in turns (``tools/bucket_scan_tuning.py`` times the bucket
+   kernel's block sizes and reads both kernels' loads in flight from
+   their SASS).
    Then ``hash_probe``'s probe-window entry (``table_probe``, the probe
    backend's lookup) against its plain version, integers equal: on the
    table of a 2^21-slot probe map (T = 2^23, 2^19 members, built by
@@ -345,8 +358,10 @@ from repro_torch.kernels.hash_probe.kernel import (  # noqa: E402
     _lib, probe_cuda, table_probe_cuda)
 from repro_torch.kernels.hash_probe.ops import (bucket_of,  # noqa: E402
                                                 build_buckets)
+from repro_torch.kernels.hash_probe.ops import (  # noqa: E402
+    lookup as hp_lookup)
 from repro_torch.kernels.hash_probe.ref import (  # noqa: E402
-    probe_ref, table_lookup_ref, window_rows)
+    table_lookup_ref, window_rows)
 from repro_torch.kernels.recovery_scan.kernel import scan_cuda  # noqa: E402
 from repro_torch.kernels.recovery_scan.ref import scan_ref  # noqa: E402
 from repro_torch.data.pipeline import SyntheticTokens  # noqa: E402
@@ -466,11 +481,19 @@ def bytes_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def timing_floor(dev) -> float:
+    """Device ms of an empty launch (a one-cycle spin), timed as
+    ``time_ms`` times a kernel: the least time a launch shows."""
+    return time_ms(lambda: torch.cuda._sleep(1), dev)
+
+
 def check_scan(dev, sizes):
     """recovery_scan kernel vs plain at each N; returns the JSON fields
-    measured at the first (main-path) size."""
+    measured at the first (main-path) size, with the timing floor and,
+    given several sizes, each size's kernel ms."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    err, row = 0, None
+    err, row, by_n = 0, None, {}
+    floor = timing_floor(dev)
     for n in sizes:
         stages = torch.randint(0, 5, (n,), generator=gen, device=dev,
                                dtype=torch.int32)
@@ -486,18 +509,36 @@ def check_scan(dev, sizes):
         wall = wall_ms(lambda: scan_cuda(stages), dev)
         bound = bytes_ms(5 * n + 4 * 5)      # stages in, mask + hist out
         print(f"recovery_scan N={n}: equal; kernel {ms:.6f} ms, plain "
-              f"{plain:.6f} ms, bound {bound * 1e3:.3f} us (bytes); "
-              f"wrapper {wall:.6f} ms per call back to back")
+              f"{plain:.6f} ms, floor {floor:.6f} ms, bound "
+              f"{bound * 1e3:.3f} us (bytes); wrapper {wall:.6f} ms per "
+              "call back to back")
+        by_n[n] = ms
         if row is None:
-            row = dict(ms=ms, plain_ms=plain, bound_ms=bound)
+            row = dict(ms=ms, plain_ms=plain, bound_ms=bound, floor_ms=floor)
     row["max_abs_err"] = err
+    if len(sizes) > 1:
+        row["ms_by_n"] = by_n
     return row
 
 
-def check_probe(dev, capacity, key_range, live, nb, w, batches):
-    """hash_probe kernel vs plain over a table that build_buckets filled
-    from a pool of ``capacity`` slots holding ``live`` keys."""
-    rng = np.random.default_rng(SEED)
+def hashes_keys() -> bool:
+    """Whether this tree's ``probe_cuda`` takes no bucket operand (its
+    kernel then hashes each key).  ``--bucket-scan`` also runs in trees
+    from before that entry, where the lookup is timed whole and the read
+    entry alone.  Asked of the plain version, on CPU tensors."""
+    z = torch.zeros((1, 1), dtype=torch.int32)
+    try:
+        probe_cuda(z, z, None, z[0])
+    except (AttributeError, TypeError):
+        return False
+    return True
+
+
+def bucket_table(dev, capacity, key_range, live, nb, w):
+    """A (NB, W) table that build_buckets filled from a pool of
+    ``capacity`` slots holding ``live`` keys of ``key_range``: (pool keys
+    on the card, bkeys, bids, overflow count, the live keys)."""
+    rng = np.random.default_rng([SEED, capacity, nb])
     keys = np.zeros(capacity, np.int32)
     cur = np.zeros(capacity, np.int32)
     slots = rng.choice(capacity, live, replace=False)
@@ -507,41 +548,77 @@ def check_probe(dev, capacity, key_range, live, nb, w, batches):
     dkeys = torch.from_numpy(keys).to(dev)
     bkeys, bids, ovf = build_buckets(dkeys, torch.from_numpy(cur).to(dev),
                                      nb=nb, w=w)
+    return dkeys, bkeys, bids, int(ovf), live_keys
+
+
+def check_probe(dev, capacity, key_range, live, nb, w, batches,
+                hashed=True):
+    """The bucket lookup vs plain over a table that build_buckets filled
+    from a pool of ``capacity`` slots holding ``live`` keys, at each batch
+    (half present keys, half absent): ``hp_lookup`` whole, the kernel with
+    the buckets read (``bucket_of`` computed first) and, ``hashed``, with
+    the kernel hashing each key; each timed beside the plain lookup and
+    the timing floor.  Returns the first batch's row, with each later
+    batch's times beside it."""
+    rng = np.random.default_rng(SEED)
+    dkeys, bkeys, bids, ovf, live_keys = bucket_table(
+        dev, capacity, key_range, live, nb, w)
     print(f"hash_probe table: NB={nb} W={w}, {live} live keys, "
-          f"{int(ovf)} overflowed their bucket")
-    absent = np.setdiff1d(np.arange(key_range, dtype=np.int32), live_keys)
-    err, row = 0, None
+          f"{ovf} overflowed their bucket")
+    err, rows = 0, {}
+    floor = timing_floor(dev)
     for b in batches:
-        q = np.concatenate([rng.choice(live_keys, b // 2),
-                            rng.choice(absent, b - b // 2)]).astype(np.int32)
-        qk = torch.from_numpy(rng.permutation(q)).to(dev)
+        qk = _queries(rng, live_keys, key_range, b, dev)
         qb = bucket_of(qk, nb)
-        got = probe_cuda(bkeys, bids, qb, qk)
-        ref = probe_ref(bkeys, bids, qb, qk)
-        e = int((got - ref).abs().max())
-        expect(e == 0, f"hash_probe differs from plain at B={b}")
+        want = hp_lookup(bkeys, bids, qk, use_kernels=False)
+        outs = {"lookup": hp_lookup(bkeys, bids, qk),
+                "read": probe_cuda(bkeys, bids, qb, qk)}
+        if hashed:
+            outs["hashed"] = probe_cuda(bkeys, bids, None, qk)
+        for name, got in outs.items():
+            e = int((got - want).abs().max())
+            expect(e == 0, f"hash_probe ({name}) differs from plain at "
+                   f"B={b}")
+            err = max(err, e)
+        got = outs["lookup"]
         hit = got >= 0
         expect(bool((dkeys[got[hit].long()] == qk[hit]).all()),
                "hash_probe returned a node that holds another key")
         # a present key is missed only if it overflowed its bucket
         hits = int(hit.sum())
-        expect(hits == b // 2 or (int(ovf) > 0 and hits < b // 2),
+        expect(hits == b // 2 or (ovf > 0 and hits < b // 2),
                f"hash_probe found {hits} of {b // 2} present keys")
-        err = max(err, e)
-        ms = time_ms(lambda: probe_cuda(bkeys, bids, qb, qk), dev)
-        plain = time_ms(lambda: probe_ref(bkeys, bids, qb, qk), dev)
-        wall = wall_ms(lambda: probe_cuda(bkeys, bids, qb, qk), dev)
-        rows = int(torch.unique(qb).numel())
-        # queries (bucket, key) in, ids out, and each touched row's W keys
-        # and W ids read once
-        bound = bytes_ms(12 * b + rows * w * 8)
-        print(f"hash_probe B={b} ({rows} distinct rows): equal; kernel "
-              f"{ms:.6f} ms, plain {plain:.6f} ms, bound "
-              f"{bound * 1e3:.3f} us (bytes); wrapper {wall:.6f} ms per "
-              "call back to back")
-        if row is None:
-            row = dict(ms=ms, plain_ms=plain, bound_ms=bound)
-    row["max_abs_err"] = err
+        r = dict(
+            ms=(time_ms(lambda: probe_cuda(bkeys, bids, None, qk), dev)
+                if hashed else None),
+            read_ms=time_ms(lambda: probe_cuda(bkeys, bids, qb, qk), dev),
+            plain_ms=time_ms(lambda: hp_lookup(bkeys, bids, qk,
+                                               use_kernels=False), dev),
+            lookup_ms=time_ms(lambda: hp_lookup(bkeys, bids, qk), dev),
+            lookup_wall_ms=wall_ms(lambda: hp_lookup(bkeys, bids, qk), dev),
+            read_wall_ms=wall_ms(lambda: probe_cuda(bkeys, bids, qb, qk),
+                                 dev),
+            floor_ms=floor)
+        touched = int(torch.unique(qb).numel())
+        # the hashed entry: each key in and id out, and each touched row's
+        # W keys and W ids read once; the read entry also reads the bucket
+        r["bound_ms"] = bytes_ms(8 * b + touched * w * 8)
+        r["read_bound_ms"] = bytes_ms(12 * b + touched * w * 8)
+        hashed_txt = (f"kernel hashing {r['ms']:.6f} ms, " if hashed
+                      else "no hashed entry in this tree, ")
+        print(f"hash_probe B={b} ({touched} distinct rows): equal; "
+              f"{hashed_txt}kernel reading buckets {r['read_ms']:.6f} ms, "
+              f"hp_lookup {r['lookup_ms']:.6f} ms, plain lookup "
+              f"{r['plain_ms']:.6f} ms, floor {floor:.6f} ms, bound "
+              f"{r['bound_ms'] * 1e3:.3f} us (bytes; reading "
+              f"{r['read_bound_ms'] * 1e3:.3f}); hp_lookup "
+              f"{r['lookup_wall_ms']:.6f} ms and the reading wrapper "
+              f"{r['read_wall_ms']:.6f} ms per call back to back")
+        rows[b] = r
+    row = dict(rows[batches[0]], max_abs_err=err)
+    for b in batches[1:]:
+        row.update({f"{k}_b{b}": v for k, v in rows[b].items()
+                    if k != "floor_ms"})
     return row
 
 
@@ -699,19 +776,23 @@ def host_us(fn, dev, reps=200, repeats=7) -> float:
     return float(np.median(times))
 
 
-def table_probe_host_parts(dev, table, pool, q, max_probe=128):
-    """The host's cost of one ``table_probe_cuda`` call, by part, in
-    microseconds: the whole wrapper back to back, the wrapper at B = 0
-    (its argument checks and ``torch.empty``), and each later step in the
-    form the wrapper takes and in the per-call form it replaced; the
-    back-to-back ms per call of the whole wrapper as phase 2 prints it,
-    median of 11.  Returns the fields."""
-    lib = _lib()
-    out = torch.empty_like(q)
-    idx = table.device.index
-    args = (table, pool, q)
-    b, t, n = q.shape[0], table.shape[0], pool.shape[0]
-    fast = torch.cuda.current_stream().cuda_stream
+def host_parts(dev, label, parts, whole):
+    """Host microseconds per call of each part (``host_us``) and the
+    back-to-back ms per call of each ``whole`` part as phase 2 prints it,
+    median of 11; printed on one line and returned."""
+    us = {k: host_us(fn, dev) for k, fn in parts.items()}
+    walls = {k: float(np.median([wall_ms(parts[k], dev) for _ in range(11)]))
+             for k in whole}
+    print(f"{label} host us per call: " + "; ".join(
+        f"{k} {v:.3f}" for k, v in us.items()) + "".join(
+        f"; {k} ms per call back to back (median of 11) {v:.6f}"
+        for k, v in walls.items()))
+    return {"host_us": us, "wrapper_ms": walls}
+
+
+def _guards(idx):
+    """The device guard in the form the wrappers take (only for another
+    card) and in the per-call form they replaced."""
     same = contextlib.nullcontext()
 
     def guard_once():
@@ -720,8 +801,28 @@ def table_probe_host_parts(dev, table, pool, q, max_probe=128):
             pass
 
     def guard_always():
-        with torch.cuda.device(table.device):
+        with torch.cuda.device(idx):
             pass
+
+    return {"device guard if another card": guard_once,
+            "device guard (per-call form)": guard_always,
+            "raw current stream":
+                lambda: torch._C._cuda_getCurrentRawStream(idx),
+            "current_stream().cuda_stream (per-call form)":
+                lambda: torch.cuda.current_stream().cuda_stream}
+
+
+def table_probe_host_parts(dev, table, pool, q, max_probe=128):
+    """The host's cost of one ``table_probe_cuda`` call, by part, in
+    microseconds: the whole wrapper back to back, the wrapper at B = 0
+    (its argument checks and ``torch.empty``), and each later step in the
+    form the wrapper takes and in the per-call form it replaced; the
+    back-to-back ms per call of the whole wrapper."""
+    lib = _lib()
+    out = torch.empty_like(q)
+    args = (table, pool, q)
+    b, t, n = q.shape[0], table.shape[0], pool.shape[0]
+    fast = torch.cuda.current_stream().cuda_stream
 
     def launch():
         return lib.table_probe(table.data_ptr(), pool.data_ptr(),
@@ -736,22 +837,87 @@ def table_probe_host_parts(dev, table, pool, q, max_probe=128):
         "torch.empty": lambda: torch.empty((b,), dtype=torch.int32,
                                            device=dev),
         "contiguous() x3": lambda: [x.contiguous() for x in args],
-        "device guard if another card": guard_once,
-        "device guard (per-call form)": guard_always,
-        "raw current stream":
-            lambda: torch._C._cuda_getCurrentRawStream(idx),
-        "current_stream().cuda_stream (per-call form)":
-            lambda: torch.cuda.current_stream().cuda_stream,
+        **_guards(table.device.index),
         "ctypes launch (4 data_ptr + call)": launch,
         "_build.check": lambda: _build.check(lib, 0, "table_probe"),
     }
-    us = {k: host_us(fn, dev) for k, fn in parts.items()}
-    wall = float(np.median([wall_ms(parts["wrapper"], dev)
-                            for _ in range(11)]))
-    print("table_probe host us per call: " + "; ".join(
-        f"{k} {v:.3f}" for k, v in us.items())
-        + f"; wrapper ms per call back to back (median of 11) {wall:.6f}")
-    return {"host_us": us, "wrapper_ms": wall}
+    r = host_parts(dev, "table_probe", parts, ["wrapper"])
+    return {"host_us": r["host_us"], "wrapper_ms": r["wrapper_ms"]["wrapper"]}
+
+
+def bucket_host_parts(dev, bkeys, bids, q, hashed=True):
+    """The host's cost of one bucket lookup, by part, in microseconds:
+    ``hp_lookup`` whole, the wrapper with the buckets read and (``hashed``)
+    with none, the wrapper at B = 0 (its checks and ``torch.empty``), the
+    hash in PyTorch (``bucket_of``, which the hashed entry drops), and each
+    later step in the wrapper's form and in the per-call form it replaced;
+    the back-to-back ms per call of the lookup and the wrappers."""
+    lib = _lib()
+    out = torch.empty_like(q)
+    nb, w = bkeys.shape
+    b = q.shape[0]
+    qb = bucket_of(q, nb)
+    fast = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        return lib.hash_probe(bkeys.data_ptr(), bids.data_ptr(),
+                              qb.data_ptr(), q.data_ptr(), out.data_ptr(), b,
+                              nb, w, fast)
+
+    parts = {
+        "hp_lookup": lambda: hp_lookup(bkeys, bids, q),
+        "wrapper reading buckets": lambda: probe_cuda(bkeys, bids, qb, q),
+        **({"wrapper hashing": lambda: probe_cuda(bkeys, bids, None, q)}
+           if hashed else {}),
+        "wrapper at B=0 (checks + torch.empty)":
+            lambda: probe_cuda(bkeys, bids, qb[:0], q[:0]),
+        "bucket_of (the hash in PyTorch)": lambda: bucket_of(q, nb),
+        "torch.empty": lambda: torch.empty((b,), dtype=torch.int32,
+                                           device=dev),
+        "contiguous() x4": lambda: [x.contiguous()
+                                    for x in (bkeys, bids, qb, q)],
+        **_guards(bkeys.device.index),
+        "ctypes launch (5 data_ptr + call)": launch,
+        "_build.check": lambda: _build.check(lib, 0, "hash_probe"),
+    }
+    return host_parts(dev, "hash_probe", parts,
+                      [k for k in parts if k.startswith(("hp_", "wrapper "))
+                       and "B=0" not in k])
+
+
+def scan_host_parts(dev, stages):
+    """The host's cost of one ``scan_cuda`` call, by part, in
+    microseconds: the whole wrapper, its two ``torch.empty`` outputs, the
+    ``torch.zeros`` histogram it no longer launches, and each later step
+    in the wrapper's form and the per-call form it replaced; the
+    back-to-back ms per call of the wrapper."""
+    from repro_torch.kernels.recovery_scan.kernel import _lib as scan_lib
+    lib = scan_lib()
+    n = stages.shape[0]
+    mask = torch.empty((n,), dtype=torch.bool, device=dev)
+    hist = torch.empty((5,), dtype=torch.int32, device=dev)
+    # the kernel's bin words, where this tree's launcher takes them
+    bins = (torch.zeros((5,), dtype=torch.int64, device=dev).data_ptr(),) \
+        if len(lib.recovery_scan.argtypes) == 6 else ()
+    fast = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        return lib.recovery_scan(stages.data_ptr(), mask.data_ptr(),
+                                 hist.data_ptr(), *bins, n, fast)
+
+    parts = {
+        "wrapper": lambda: scan_cuda(stages),
+        "torch.empty x2": lambda: (
+            torch.empty((n,), dtype=torch.bool, device=dev),
+            torch.empty((5,), dtype=torch.int32, device=dev)),
+        "torch.zeros (the histogram's former fill)":
+            lambda: torch.zeros((5,), dtype=torch.int32, device=dev),
+        "contiguous()": stages.contiguous,
+        **_guards(stages.device.index),
+        "ctypes launch (3 data_ptr + call)": launch,
+        "_build.check": lambda: _build.check(lib, 0, "recovery_scan"),
+    }
+    return host_parts(dev, "recovery_scan", parts, ["wrapper"])
 
 
 def check_shard_table_probe(dev, cap, key_range, b):
@@ -846,6 +1012,48 @@ def probe_window_main() -> int:
     window, build_ms = check_table_probes(dev)
     print(smi)
     print(json.dumps({"probe_window": window, "table_build_ms": build_ms,
+                      "card": smi}))
+    return 0
+
+
+def check_bucket_scan(dev, hashed=True):
+    """Phase 2's ``recovery_scan`` and bucket parts at the main path's
+    shapes, each timed with the floor: the scan at the padded delta's N 8,
+    the queue's ring 2^16, the map's 2^21 and 2^23 (and 2^21 + 3, the
+    scalar tail), then its host cost by part; the bucket lookup on the
+    2^21-slot map's table (NB 2^19, W 8) at B 1024 and 65536 and on one
+    shard's (2^18 slots, B 256), then its host cost by part.  Returns
+    (scan row, bucket row)."""
+    scan = check_scan(dev, [1 << 21, 1 << 23, (1 << 21) + 3, 8, 1 << 16])
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    scan.update(scan_host_parts(dev, torch.randint(
+        0, 5, (1 << 16,), generator=gen, device=dev, dtype=torch.int32)))
+    probe = check_probe(dev, capacity=1 << 21, key_range=1 << 20,
+                        live=1 << 19, nb=1 << 19, w=8, batches=[1024, 65536],
+                        hashed=hashed)
+    per = (1 << 21) // N_SHARDS
+    nb_s, w_s = SetSpec(capacity=per, backend="bucket").bucket_geometry()
+    lanes = 2 * 1024 // N_SHARDS
+    shard = check_probe(dev, capacity=per, key_range=per // 2, live=per // 4,
+                        nb=nb_s, w=w_s, batches=[lanes], hashed=hashed)
+    probe.update({f"{k}_shard_b{lanes}": v for k, v in shard.items()
+                  if k != "max_abs_err"})
+    _, bk, bi, _, live_keys = bucket_table(dev, 1 << 21, 1 << 20, 1 << 19,
+                                           1 << 19, 8)
+    q = _queries(np.random.default_rng(SEED), live_keys, 1 << 20, 1024, dev)
+    probe.update(bucket_host_parts(dev, bk, bi, q, hashed))
+    return scan, probe
+
+
+def bucket_scan_main() -> int:
+    """``--bucket-scan``: phase 1's build and phase 2's ``recovery_scan``
+    and bucket parts alone (``check_bucket_scan``), for timing two trees
+    of these kernels in turns on one card."""
+    dev = torch.device("cuda")
+    smi = environment()
+    scan, probe = check_bucket_scan(dev, hashes_keys())
+    print(smi)
+    print(json.dumps({"recovery_scan": scan, "hash_probe": probe,
                       "card": smi}))
     return 0
 
@@ -3929,12 +4137,13 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--probe-window"]:
         return probe_window_main()
+    if sys.argv[1:] == ["--bucket-scan"]:
+        return bucket_scan_main()
     dev = torch.device("cuda")
     smi = environment()
 
-    scan = check_scan(dev, [1 << 21, 1 << 23, (1 << 21) + 3])
-    probe = check_probe(dev, capacity=1 << 21, key_range=1 << 20,
-                        live=1 << 19, nb=1 << 19, w=8, batches=[1024, 65536])
+    scan, probe = check_bucket_scan(dev)
+    run_card_tests("hash_probe hashed-entry edge card tests", "hashed_probe")
     # the serving registry's shapes (phase 6 drives them)
     reg = serve.REGISTRY_CAPACITY
     nb, w = SetSpec(capacity=reg, mode="soft",

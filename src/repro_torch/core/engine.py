@@ -6,7 +6,7 @@ on recovery; the index is a swappable backend:
 
   probe    linear probing over ``SetState.table`` (the default; the
            paper's hash-set runs).  On the card a lookup is the CUDA kernel
-           ``hash_probe.table_probe_cuda``, one warp per query over its
+           ``hash_probe.table_probe_cuda``, eight lanes a query over its
            whole probe window; writes claim and release slots with
            ``table_claim`` / ``table_release``; recovery runs
            ``recovery_scan.scan_cuda`` and rebuilds the table.
@@ -15,7 +15,8 @@ on recovery; the index is a swappable backend:
   bucket   set-associative (NB buckets x W ways) index carried in
            ``SetState``: built once at make_state/recovery, updated
            incrementally by the op bodies (O(B*W) scatter), and probed by
-           the CUDA kernel ``hash_probe.probe_cuda``; recovery runs the
+           the CUDA kernel ``hash_probe.probe_cuda``, which hashes each key
+           to its bucket itself (one launch a lookup); recovery runs the
            CUDA kernel ``recovery_scan.scan_cuda``.  Live nodes that
            overflow a bucket land in an exact dense stash the lookup also
            reads, so the backend is correct at any load factor.

@@ -10,6 +10,7 @@ load a half-written file.  A failed build raises: there is no fallback.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -18,6 +19,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -91,3 +94,15 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         msg = lib.cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} at launch: {msg}")
+
+
+# the device guard where the tensors' card is already the current one
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+def on_device(idx: int):
+    """The device guard for a launch on card ``idx``: none where it is the
+    current card, since a launch goes to the current device (entering
+    ``torch.cuda.device`` costs microseconds a call)."""
+    return (_SAME_DEVICE if idx == torch.cuda.current_device()
+            else torch.cuda.device(idx))

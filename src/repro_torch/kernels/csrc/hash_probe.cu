@@ -1,26 +1,50 @@
 // Hash-table probes: the two routes of the Pallas kernel `probe_pallas` /
 // `_probe_kernel` of src/repro/kernels/hash_probe/kernel.py, one entry each.
 //
-// hash_probe: the bucket backend's lookup.  For each query (bucket, key),
-// the node id of the way whose key matches the query in its bucket row,
-// else -1 (the max over matching ways; ids are unique, empty ways hold -1).
+// hash_probe: the bucket backend's lookup, the whole of the JAX package's
+// `ops.lookup` (src/repro/kernels/hash_probe/ops.py): for each query key q,
+// its bucket qb = hash32(q) % NB, then the node id of the way of row qb
+// whose key equals q, else -1 (the max over matching ways; ids are unique,
+// empty ways hold -1).  One kernel body serves two sources of the bucket, a
+// template parameter: "computed" (the hash above, in uint32, any NB >= 1),
+// the engine's lookup; and "read" (a given q_bucket operand, the literal
+// function of `probe_pallas`, where a bucket outside [0, NB) matches
+// nothing), which the TPU route carried over at W = 128 and the tests use.
 //
 // The TPU kernel turns the random bucket gather into a one-hot matrix
 // product on the matrix unit, with keys split into 16-bit halves so that
 // they survive float32, and sweeps every bucket tile for every query
 // tile.  None of that is needed here: one thread per query reads its own
 // bucket row directly, so the work is O(B * W) instead of O(B * NB * W),
-// and keys and ids stay int32 (no 2^24 id budget).
+// and keys and ids stay int32 (no 2^24 id budget).  The JAX package hashes
+// in the wrapper; here the hash is computed in the kernel, so the lookup
+// is one launch and no (B,) bucket plane or int64 temporaries of the
+// hash reach device memory.
 //
-// Bound on an H100: memory.  The function must read each query's bucket
-// index and key (8 bytes), the W keys and W ids of each distinct bucket row
-// it touches (8 W bytes), and write one id (4 bytes); the compares are
-// negligible.  The design serves that bound:
-//   * a row is read with 16-byte int4 loads when W % 4 == 0 and the table
-//     is 16-byte aligned (two loads of keys and two of ids at W = 8), else
-//     with scalar loads;
-//   * queries are independent, so there is no shared memory, no atomics and
-//     no synchronisation; a block of 256 threads covers 256 queries.
+// Bound on an H100.  By bytes: each query key in and id out (8 bytes), and
+// the W keys and W ids of each distinct row touched (64 bytes at W = 8);
+// the hash and compares are a few dozen integer operations a query.  At
+// the map's batches (B 1024, a shard's 256) the bytes take well under a
+// tenth of a microsecond, so latency bounds the launch: each query is two
+// dependent round trips to device memory, its key and then its row (the
+// key's hash says where).  At B 65536 over NB 2^19 rows the rows are
+// random 32-byte sectors, two a query, with no reuse to speak of.  The
+// design keeps every query to those two trips:
+//   * a row whose W is a multiple of 4, in a 16-byte aligned table (every
+//     spec of the port: SetSpec.bucket_width = 8), is read by int4 pairs
+//     of keys and ids, else by scalars.  At W = 8 ptxas issues the row's
+//     four 16-byte loads together, before any compare: the loop needs no
+//     width of its own (the SASS, PERF.md);
+//   * queries are independent: no shared memory, no atomics, no
+//     synchronisation;
+//   * 64-thread blocks: a shard's B 256 spreads over 4 SMs and B 1024 over
+//     16, where 256-thread blocks put them on 1 and 4.  Every block is a
+//     chain of two trips however few queries it holds, so more blocks
+//     only add SMs in flight; 64, 128 and 256 threads were timed at B
+//     256, 1024 and 65536 (PERF.md).
+// Not TMA, `wgmma` or shared memory: the rows are 64-byte gathers at
+// addresses known only after the key's hash, read once each.  There is no
+// tile to stage, nothing a block reads twice, and no product.
 //
 // table_probe: the probe backend's lookup (the JAX package's
 // `table_lookup`, src/repro/kernels/hash_probe/ops.py, which gathers each
@@ -85,42 +109,74 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kBucketThreads = 64;
 
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
+// The JAX package's hash32 (splitmix-style avalanche) in uint32.
+__device__ __forceinline__ unsigned hash32(unsigned x) {
+  x = (x ^ (x >> 16)) * 0x7FEB352Du;
+  x = (x ^ (x >> 15)) * 0x846CA68Bu;
+  return x ^ (x >> 16);
+}
+
+__device__ __forceinline__ int match4(const int4& k, const int4& d, int q,
+                                      int best) {
+  if (d.x >= 0 && k.x == q) best = max(best, d.x);
+  if (d.y >= 0 && k.y == q) best = max(best, d.y);
+  if (d.z >= 0 && k.z == q) best = max(best, d.z);
+  if (d.w >= 0 && k.w == q) best = max(best, d.w);
+  return best;
+}
+
+// kHash: the bucket is hash32(q) % nb; else it is read from q_bucket.
+// kVec: the row is read by int4 pairs (W % 4 == 0, 16-byte aligned).
+template <bool kHash, bool kVec>
+__global__ void __launch_bounds__(kBucketThreads)
 hash_probe_kernel(const int* __restrict__ bucket_keys,
                   const int* __restrict__ bucket_ids,
                   const int* __restrict__ q_bucket,
                   const int* __restrict__ q_keys, int* __restrict__ out,
-                  int b, int nb, int w) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+                  int b, unsigned nb, int w) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kBucketThreads + threadIdx.x;
   if (i >= b) return;
-  const int qb = __ldg(q_bucket + i);
   const int q = __ldg(q_keys + i);
+  unsigned qb;
+  if (kHash) {
+    qb = hash32(static_cast<unsigned>(q)) % nb;
+  } else {
+    qb = static_cast<unsigned>(__ldg(q_bucket + i));
+    if (qb >= nb) {   // out-of-range buckets (negative too) match nothing
+      out[i] = -1;
+      return;
+    }
+  }
+  const long long row = static_cast<long long>(qb) * w;
   int best = -1;
-  if (qb >= 0 && qb < nb) {   // out-of-range buckets match nothing
-    const long long row = (long long)qb * w;
-    if (kVec) {
-      const int4* k4 = reinterpret_cast<const int4*>(bucket_keys + row);
-      const int4* d4 = reinterpret_cast<const int4*>(bucket_ids + row);
-      for (int j = 0; j < w / 4; ++j) {
-        const int4 k = __ldg(k4 + j);
-        const int4 d = __ldg(d4 + j);
-        if (d.x >= 0 && k.x == q) best = max(best, d.x);
-        if (d.y >= 0 && k.y == q) best = max(best, d.y);
-        if (d.z >= 0 && k.z == q) best = max(best, d.z);
-        if (d.w >= 0 && k.w == q) best = max(best, d.w);
-      }
-    } else {
-      for (int j = 0; j < w; ++j) {
-        const int k = __ldg(bucket_keys + row + j);
-        const int d = __ldg(bucket_ids + row + j);
-        if (d >= 0 && k == q) best = max(best, d);
-      }
+  if (kVec) {
+    const int4* k4 = reinterpret_cast<const int4*>(bucket_keys + row);
+    const int4* d4 = reinterpret_cast<const int4*>(bucket_ids + row);
+    for (int j = 0; j < w / 4; ++j)
+      best = match4(__ldg(k4 + j), __ldg(d4 + j), q, best);
+  } else {
+    for (int j = 0; j < w; ++j) {
+      const int k = __ldg(bucket_keys + row + j);
+      const int d = __ldg(bucket_ids + row + j);
+      if (d >= 0 && k == q) best = max(best, d);
     }
   }
   out[i] = best;
+}
+
+template <bool kHash>
+void launch_hash_probe(bool vec, unsigned blocks, cudaStream_t s,
+                       const int* bk, const int* bi, const int* qb,
+                       const int* qk, int* o, int b, unsigned nb, int w) {
+  if (vec)
+    hash_probe_kernel<kHash, true><<<blocks, kBucketThreads, 0, s>>>(
+        bk, bi, qb, qk, o, b, nb, w);
+  else
+    hash_probe_kernel<kHash, false><<<blocks, kBucketThreads, 0, s>>>(
+        bk, bi, qb, qk, o, b, nb, w);
 }
 
 
@@ -129,13 +185,6 @@ constexpr int kProbeLoads = 5;     // K: window loads a lane holds in flight
 constexpr int kProbeGroups = kProbeLanes * kProbeLoads;  // groups a pass
 constexpr int kProbeThreads = 64;
 constexpr int kProbeQueries = kProbeThreads / kProbeLanes;  // a block's
-
-// The JAX package's hash32 (splitmix-style avalanche) in uint32.
-__device__ __forceinline__ unsigned hash32(unsigned x) {
-  x = (x ^ (x >> 16)) * 0x7FEB352Du;
-  x = (x ^ (x >> 15)) * 0x846CA68Bu;
-  return x ^ (x >> 16);
-}
 
 __device__ __forceinline__ int slot_of(const int4& v, int c) {
   return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
@@ -198,27 +247,32 @@ table_probe_kernel(const int* __restrict__ table,
 
 }  // namespace
 
-// bucket_keys, bucket_ids: int32[nb, w]; q_bucket, q_keys, out: int32[b].
+// bucket_keys, bucket_ids: int32[nb, w]; q_keys, out: int32[b]; q_bucket:
+// int32[b], or null for the buckets hash32(q) % nb (then nb >= 1).
 extern "C" int hash_probe(const void* bucket_keys, const void* bucket_ids,
                           const void* q_bucket, const void* q_keys, void* out,
                           int b, int nb, int w, void* stream) {
   if (b <= 0) return (int)cudaGetLastError();
-  const bool vec = (w % 4 == 0) &&
-                   (reinterpret_cast<uintptr_t>(bucket_keys) % 16 == 0) &&
-                   (reinterpret_cast<uintptr_t>(bucket_ids) % 16 == 0);
-  const unsigned blocks = (unsigned)((b + kThreads - 1) / kThreads);
+  if (nb < 0 || w < 0 || (q_bucket == nullptr && nb == 0))
+    return (int)cudaErrorInvalidValue;
+  const bool aligned =
+      (reinterpret_cast<uintptr_t>(bucket_keys) % 16 == 0) &&
+      (reinterpret_cast<uintptr_t>(bucket_ids) % 16 == 0);
+  const bool vec = aligned && w % 4 == 0;
+  const unsigned blocks =
+      (unsigned)(((long long)b + kBucketThreads - 1) / kBucketThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* bk = static_cast<const int*>(bucket_keys);
   const int* bi = static_cast<const int*>(bucket_ids);
   const int* qb = static_cast<const int*>(q_bucket);
   const int* qk = static_cast<const int*>(q_keys);
   int* o = static_cast<int*>(out);
-  if (vec)
-    hash_probe_kernel<true><<<blocks, kThreads, 0, s>>>(bk, bi, qb, qk, o, b,
-                                                        nb, w);
+  if (qb == nullptr)
+    launch_hash_probe<true>(vec, blocks, s, bk, bi, qb, qk, o, b,
+                            (unsigned)nb, w);
   else
-    hash_probe_kernel<false><<<blocks, kThreads, 0, s>>>(bk, bi, qb, qk, o, b,
-                                                         nb, w);
+    launch_hash_probe<false>(vec, blocks, s, bk, bi, qb, qk, o, b,
+                             (unsigned)nb, w);
   return (int)cudaGetLastError();
 }
 

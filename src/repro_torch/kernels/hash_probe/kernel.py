@@ -6,7 +6,10 @@ its design serves that.
 
   probe_cuda        the "bucket" backend's lookup: the volatile index is a
                     set-associative table (NB buckets x W ways) and each
-                    query reads the row of its bucket.
+                    query reads the row of its bucket.  Given no bucket
+                    operand, the kernel hashes each key to its bucket
+                    itself (``hash32(q) % NB``, the JAX package's
+                    ``ops.lookup``), so the lookup is one launch.
   table_probe_cuda  the "probe" backend's lookup: each query reads its
                     ``max_probe``-slot window of the linear-probe table.
 
@@ -17,9 +20,9 @@ launches.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -44,46 +47,58 @@ def _lib():
 
 
 @functools.cache
-def _table_probe_launcher():
-    """``table_probe``'s C launcher and the query of a card's current stream
-    as a raw handle, resolved once.  ``torch.cuda.current_stream()`` builds
-    a Stream object on every call; the launcher takes only the handle, the
+def _launchers():
+    """The two C launchers and the query of a card's current stream as a
+    raw handle, resolved once.  ``torch.cuda.current_stream()`` builds a
+    Stream object on every call; the launchers take only the handle, the
     one PyTorch's own generated launchers pass."""
-    return _lib().table_probe, torch._C._cuda_getCurrentRawStream
-
-
-# the device guard where the tensors' card is already the current one
-_SAME_DEVICE = contextlib.nullcontext()
+    lib = _lib()
+    return lib.hash_probe, lib.table_probe, torch._C._cuda_getCurrentRawStream
 
 
 def probe_cuda(bucket_keys: torch.Tensor, bucket_ids: torch.Tensor,
-               q_bucket: torch.Tensor, q_keys: torch.Tensor) -> torch.Tensor:
+               q_bucket: Optional[torch.Tensor], q_keys: torch.Tensor
+               ) -> torch.Tensor:
     """Node id per query, or -1.  Shapes: bucket_keys/bucket_ids i32[NB, W];
-    q_bucket/q_keys i32[B].  Any NB, W and B: the TPU kernel's tile
-    divisibility does not apply."""
-    args = (bucket_keys, bucket_ids, q_bucket, q_keys)
-    if all(t.device.type == "cpu" for t in args):
-        return probe_ref(*args)
+    q_keys i32[B]; q_bucket i32[B], the row of each query (one outside
+    [0, NB) matches nothing), or None for ``hash32(q) % NB`` (the bucket
+    backend's lookup; NB >= 1), which the kernel then computes itself.  Any
+    NB, W and B: the TPU kernel's tile divisibility does not apply."""
     dev = bucket_keys.device
-    if dev.type != "cuda" or any(t.device != dev for t in args):
+    if (dev.type == "cpu" and bucket_ids.device.type == "cpu"
+            and q_keys.device.type == "cpu"
+            and (q_bucket is None or q_bucket.device.type == "cpu")):
+        return probe_ref(bucket_keys, bucket_ids, q_bucket, q_keys)
+    if (dev.type != "cuda" or bucket_ids.device != dev
+            or q_keys.device != dev
+            or (q_bucket is not None and q_bucket.device != dev)):
         raise ValueError("probe_cuda: all tensors must be on one CUDA device")
-    if any(t.dtype != torch.int32 for t in args):
+    if (bucket_keys.dtype != torch.int32 or bucket_ids.dtype != torch.int32
+            or q_keys.dtype != torch.int32
+            or (q_bucket is not None and q_bucket.dtype != torch.int32)):
         raise ValueError("probe_cuda: expected int32 tensors")
     if (bucket_keys.dim() != 2 or bucket_ids.shape != bucket_keys.shape
-            or q_bucket.dim() != 1 or q_keys.shape != q_bucket.shape):
+            or q_keys.dim() != 1
+            or (q_bucket is not None and q_bucket.shape != q_keys.shape)):
         raise ValueError("probe_cuda: expected i32[NB, W] tables and i32[B] "
                          "queries")
-    bucket_keys, bucket_ids, q_bucket, q_keys = (t.contiguous() for t in args)
     nb, w = bucket_keys.shape
+    if q_bucket is None and nb == 0:
+        raise ValueError("probe_cuda: no bucket to hash a key into (NB = 0)")
     b = q_keys.shape[0]
     out = torch.empty((b,), dtype=torch.int32, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.hash_probe(bucket_keys.data_ptr(), bucket_ids.data_ptr(),
-                             q_bucket.data_ptr(), q_keys.data_ptr(),
-                             out.data_ptr(), b, nb, w, stream)
-    _build.check(lib, err, "hash_probe")
+    if b == 0:
+        return out
+    bucket_keys, bucket_ids, q_keys = (
+        x.contiguous() for x in (bucket_keys, bucket_ids, q_keys))
+    qb = 0 if q_bucket is None else q_bucket.contiguous().data_ptr()
+    launch, _, raw_stream = _launchers()
+    idx = dev.index
+    with _build.on_device(idx):
+        err = launch(bucket_keys.data_ptr(), bucket_ids.data_ptr(), qb,
+                     q_keys.data_ptr(), out.data_ptr(), b, nb, w,
+                     raw_stream(idx))
+    _build.check(_lib(), err, "hash_probe")
     probe_cuda.launches += 1
     return out
 
@@ -129,11 +144,9 @@ def table_probe_cuda(table: torch.Tensor, pool_keys: torch.Tensor,
     # the window arrives by 16-byte loads: from an aligned start
     if table.data_ptr() % 16:
         table = table.clone(memory_format=torch.contiguous_format)
-    launch, raw_stream = _table_probe_launcher()
+    _, launch, raw_stream = _launchers()
     idx = dev.index
-    # the launch goes to the current device: switch only to another card
-    with (_SAME_DEVICE if idx == torch.cuda.current_device()
-          else torch.cuda.device(idx)):
+    with _build.on_device(idx):
         err = launch(table.data_ptr(), pool_keys.data_ptr(),
                      q_keys.data_ptr(), out.data_ptr(), b, t, n, max_probe,
                      raw_stream(idx))

@@ -12,7 +12,8 @@ Two regimes:
                slot) on delete.
 
 ``lookup`` is then a pure read of the carried table through the CUDA kernel
-``probe_cuda`` (or the plain reference).  Every function returns the same
+``probe_cuda``, which computes each key's bucket itself (or the plain
+reference).  Every function returns the same
 values, at the same dtypes, as its counterpart in
 ``repro.kernels.hash_probe.ops``.  The JAX package's ``table_lookup`` (the
 probe backend's read) is ``kernel.table_probe_cuda`` here, with its plain
@@ -25,16 +26,11 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.drop import set_drop, where_sized
-from repro_torch.core.nvm import hash32, EMPTY, VALID
+from repro_torch.core.nvm import EMPTY, VALID
 from repro_torch.kernels.hash_probe.kernel import probe_cuda
-from repro_torch.kernels.hash_probe.ref import probe_ref
+from repro_torch.kernels.hash_probe.ref import bucket_of, probe_ref
 
 _I32 = torch.int32
-
-
-def bucket_of(keys: torch.Tensor, nb: int) -> torch.Tensor:
-    """Bucket index i32 of each key in an nb-bucket table."""
-    return (hash32(keys) % nb).to(_I32)
 
 
 def build_buckets(keys: torch.Tensor, cur: torch.Tensor, nb: int = 1024,
@@ -179,10 +175,10 @@ def bucket_remove(bkeys, bids, skeys, sids, stash_n, keys, ids, do):
 
 
 def lookup(bucket_keys, bucket_ids, q_keys, *, use_kernels=True):
-    """Node id per query key through the bucket table, or -1.  With
-    ``use_kernels`` the call goes through ``probe_cuda``: the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors."""
-    qb = bucket_of(q_keys, bucket_keys.shape[0])
+    """Node id per query key through the bucket table, or -1: each key's
+    row is its ``bucket_of``.  With ``use_kernels`` the call goes through
+    ``probe_cuda``, which on CUDA tensors hashes and probes in one kernel
+    launch and on CPU tensors runs the plain version."""
     if use_kernels:
-        return probe_cuda(bucket_keys, bucket_ids, qb, q_keys)
-    return probe_ref(bucket_keys, bucket_ids, qb, q_keys)
+        return probe_cuda(bucket_keys, bucket_ids, None, q_keys)
+    return probe_ref(bucket_keys, bucket_ids, None, q_keys)

@@ -1,17 +1,29 @@
 """Plain PyTorch versions of the hash-probe lookups."""
+from typing import Optional
+
 import torch
 
 from repro_torch.core.nvm import EMPTY, hash32
 
 
+def bucket_of(keys: torch.Tensor, nb: int) -> torch.Tensor:
+    """Bucket index i32 of each key in an nb-bucket table: hash32(key) % nb,
+    as the JAX package's ``ops.lookup`` computes it in uint32."""
+    return (hash32(keys) % nb).to(torch.int32)
+
+
 def probe_ref(bucket_keys: torch.Tensor, bucket_ids: torch.Tensor,
-              q_bucket: torch.Tensor, q_keys: torch.Tensor) -> torch.Tensor:
+              q_bucket: Optional[torch.Tensor], q_keys: torch.Tensor
+              ) -> torch.Tensor:
     """Direct-gather reference.
 
     bucket_keys i32[NB, W], bucket_ids i32[NB, W] (-1 == empty way),
-    q_bucket i32[B] (bucket index per query), q_keys i32[B].
+    q_bucket i32[B] (bucket index per query), or None for each key's
+    :func:`bucket_of`, q_keys i32[B].
     Returns node id per query or -1.
     """
+    if q_bucket is None:
+        q_bucket = bucket_of(q_keys, bucket_keys.shape[0])
     rows_k = bucket_keys[q_bucket]          # (B, W)
     rows_i = bucket_ids[q_bucket]           # (B, W)
     match = (rows_i >= 0) & (rows_k == q_keys[:, None])

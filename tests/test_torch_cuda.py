@@ -28,6 +28,8 @@ from repro_torch.kernels.hash_probe.kernel import (  # noqa: E402
     probe_cuda, table_probe_cuda)
 from repro_torch.kernels.hash_probe.ops import (bucket_of,  # noqa: E402
                                                 build_buckets)
+from repro_torch.kernels.hash_probe.ops import (  # noqa: E402
+    lookup as hp_lookup)
 from repro_torch.kernels.hash_probe.ref import (probe_ref,  # noqa: E402
                                                 table_lookup_ref)
 from repro_torch.kernels.recovery_scan.kernel import scan_cuda  # noqa: E402
@@ -51,11 +53,14 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n", (1, 3, 4, 1000, 4096 + 3, 1 << 20))
+@pytest.mark.parametrize("n", (0, 1, 3, 4, 5, 1000, 4096 + 3,
+                               (1 << 12) - 1, (1 << 12) + 1, (1 << 16) - 1,
+                               (1 << 16) + 1, 1 << 20, (1 << 21) + 3,
+                               1 << 23))
 @pytest.mark.parametrize("offset", (0, 1))
 def test_scan_kernel_matches_plain(cuda, n, offset):
-    """Any N, aligned or not (a view one element in takes the scalar
-    path)."""
+    """Any N, 0 included, aligned or not (a view one element in takes the
+    scalar path)."""
     rng = np.random.default_rng(n)
     base = torch.from_numpy(rng.integers(0, 5, n + offset).astype(np.int32))
     stages = base.to(cuda)[offset:]
@@ -86,6 +91,172 @@ def test_probe_kernel_matches_plain(cuda, nb, w, b):
     assert probe_cuda.launches == before + 1
     torch.cuda.synchronize()
     assert torch.equal(got, probe_ref(bk, bi, qb, q))
+
+
+def _hashed_table(rng, nb, w, b):
+    """An arbitrary (NB, W) table and b queries: negative, large and
+    extreme keys, half of them written into one or two ways of their
+    hashed row with a live id (two: the max over matches decides), the
+    rest absent; EMPTY in a quarter of the ways.  Ids stay below 2^24,
+    the JAX kernel's f32 budget: tests/test_torch_hash_probe.py builds
+    its CPU parity cases here too."""
+    lim = np.iinfo(np.int32)
+    bkeys = rng.integers(lim.min, lim.max, (nb, w), dtype=np.int64)
+    bids = rng.integers(0, 1 << 24, (nb, w))
+    bids[rng.random((nb, w)) < 0.25] = EMPTY
+    q = rng.integers(lim.min, lim.max, b, dtype=np.int64)
+    q[: min(b, 4)] = [lim.min, lim.max, -1, 0][: min(b, 4)]
+    q[4:b // 2] = rng.integers(-(1 << 12), 1 << 12, max(0, b // 2 - 4))
+    q = q.astype(np.int32)
+    rows = (np_hash32(q) % np.uint32(nb)).astype(np.int64)
+    hit = np.flatnonzero(rng.random(b) < 0.5)
+    ways = rng.integers(0, w, (hit.size, 2))
+    bkeys[rows[hit], ways[:, 0]] = bkeys[rows[hit], ways[:, 1]] = q[hit]
+    bids[rows[hit], ways[:, 0]] = rng.integers(0, 1 << 24, hit.size)
+    bids[rows[hit], ways[:, 1]] = rng.integers(-1, 1 << 24, hit.size)
+    return bkeys.astype(np.int32), bids.astype(np.int32), q
+
+
+@pytest.mark.parametrize("b", (1, 7, 257))
+@pytest.mark.parametrize("w", (1, 3, 8, 16))
+@pytest.mark.parametrize("nb", (24, 64, 1000))
+def test_hashed_probe_kernel_matches_plain(cuda, nb, w, b):
+    """The bucket entry hashing each key itself (no bucket operand) equals
+    its plain version, bit for bit, at NB a power of two or not, every
+    row-read path (W 8, W 16 by int4 pairs, W 1 and 3 by scalars) and B
+    not a multiple of a block; one launch a call."""
+    rng = np.random.default_rng([nb, w, b])
+    bk, bi, q = (torch.from_numpy(a).to(cuda)
+                 for a in _hashed_table(rng, nb, w, b))
+    before = probe_cuda.launches
+    got = probe_cuda(bk, bi, None, q)
+    assert probe_cuda.launches == before + 1
+    want = probe_ref(bk, bi, None, q)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(want, probe_ref(bk, bi, bucket_of(q, nb), q))
+
+
+@pytest.mark.parametrize("w", (8, 16))
+def test_hashed_probe_kernel_reads_an_unaligned_table(cuda, w):
+    """Tables that do not start on 16 bytes take the scalar path, for both
+    bucket sources; a table of no bucket cannot be hashed into."""
+    rng = np.random.default_rng(w)
+    nb, b = 1000, 257
+    bkeys, bids, q = _hashed_table(rng, nb, w, b)
+    flat = [torch.from_numpy(np.concatenate([[0], a.ravel()]).astype(
+        np.int32)).to(cuda)[1:].view(nb, w) for a in (bkeys, bids)]
+    bk, bi = flat
+    assert bk.data_ptr() % 16 and bi.data_ptr() % 16
+    q = torch.from_numpy(q).to(cuda)
+    qb = bucket_of(q, nb)
+    got = probe_cuda(bk, bi, None, q)
+    got_read = probe_cuda(bk, bi, qb, q)
+    torch.cuda.synchronize()
+    want = probe_ref(bk, bi, None, q)
+    assert torch.equal(got, want) and torch.equal(got_read, want)
+    with pytest.raises(ValueError, match="NB = 0"):
+        probe_cuda(bk[:0], bi[:0], None, q)
+
+
+def test_hashed_probe_kernel_at_the_map_table(cuda):
+    """NB 2^19, W 8 (the 2^21-slot map's geometry), a table build_buckets
+    filled from a pool of 2^21 slots with 2^19 live keys, B 65536, half
+    present: the hashed entry equals the plain version and the read entry
+    over ``bucket_of``, and finds every present key that did not
+    overflow."""
+    rng = np.random.default_rng(19)
+    cap, nb, w, b = 1 << 21, 1 << 19, 8, 1 << 16
+    keys = np.zeros(cap, np.int32)
+    cur = np.zeros(cap, np.int32)
+    slots = rng.choice(cap, 1 << 19, replace=False)
+    live = rng.choice(1 << 20, 1 << 19, replace=False).astype(np.int32)
+    keys[slots], cur[slots] = live, 3
+    bk, bi, ovf = build_buckets(torch.from_numpy(keys).to(cuda),
+                                torch.from_numpy(cur).to(cuda), nb=nb, w=w)
+    q = np.concatenate([rng.choice(live, b // 2),
+                        rng.integers(1 << 20, 1 << 21, b - b // 2)])
+    q = torch.from_numpy(rng.permutation(q).astype(np.int32)).to(cuda)
+    got = probe_cuda(bk, bi, None, q)
+    want = probe_ref(bk, bi, None, q)
+    read = probe_cuda(bk, bi, bucket_of(q, nb), q)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(read, want)
+    hits = int((got >= 0).sum())
+    assert hits == b // 2 or (int(ovf) > 0 and hits < b // 2)
+
+
+def test_scan_kernel_back_to_back_keeps_its_histogram_exact(cuda):
+    """1000 scans on one stream, of grids of one block and of many, with no
+    synchronization between them: every histogram is exact, so the
+    stream's bin words are back at 0 after each launch."""
+    rng = np.random.default_rng(1000)
+    sizes = (5, 4096, (1 << 16) + 1, (1 << 20) + 3)
+    stages = [torch.from_numpy(rng.integers(-1, 6, n).astype(np.int32))
+              .to(cuda) for n in sizes]
+    want = [scan_ref(x)[1] for x in stages]
+    # scan_ref clips out-of-range stages into bins 0 and 4; the kernel
+    # counts exact matches of 0..4, as the TPU kernel does
+    exact = [torch.stack([(x == k).sum() for k in range(5)]).int()
+             for x in stages]
+    assert any(not torch.equal(a, e) for a, e in zip(want, exact))
+    hists = [scan_cuda(stages[i % len(sizes)])[1] for i in range(1000)]
+    torch.cuda.synchronize()
+    for i, h in enumerate(hists):
+        assert torch.equal(h, exact[i % len(sizes)]), i
+
+
+def test_scan_kernel_on_two_streams_keeps_each_histogram_exact(cuda):
+    """Scans enqueued on two streams at once, with no synchronization
+    between them, each get an exact histogram: every stream has its own
+    bin words, so the blocks of two scans never add into one word."""
+    rng = np.random.default_rng(2)
+    sizes = ((1 << 20) + 3, (1 << 16) + 1)
+    stages = [torch.from_numpy(rng.integers(0, 5, n).astype(np.int32))
+              .to(cuda) for n in sizes]
+    exact = [scan_ref(x)[1] for x in stages]
+    streams = [torch.cuda.Stream() for _ in sizes]
+    hists = [[] for _ in sizes]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(200):
+        for j, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                hists[j].append(scan_cuda(stages[j])[1])
+    torch.cuda.synchronize()
+    for j, hs in enumerate(hists):
+        for i, h in enumerate(hs):
+            assert torch.equal(h, exact[j]), (j, i)
+
+
+def _device_ops(fn):
+    """Names of the device operations (kernels, copies, fills) that one
+    warm call of ``fn`` runs, from ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def test_lookup_and_scan_are_one_device_operation_each(cuda):
+    """``hp_ops.lookup`` (hash and probe) and ``scan_cuda`` (mask and every
+    bin of the histogram) each run exactly one device operation."""
+    rng = np.random.default_rng(4)
+    bk, bi, q = (torch.from_numpy(a).to(cuda)
+                 for a in _hashed_table(rng, 1 << 10, 8, 1024))
+    stages = torch.from_numpy(rng.integers(0, 5, 1 << 21).astype(
+        np.int32)).to(cuda)
+    lookup_ops = _device_ops(lambda: hp_lookup(bk, bi, q))
+    scan_ops = _device_ops(lambda: scan_cuda(stages))
+    assert len(lookup_ops) == 1 and "hash_probe" in lookup_ops[0], \
+        lookup_ops
+    assert len(scan_ops) == 1 and "recovery_scan" in scan_ops[0], scan_ops
 
 
 def _probe_table(rng, t, n, fill, tomb=0.0, dense=0, wrap=False, b=8,

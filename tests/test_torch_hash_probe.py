@@ -15,6 +15,7 @@ from repro.kernels.hash_probe.kernel import probe_pallas  # noqa: E402
 import repro_torch.kernels.hash_probe.ops as T  # noqa: E402
 from repro_torch.kernels.hash_probe.kernel import probe_cuda  # noqa: E402
 from repro_torch.kernels.hash_probe.ref import probe_ref  # noqa: E402
+from test_torch_cuda import _hashed_table  # noqa: E402
 
 
 def _t(a):
@@ -157,3 +158,37 @@ def test_bucket_insert_remove_sequence_matches(stash):
                     del live[int(i)]
     assert spilled > 0
     assert overflowed or stash > 3
+
+
+@pytest.fixture(scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port while the hashed-lookup cases run:
+    their operations are tiny, and with several test workers on one host
+    each op spread over every core spends its time waiting on the others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("b", (1, 7, 257))
+@pytest.mark.parametrize("w", (1, 3, 8, 16))
+@pytest.mark.parametrize("nb", (24, 64, 1000))
+def test_hashed_lookup_matches_jax_lookup(_one_torch_thread, nb, w, b):
+    """``probe_cuda`` given no bucket operand (each key hashed to
+    hash32(q) % NB, NB a power of two or not) and ``ops.lookup`` on CPU
+    tensors equal the JAX package's ``ops.lookup`` (``probe_pallas`` in
+    interpret mode), bit for bit, and count no launch."""
+    rng = np.random.default_rng([nb, w, b])
+    bkeys, bids, q = _hashed_table(rng, nb, w, b)
+    want = J.lookup(jnp.asarray(bkeys), jnp.asarray(bids), jnp.asarray(q),
+                    use_pallas=True)
+    assert int((np.asarray(want) >= 0).sum()) > 0 or b == 1
+    before = probe_cuda.launches
+    _eq(probe_cuda(_t(bkeys), _t(bids), None, _t(q)), want)
+    assert probe_cuda.launches == before
+    for use_kernels in (True, False):
+        _eq(T.lookup(_t(bkeys), _t(bids), _t(q), use_kernels=use_kernels),
+            want)
+    _eq(T.bucket_of(_t(q), nb), (np_hash32(q) % np.uint32(nb)).astype(
+        np.int32))
