@@ -108,6 +108,21 @@ Phases, each of which exits non-zero on failure:
    ``tests/test_torch_cuda.py`` whose names hold "sharded", in a child
    process.  Launch counts are zeroed before each sharded run and read
    after it (``launches_sharded`` in the JSON record).
+3c2. The sharded map over several processes (``use_shard_map`` in a
+   ``torch.distributed`` group, ``repro_torch.launch.mesh``): 4 ``gloo``
+   ranks started by ``mesh.spawn`` share the card, each holding 2 of the 8
+   shards.  At phase 3c's geometry (8 shards of 2^18 slots, key range
+   2^20, 2^19 keys prefilled in batches of 8192, 50 mixed batches of 1024
+   lanes at 90% reads, a crash under a seeded adversary and recovery, 10
+   more batches), on the bucket backend (a ``Snapshotter`` snapshot after
+   the prefill, recovered through it) and on the probe backend: every
+   result, the psyncs, ops, size and per-shard recovery histogram of each
+   rank, and each rank's rows of every state leaf, held bit for bit
+   against a one-process ``ShardedDurableMap`` of the same spec fed the
+   same batches on the card; each rank's launches of its path's kernels
+   (zeroed in the rank before the run) > 0 (``launches_mesh`` in the JSON
+   record); ops/s of the 50 batches for both, the 4 processes sharing
+   one card (not a scaling figure).
 3d. The durable queue (``DurableQueue``): ``recovery_scan`` against its
    plain version at N = 2^16 and 2^21, timed; ``bench_queue.py``'s steady
    state, a 65536-slot ring with 1024-lane batches in each of SOFT,
@@ -365,7 +380,7 @@ from repro_torch.kernels.hash_probe.ref import (  # noqa: E402
 from repro_torch.kernels.recovery_scan.kernel import scan_cuda  # noqa: E402
 from repro_torch.kernels.recovery_scan.ref import scan_ref  # noqa: E402
 from repro_torch.data.pipeline import SyntheticTokens  # noqa: E402
-from repro_torch.launch import bench_serve, serve  # noqa: E402
+from repro_torch.launch import bench_serve, mesh, serve  # noqa: E402
 from repro_torch.launch import train as train_driver  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.blocks import (attention_layers,  # noqa: E402
@@ -521,19 +536,6 @@ def check_scan(dev, sizes):
     return row
 
 
-def hashes_keys() -> bool:
-    """Whether this tree's ``probe_cuda`` takes no bucket operand (its
-    kernel then hashes each key).  ``--bucket-scan`` also runs in trees
-    from before that entry, where the lookup is timed whole and the read
-    entry alone.  Asked of the plain version, on CPU tensors."""
-    z = torch.zeros((1, 1), dtype=torch.int32)
-    try:
-        probe_cuda(z, z, None, z[0])
-    except (AttributeError, TypeError):
-        return False
-    return True
-
-
 def bucket_table(dev, capacity, key_range, live, nb, w):
     """A (NB, W) table that build_buckets filled from a pool of
     ``capacity`` slots holding ``live`` keys of ``key_range``: (pool keys
@@ -551,14 +553,13 @@ def bucket_table(dev, capacity, key_range, live, nb, w):
     return dkeys, bkeys, bids, int(ovf), live_keys
 
 
-def check_probe(dev, capacity, key_range, live, nb, w, batches,
-                hashed=True):
+def check_probe(dev, capacity, key_range, live, nb, w, batches):
     """The bucket lookup vs plain over a table that build_buckets filled
     from a pool of ``capacity`` slots holding ``live`` keys, at each batch
     (half present keys, half absent): ``hp_lookup`` whole, the kernel with
-    the buckets read (``bucket_of`` computed first) and, ``hashed``, with
-    the kernel hashing each key; each timed beside the plain lookup and
-    the timing floor.  Returns the first batch's row, with each later
+    the buckets read (``bucket_of`` computed first) and with the kernel
+    hashing each key; each timed beside the plain lookup and the timing
+    floor.  Returns the first batch's row, with each later
     batch's times beside it."""
     rng = np.random.default_rng(SEED)
     dkeys, bkeys, bids, ovf, live_keys = bucket_table(
@@ -572,9 +573,8 @@ def check_probe(dev, capacity, key_range, live, nb, w, batches,
         qb = bucket_of(qk, nb)
         want = hp_lookup(bkeys, bids, qk, use_kernels=False)
         outs = {"lookup": hp_lookup(bkeys, bids, qk),
-                "read": probe_cuda(bkeys, bids, qb, qk)}
-        if hashed:
-            outs["hashed"] = probe_cuda(bkeys, bids, None, qk)
+                "read": probe_cuda(bkeys, bids, qb, qk),
+                "hashed": probe_cuda(bkeys, bids, None, qk)}
         for name, got in outs.items():
             e = int((got - want).abs().max())
             expect(e == 0, f"hash_probe ({name}) differs from plain at "
@@ -589,8 +589,7 @@ def check_probe(dev, capacity, key_range, live, nb, w, batches,
         expect(hits == b // 2 or (ovf > 0 and hits < b // 2),
                f"hash_probe found {hits} of {b // 2} present keys")
         r = dict(
-            ms=(time_ms(lambda: probe_cuda(bkeys, bids, None, qk), dev)
-                if hashed else None),
+            ms=time_ms(lambda: probe_cuda(bkeys, bids, None, qk), dev),
             read_ms=time_ms(lambda: probe_cuda(bkeys, bids, qb, qk), dev),
             plain_ms=time_ms(lambda: hp_lookup(bkeys, bids, qk,
                                                use_kernels=False), dev),
@@ -604,10 +603,9 @@ def check_probe(dev, capacity, key_range, live, nb, w, batches,
         # W keys and W ids read once; the read entry also reads the bucket
         r["bound_ms"] = bytes_ms(8 * b + touched * w * 8)
         r["read_bound_ms"] = bytes_ms(12 * b + touched * w * 8)
-        hashed_txt = (f"kernel hashing {r['ms']:.6f} ms, " if hashed
-                      else "no hashed entry in this tree, ")
         print(f"hash_probe B={b} ({touched} distinct rows): equal; "
-              f"{hashed_txt}kernel reading buckets {r['read_ms']:.6f} ms, "
+              f"kernel hashing {r['ms']:.6f} ms, "
+              f"kernel reading buckets {r['read_ms']:.6f} ms, "
               f"hp_lookup {r['lookup_ms']:.6f} ms, plain lookup "
               f"{r['plain_ms']:.6f} ms, floor {floor:.6f} ms, bound "
               f"{r['bound_ms'] * 1e3:.3f} us (bytes; reading "
@@ -845,11 +843,11 @@ def table_probe_host_parts(dev, table, pool, q, max_probe=128):
     return {"host_us": r["host_us"], "wrapper_ms": r["wrapper_ms"]["wrapper"]}
 
 
-def bucket_host_parts(dev, bkeys, bids, q, hashed=True):
+def bucket_host_parts(dev, bkeys, bids, q):
     """The host's cost of one bucket lookup, by part, in microseconds:
-    ``hp_lookup`` whole, the wrapper with the buckets read and (``hashed``)
-    with none, the wrapper at B = 0 (its checks and ``torch.empty``), the
-    hash in PyTorch (``bucket_of``, which the hashed entry drops), and each
+    ``hp_lookup`` whole, the wrapper with the buckets read and with none,
+    the wrapper at B = 0 (its checks and ``torch.empty``), the hash in
+    PyTorch (``bucket_of``, which the hashed entry drops), and each
     later step in the wrapper's form and in the per-call form it replaced;
     the back-to-back ms per call of the lookup and the wrappers."""
     lib = _lib()
@@ -867,8 +865,7 @@ def bucket_host_parts(dev, bkeys, bids, q, hashed=True):
     parts = {
         "hp_lookup": lambda: hp_lookup(bkeys, bids, q),
         "wrapper reading buckets": lambda: probe_cuda(bkeys, bids, qb, q),
-        **({"wrapper hashing": lambda: probe_cuda(bkeys, bids, None, q)}
-           if hashed else {}),
+        "wrapper hashing": lambda: probe_cuda(bkeys, bids, None, q),
         "wrapper at B=0 (checks + torch.empty)":
             lambda: probe_cuda(bkeys, bids, qb[:0], q[:0]),
         "bucket_of (the hash in PyTorch)": lambda: bucket_of(q, nb),
@@ -896,14 +893,12 @@ def scan_host_parts(dev, stages):
     n = stages.shape[0]
     mask = torch.empty((n,), dtype=torch.bool, device=dev)
     hist = torch.empty((5,), dtype=torch.int32, device=dev)
-    # the kernel's bin words, where this tree's launcher takes them
-    bins = (torch.zeros((5,), dtype=torch.int64, device=dev).data_ptr(),) \
-        if len(lib.recovery_scan.argtypes) == 6 else ()
+    bins = torch.zeros((5,), dtype=torch.int64, device=dev)  # its bin words
     fast = torch.cuda.current_stream().cuda_stream
 
     def launch():
         return lib.recovery_scan(stages.data_ptr(), mask.data_ptr(),
-                                 hist.data_ptr(), *bins, n, fast)
+                                 hist.data_ptr(), bins.data_ptr(), n, fast)
 
     parts = {
         "wrapper": lambda: scan_cuda(stages),
@@ -1016,7 +1011,7 @@ def probe_window_main() -> int:
     return 0
 
 
-def check_bucket_scan(dev, hashed=True):
+def check_bucket_scan(dev):
     """Phase 2's ``recovery_scan`` and bucket parts at the main path's
     shapes, each timed with the floor: the scan at the padded delta's N 8,
     the queue's ring 2^16, the map's 2^21 and 2^23 (and 2^21 + 3, the
@@ -1029,19 +1024,18 @@ def check_bucket_scan(dev, hashed=True):
     scan.update(scan_host_parts(dev, torch.randint(
         0, 5, (1 << 16,), generator=gen, device=dev, dtype=torch.int32)))
     probe = check_probe(dev, capacity=1 << 21, key_range=1 << 20,
-                        live=1 << 19, nb=1 << 19, w=8, batches=[1024, 65536],
-                        hashed=hashed)
+                        live=1 << 19, nb=1 << 19, w=8, batches=[1024, 65536])
     per = (1 << 21) // N_SHARDS
     nb_s, w_s = SetSpec(capacity=per, backend="bucket").bucket_geometry()
     lanes = 2 * 1024 // N_SHARDS
     shard = check_probe(dev, capacity=per, key_range=per // 2, live=per // 4,
-                        nb=nb_s, w=w_s, batches=[lanes], hashed=hashed)
+                        nb=nb_s, w=w_s, batches=[lanes])
     probe.update({f"{k}_shard_b{lanes}": v for k, v in shard.items()
                   if k != "max_abs_err"})
     _, bk, bi, _, live_keys = bucket_table(dev, 1 << 21, 1 << 20, 1 << 19,
                                            1 << 19, 8)
     q = _queries(np.random.default_rng(SEED), live_keys, 1 << 20, 1024, dev)
-    probe.update(bucket_host_parts(dev, bk, bi, q, hashed))
+    probe.update(bucket_host_parts(dev, bk, bi, q))
     return scan, probe
 
 
@@ -1051,7 +1045,7 @@ def bucket_scan_main() -> int:
     of these kernels in turns on one card."""
     dev = torch.device("cuda")
     smi = environment()
-    scan, probe = check_bucket_scan(dev, hashes_keys())
+    scan, probe = check_bucket_scan(dev)
     print(smi)
     print(json.dumps({"recovery_scan": scan, "hash_probe": probe,
                       "card": smi}))
@@ -1860,6 +1854,172 @@ def run_sharded_phase(dev):
     return {"recovery_scan": bucket["recovery_scan"],
             "hash_probe": bucket["hash_probe"],
             "table_probe": probe["table_probe"], "shapes": shapes}
+
+
+# ---------------------------------------------------------------------------
+# 3c2. the sharded map over 4 processes sharing the card
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 4
+# phase 3c's geometry; a rehearsal on the CPU passes a smaller one
+MESH_GEOMETRY = dict(capacity=1 << 21, key_range=1 << 20, prefill=1 << 19,
+                     prefill_batch=PREFILL_BATCH, batches=50, after=10,
+                     lanes=1024)
+
+
+@contextlib.contextmanager
+def timed_collectives():
+    """Seconds and calls spent in this process's host-side collectives of
+    ``launch/mesh.py`` (``all_gather``, ``all_reduce``), each one's wait
+    for the other ranks included, while the block runs."""
+    spent = {"s": 0.0, "n": 0}
+    dist = mesh.dist
+    real = {n: getattr(dist, n) for n in ("all_gather", "all_reduce")}
+
+    def timed(f):
+        def call(*a, **k):
+            t = time.perf_counter()
+            try:
+                return f(*a, **k)
+            finally:
+                spent["s"] += time.perf_counter() - t
+                spent["n"] += 1
+        return call
+    for n, f in real.items():
+        setattr(dist, n, timed(f))
+    try:
+        yield spent
+    finally:
+        for n, f in real.items():
+            setattr(dist, n, f)
+
+
+def mesh_run(backend, snap_dir, device="cuda", geo=None):
+    """One run of phase 3c2 on a ``use_shard_map`` map: on the mesh's rows
+    inside a rank of a process group, on all 8 shards in a process without
+    one.  The same seeded batches either way.  Returns every result, the
+    counters, the per-shard recovery histogram, the rows held and their
+    leaves, the ops/s of the mixed batches, the time and calls of the
+    collectives in them, and this process's launches of the path's
+    kernels."""
+    g = geo or MESH_GEOMETRY
+    lookup, lname = lookup_kernel(backend)
+    scan_cuda.launches = lookup.launches = 0
+    rng = np.random.default_rng([SEED, g["capacity"], 5])
+    m = ShardedDurableMap(SetSpec(capacity=g["capacity"], mode="soft",
+                                  backend=backend),
+                          n_shards=N_SHARDS, device=device,
+                          use_shard_map=True)
+    pre = rng.choice(g["key_range"], g["prefill"], replace=False).astype(
+        np.int32).reshape(-1, g["prefill_batch"])
+    res = [m.insert(k, k * 7 + 1) for k in pre]
+    sn = None
+    if backend == "bucket":
+        sn = Snapshotter(m, snap_dir)
+        sn.snapshot()
+        sn.wait()
+    n, lanes = g["batches"], g["lanes"]
+    ops, keys, vals = traffic(rng, n + g["after"], lanes, g["key_range"])
+    if m.mesh is not None:
+        m.mesh.barrier()
+    sync(m.device)
+    with timed_collectives() as coll:
+        t0 = time.perf_counter()
+        res += [m.apply(ops[i], keys[i], vals[i]) for i in range(n)]
+        sync(m.device)
+        ops_s = n * lanes / (time.perf_counter() - t0)
+    u = np.random.default_rng([SEED, 7]).random(
+        (N_SHARDS, g["capacity"] // N_SHARDS)).astype(np.float32)
+    if sn is not None:
+        sn.recover(u)
+        sn.close()
+    else:
+        m.crash_and_recover(u)
+    hist = m.last_recovery_hist_shards
+    res += [m.apply(ops[i], keys[i], vals[i]) for i in range(n, len(ops))]
+    return {"results": np.stack(res[len(pre):]),
+            "prefill": np.concatenate(res[:len(pre)]),
+            "counters": (m.psyncs, m.ops, len(m)), "hist": hist,
+            "rows": (m.rows.start, m.rows.stop),
+            "leaves": {f: TE._host(getattr(m.state, f))
+                       for f in m.state._fields},
+            "ops_s": ops_s, "device": str(m.device),
+            "coll_ms": 1e3 * coll["s"] / n, "coll_calls": coll["n"] / n,
+            "launches": {"recovery_scan": scan_cuda.launches,
+                         lname: lookup.launches}}
+
+
+def mesh_rank(rank, snap_dir, device, geo):
+    """A rank of phase 3c2: both backends on the mesh."""
+    return {b: mesh_run(b, os.path.join(snap_dir, f"{b}_mesh"), device, geo)
+            for b in ("bucket", "probe")}
+
+
+def check_mesh(label, want, got, device):
+    """Every rank against the one-process run: results, counters,
+    histograms, its rows of every leaf, launches > 0."""
+    expect(len(got) == MESH_RANKS, f"{label}: {len(got)} ranks answered")
+    per = N_SHARDS // MESH_RANKS
+    for r, g in enumerate(got):
+        expect(g["rows"] == (r * per, (r + 1) * per),
+               f"{label}: rank {r} holds rows {g['rows']}")
+        on = str(mesh.ShardMesh(r, MESH_RANKS, None).device(device))
+        expect(g["device"] == on, f"{label}: rank {r} on {g['device']}")
+        for k in ("results", "prefill", "hist"):
+            expect(np.array_equal(g[k], want[k]),
+                   f"{label}: rank {r} {k} differ from one process")
+        expect(tuple(g["counters"]) == tuple(want["counters"]),
+               f"{label}: rank {r} psyncs/ops/len {g['counters']} != "
+               f"{want['counters']}")
+        lo, hi = g["rows"]
+        for f, leaf in g["leaves"].items():
+            w = want["leaves"][f][lo:hi]
+            expect(leaf.dtype == w.dtype and np.array_equal(leaf, w),
+                   f"{label}: rank {r} leaf {f} differs from one process")
+        expect(all(v > 0 for v in g["launches"].values()),
+               f"{label}: rank {r} launched {g['launches']}")
+
+
+def run_mesh_phase(dev, smi, geo=None):
+    """Phase 3c2.  Returns each backend's per-rank launches."""
+    g = geo or MESH_GEOMETRY
+    t0 = time.perf_counter()
+    print(f"phase 3c2: ShardedDurableMap(use_shard_map=True) over "
+          f"{MESH_RANKS} gloo ranks sharing one card, {N_SHARDS} shards of "
+          f"{g['capacity'] // N_SHARDS} slots, key range {g['key_range']}, "
+          f"{g['prefill']} keys prefilled, {g['batches']} + {g['after']} "
+          f"mixed batches of {g['lanes']} lanes around a crash")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        one = {}
+        for b in ("bucket", "probe"):
+            one[b] = mesh_run(b, os.path.join(tmp, f"{b}_one"), str(dev),
+                              geo)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        ranks = mesh.spawn(mesh_rank, MESH_RANKS, tmp, str(dev), geo)
+        spawn_s = time.perf_counter() - t1
+    out = {}
+    for b in ("bucket", "probe"):
+        got = [r[b] for r in ranks]
+        check_mesh(f"mesh {b}", one[b], got, str(dev))
+        out[b] = [g["launches"] for g in got]
+        print(f"mesh {b}: {MESH_RANKS} ranks equal to one process (results, "
+              f"psyncs/ops/len {one[b]['counters']}, histograms, every "
+              f"rank's rows of every leaf); ops/s of the {g['batches']} "
+              f"batches: one process {one[b]['ops_s']:.1f}, {MESH_RANKS} "
+              f"processes sharing one card (not a scaling figure) "
+              f"{got[0]['ops_s']:.1f}; launches by rank {out[b]} ({smi})")
+        print(f"mesh {b}: per batch of {g['lanes']} lanes, ms by rank "
+              f"{[round(1e3 * g['lanes'] / x['ops_s'], 4) for x in got]}, "
+              f"of which in gloo collectives (their wait for the other "
+              f"ranks included) {[round(x['coll_ms'], 4) for x in got]} in "
+              f"{got[0]['coll_calls']:.2f} calls; one process: "
+              f"{1e3 * g['lanes'] / one[b]['ops_s']:.4f} ms, "
+              f"{one[b]['coll_calls']:.2f} calls")
+    print(f"phase 3c2: {time.perf_counter() - t0:.1f} s (the spawn and the "
+          f"ranks' runs {spawn_s:.1f} s)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4232,6 +4392,10 @@ def main() -> int:
     sharded = run_sharded_phase(dev)
     torch.cuda.empty_cache()
 
+    # 3c2. the same map over 4 processes sharing the card
+    meshed = run_mesh_phase(dev, smi)
+    torch.cuda.empty_cache()
+
     # 3d. the durable queue and the serve spine at smoke size
     queue = run_queue_phase(dev)
     torch.cuda.empty_cache()
@@ -4281,6 +4445,8 @@ def main() -> int:
          "bound_by": "bytes", "library_ms": None,
          "launches_hybrid": hybrid_launches["recovery_scan"],
          "launches_sharded": sharded["recovery_scan"],
+         "launches_mesh": {b: [r["recovery_scan"] for r in meshed[b]]
+                           for b in meshed},
          "shard_shape": sharded["shapes"]["recovery_scan"],
          "launches_queue": queue["recovery_scan"],
          "launches_resize": resize["recovery_scan"],
@@ -4299,6 +4465,7 @@ def main() -> int:
          "bound_by": "bytes", "library_ms": None,
          "launches_hybrid": hybrid_launches["hash_probe"],
          "launches_sharded": sharded["hash_probe"],
+         "launches_mesh": [r["hash_probe"] for r in meshed["bucket"]],
          "shard_shape": sharded["shapes"]["hash_probe"],
          "launches_queue": queue["hash_probe"],
          "launches_resize": resize["hash_probe"],
@@ -4311,6 +4478,7 @@ def main() -> int:
              "launches": probe_launches["table_probe"],
              "launches_serving": serving["table_probe"],
              "launches_sharded": sharded["table_probe"],
+             "launches_mesh": [r["table_probe"] for r in meshed["probe"]],
              "launches_queue": queue["table_probe"],
              "launches_resize": resize["table_probe"],
              "launches_serving_spine": {"one_wave": spine["table_probe"],

@@ -717,7 +717,9 @@ class MetricsMixin:
         """Register this structure's telemetry with a
         :class:`repro_torch.obs.MetricsRegistry` under ``name``.  Returns
         self.  Device counters cross to the host only when the registry
-        snapshots."""
+        snapshots.  A sharded map partitioned over the ranks of a process
+        group reads its counters by collectives: every rank attaches a
+        registry and snapshots it at the same points."""
         from repro_torch.obs.bridge import DeviceCounterBridge
         if name is not None:
             self._m_name = name

@@ -76,6 +76,18 @@ from repro_torch.core.shard import ShardSpec, ShardedDurableMap, np_shard_of
 
 PLANES = ("stage", "keys", "values", "stamp")
 
+MESH_RESIZE = ("resharding a map partitioned over several ranks "
+               "(use_shard_map in a process group of more than one rank) "
+               "moves rows between ranks, which is not ported yet (ROADMAP "
+               "queue A, item 7d); build the map without use_shard_map")
+
+
+def check_not_partitioned(sspec) -> None:
+    """Raise where a resize would have to move rows across the ranks of a
+    process-group mesh: that path is not ported."""
+    if RT.mesh_devices(sspec) > 1:
+        raise NotImplementedError(MESH_RESIZE)
+
 
 class ResizeCapacityError(RuntimeError):
     """A 2S -> S merge does not fit: some pair's live nodes exceed the
@@ -232,8 +244,10 @@ class ElasticShardedMap(MetricsMixin):
 
     Constraints: router v2 and ``pipeline_depth == 1`` (the frontier
     protocol commits at dispatch boundaries; the synchronous facade IS
-    always at one).  Aggregates mask retired rows by the frontier; the
-    old map is dropped entirely once every unit committed.
+    always at one); not under ``use_shard_map`` in a process group of more
+    than one rank (``NotImplementedError``, ROADMAP item 7d).  Aggregates
+    mask retired rows by the frontier; the old map is dropped entirely
+    once every unit committed.
     """
 
     def __init__(self, spec=None, n_shards: Optional[int] = None,
@@ -242,6 +256,7 @@ class ElasticShardedMap(MetricsMixin):
                  **spec_kwargs):
         self.map = ShardedDurableMap(spec, n_shards=n_shards, device=device,
                                      **spec_kwargs)
+        check_not_partitioned(self.map.sspec)
         if self.map.sspec.router != "v2":
             raise ValueError("ElasticShardedMap requires router='v2' "
                              "(frontier-masked gets use the stage-1 plan)")

@@ -30,10 +30,15 @@ same per-shard order as the v1 router, so results, state and psync
 counters are bit-identical.  Under budget pressure the drop sets differ by
 design: v1's static budget sheds skew that uncapped v2 widens L to absorb.
 
-On one GPU the D groups are logical: each group's shards run one after
+On one device the D groups are logical: each group's shards run one after
 another (``repro_torch.core.shard.run_shards``), where the JAX package
-vmaps them, and under ``use_shard_map`` on several devices partitions
-them over a mesh (not ported: ROADMAP queue A, item 7b).  The sub-batches
+vmaps them.  Under ``use_shard_map`` in a ``torch.distributed`` group of
+several ranks (one process per GPU, :mod:`repro_torch.launch.mesh`), the D
+groups are the ranks, as the JAX package partitions them over a device
+mesh with ``shard_map``: each rank holds its group's S/D rows, runs its own
+sub-batch on them, and :meth:`InFlight.force` all-gathers every rank's
+per-lane results on the host.  Stage 1 runs on every rank on the whole
+batch, so no lane and no state crosses between ranks.  The sub-batches
 cross to the device once per batch, and :meth:`InFlight.force` brings the
 results back to the host in one copy; the pipelined facade defers that
 force.  Every routing artifact is volatile, so deferring the gather-back
@@ -59,8 +64,12 @@ PLACEMENTS = ("contiguous", "strided")
 
 _I32 = torch.int32
 
-MULTI_GPU = ("use_shard_map over several CUDA devices is not ported yet "
-             "(ROADMAP queue A, item 7b: multi-GPU sharded runtime)")
+NEEDS_RANKS = (
+    "use_shard_map with {n} visible CUDA devices needs one process per GPU: "
+    "start them with torchrun (torchrun --nproc_per_node={n} ...) or "
+    "torch.distributed.init_process_group (repro_torch.launch.mesh.spawn "
+    "does it on one host) and build the map in every rank; without "
+    "use_shard_map the map stays on one device")
 
 
 # ---------------------------------------------------------------------------
@@ -69,23 +78,51 @@ MULTI_GPU = ("use_shard_map over several CUDA devices is not ported yet "
 
 
 def mesh_devices(sspec) -> int:
-    """Devices the shard axis can split over: the largest power-of-two
-    divisor of n_shards that the process has CUDA devices for (1 == one
-    device: the shards run one after another)."""
+    """Ranks the shard axis can split over: the largest power-of-two
+    divisor of n_shards that the initialized process group has ranks for
+    (1 == one device: the shards run one after another).  Several visible
+    CUDA devices and no process group raise: one process would hide the
+    other devices."""
     if not sspec.use_shard_map:
         return 1
+    # lazy core -> launch import, only on the opt-in multi-device path
+    from repro_torch.launch.mesh import world_size
+    avail = world_size()
+    if avail == 0:
+        n = torch.cuda.device_count()
+        if n > 1:
+            raise RuntimeError(NEEDS_RANKS.format(n=n))
     d = sspec.n_shards
-    avail = max(1, torch.cuda.device_count())
     while d > 1 and d > avail:
         d //= 2
     return d
 
 
-def check_single_device(sspec) -> None:
-    """Raise where the JAX package would partition the shards over a
-    device mesh: that path is not ported."""
-    if mesh_devices(sspec) > 1:
-        raise NotImplementedError(MULTI_GPU)
+def mesh_groups(sspec) -> int:
+    """D when the shards are partitioned over the process group's ranks --
+    ``use_shard_map`` and the stage-1 group count equal to the mesh size
+    (the JAX package's ``_use_mesh``) -- else 1: every rank then runs the
+    one-device path on the whole state, as JAX runs plain vmap."""
+    d = mesh_devices(sspec)
+    return d if d > 1 and resolve_groups(sspec) == d else 1
+
+
+def shard_mesh(sspec):
+    """The :class:`~repro_torch.launch.mesh.ShardMesh` the map's rows are
+    partitioned over, or None on the one-device path."""
+    if mesh_groups(sspec) == 1:
+        return None
+    from repro_torch.launch.mesh import current_mesh
+    return current_mesh()
+
+
+def local_rows(sspec) -> range:
+    """The storage rows this process holds: all S on the one-device path,
+    the rank's block of S/D on a mesh (none on a rank past D)."""
+    mesh = shard_mesh(sspec)
+    if mesh is None:
+        return range(sspec.n_shards)
+    return mesh.rows(sspec.n_shards, mesh_groups(sspec))
 
 
 def resolve_groups(sspec) -> int:
@@ -411,7 +448,8 @@ def _grid_gather(grid: torch.Tensor, slot: torch.Tensor, fill
 
 # ---------------------------------------------------------------------------
 # Dispatch: per group, stage 2 then the group's shards one after another
-# (the JAX package's vmap over the group axis and over its shards).
+# (the JAX package's vmap over the group axis and over its shards), or,
+# on a mesh, this rank's group only (its shard_map block).
 # ---------------------------------------------------------------------------
 
 
@@ -419,23 +457,34 @@ def _group_dispatch(group_fn, state, lanes, *, sspec, groups: int):
     """Run ``group_fn(state, rows, *lane_rows)`` once per group, in group
     order, where ``rows`` are the storage rows of the group's shards (the
     JAX package's reshape of the state to (D, S/D, ...)); stack the
-    per-group outputs on a new leading axis."""
-    if sspec.use_shard_map and groups > 1 and groups == mesh_devices(sspec):
-        raise NotImplementedError(MULTI_GPU)
+    per-group outputs on a new leading axis.  Returns ``(state, outputs)``.
+
+    On a mesh of D == ``groups`` ranks (``shard_map``) the rank runs only
+    its own group, on its local rows 0..S/D-1, and its outputs keep a
+    leading axis of 1; a rank past D runs nothing and its outputs are
+    None.  :meth:`InFlight.force` gathers the ranks' rows."""
     per = sspec.n_shards // groups
+    mesh = shard_mesh(sspec)              # then groups == D
+    if mesh is not None:
+        from repro_torch.launch.mesh import shard_map
+        out = shard_map(lambda *x: group_fn(state, range(per), *x), mesh,
+                        groups, *lanes)
+        return state, (None if out is None else
+                       tuple(o.unsqueeze(0) for o in out))
     outs = [group_fn(state, range(g * per, (g + 1) * per),
                      *(x[g] for x in lanes)) for g in range(groups)]
-    return (state,) + tuple(torch.stack(o) for o in zip(*outs))
+    return state, tuple(torch.stack(o) for o in zip(*outs))
 
 
 def _apply_v2(state, d_ops: torch.Tensor, d_keys: torch.Tensor,
               d_vals: torch.Tensor, *, sspec, groups: int, lane_budget: int):
     """Group-local mixed-op dispatch: per group, stage-2 route the (Bd,)
     sub-batch into the (S/D, L) local grid and run ``apply_batch_impl`` on
-    each local shard.  Returns (stacked state, (D, Bd) results, (D,)
+    each local shard.  Returns (stacked state, ((D, Bd) results, (D,)
     per-group dropped counts, (D, Bd) per-lane kept mask -- False exactly
-    for the real lanes stage 2 dropped past a ``max_lane_budget`` cap).
-    The state's tensors are updated in place."""
+    for the real lanes stage 2 dropped past a ``max_lane_budget`` cap)),
+    the outputs as :func:`_group_dispatch` gives them.  The state's
+    tensors are updated in place."""
     from repro_torch.core.shard import run_shards
     spec = sspec.shard_spec()
 
@@ -456,7 +505,9 @@ def _apply_v2(state, d_ops: torch.Tensor, d_keys: torch.Tensor,
 
 def _get_v2(state, d_keys: torch.Tensor, d_active: torch.Tensor, *, sspec,
             groups: int, lane_budget: int, default: int = 0):
-    """Group-local value lookup; same routing as :func:`_apply_v2`."""
+    """Group-local value lookup; same routing as :func:`_apply_v2`.  The
+    outputs are ((D, Bd) values, (D, Bd) present, (D,) dropped, (D, Bd)
+    kept)."""
     from repro_torch.core.shard import run_shards
     spec = sspec.shard_spec()
 
@@ -490,43 +541,57 @@ class InFlight:
 
     Holds the device tensors of the stage-2 dispatch plus the stage-1
     :class:`RoutePlan` needed to invert them.  ``force()`` copies them to
-    the host in one transfer, returns the per-lane numpy results, and
-    recycles the plan's scratch set.  ``kind`` is "apply" (``force() ->
-    (results bool[B], dropped, drop_mask bool[B])``) or "get" (``force()
-    -> (values i32[B], present bool[B], dropped, drop_mask bool[B])``).
+    the host in one transfer (on a mesh, then all-gathers every rank's
+    rows: a collective), returns the per-lane numpy results, and recycles
+    the plan's scratch set.  ``kind`` is "apply" (``force() -> (results
+    bool[B], dropped, drop_mask bool[B])``) or "get" (``force() -> (values
+    i32[B], present bool[B], dropped, drop_mask bool[B])``).
     ``drop_mask[i]`` is True exactly when real lane i was shed past a
     ``max_lane_budget`` cap -- its result is NOT a successful no-op.
     """
-    __slots__ = ("kind", "plan", "outs", "default", "_forced")
+    __slots__ = ("kind", "plan", "outs", "default", "mesh", "_forced")
 
-    def __init__(self, kind: str, plan: RoutePlan, outs, default: int = 0):
+    def __init__(self, kind: str, plan: RoutePlan, outs, default: int = 0,
+                 mesh=None):
         self.kind = kind
         self.plan = plan
-        self.outs = outs          # device tensors, or None for empty plans
+        self.outs = outs          # device tensors (None: nothing ran here)
         self.default = default
+        self.mesh = mesh          # ShardMesh of a partitioned map, or None
         self._forced = None
+
+    def _host_outs(self) -> list:
+        """The (D, ...) host arrays of the outputs."""
+        if self.mesh is None:
+            return _to_host(*self.outs)
+        bd = self.plan.d_ops.shape[1]
+        shapes = ([(bd,), (), (bd,)] if self.kind == "apply" else
+                  [(bd,), (bd,), (), (bd,)])
+        local = None if self.outs is None else _to_host(*self.outs)
+        return self.mesh.gather(local, shapes, self.plan.groups)
 
     def force(self):
         if self._forced is None:
             plan = self.plan
+            empty = plan.slot.size == 0
             if self.kind == "apply":
-                if self.outs is None:
+                if empty:
                     self._forced = (np.zeros((0,), bool), 0,
                                     np.zeros((0,), bool))
                 else:
-                    res, dropped, kept = _to_host(*self.outs)
+                    res, dropped, kept = self._host_outs()
                     self._forced = (host_gather(res.astype(bool), plan.slot,
                                                 False),
                                     int(dropped.sum()),
                                     ~host_gather(kept.astype(bool),
                                                  plan.slot, True))
             else:
-                if self.outs is None:
+                if empty:
                     self._forced = (np.zeros((0,), np.int32),
                                     np.zeros((0,), bool), 0,
                                     np.zeros((0,), bool))
                 else:
-                    vals, pres, dropped, kept = _to_host(*self.outs)
+                    vals, pres, dropped, kept = self._host_outs()
                     self._forced = (
                         host_gather(vals, plan.slot, np.int32(self.default)),
                         host_gather(pres.astype(bool), plan.slot, False),
@@ -557,23 +622,26 @@ def dispatch_plan(state, plan: RoutePlan, *, sspec, kind: str = "apply",
                   default: int = 0):
     """Dispatch the stage-2 work for a stage-1 plan without reading its
     results back.  Returns ``(state, InFlight)``; an empty plan is a no-op
-    whose scratch is recycled immediately."""
+    whose scratch is recycled immediately.  On a mesh each rank runs its
+    own sub-batch row, and the InFlight's force gathers the ranks'
+    results."""
     if plan.slot.size == 0:
         _POOL.release(plan.scratch)
         return state, InFlight(kind, plan._replace(scratch=None), None,
                                default)
     dev = state.keys.device
+    mesh = shard_mesh(sspec)
     if kind == "apply":
         lanes = _lanes_to(dev, plan.d_ops, plan.d_keys, plan.d_vals)
-        state, res, dropped, kept = _apply_v2(
+        state, outs = _apply_v2(
             state, lanes[0], lanes[1], lanes[2], sspec=sspec,
             groups=plan.groups, lane_budget=plan.lane_budget)
-        return state, InFlight(kind, plan, (res, dropped, kept))
+        return state, InFlight(kind, plan, outs, mesh=mesh)
     lanes = _lanes_to(dev, plan.d_ops, plan.d_keys)
-    state, vals, pres, dropped, kept = _get_v2(
+    state, outs = _get_v2(
         state, lanes[1], lanes[0] == OP_CONTAINS, sspec=sspec,
         groups=plan.groups, lane_budget=plan.lane_budget, default=default)
-    return state, InFlight(kind, plan, (vals, pres, dropped, kept), default)
+    return state, InFlight(kind, plan, outs, default, mesh=mesh)
 
 
 def apply_batch_v2_async(state, ops, keys, values, *, sspec):
@@ -610,9 +678,11 @@ def get_v2(state, keys, *, sspec, default: int = 0):
 
 
 def precompile(state, batch: int, *, sspec, partial=None):
-    """The JAX package traces and compiles the stage-2 program here for
-    every budget the adaptive chooser can select for a B-lane batch;
-    eager PyTorch has nothing to compile.  Returns ``(state, budgets)``
-    with the same budget tuple and the state untouched.  ``partial`` is
-    accepted for the JAX signature and has no effect."""
+    """The JAX package traces and compiles the stage-2 program here (under
+    ``shard_map`` on a mesh) for every budget the adaptive chooser can
+    select for a B-lane batch; eager PyTorch has nothing to compile, on
+    one device or on a mesh, and no rank waits for another.  Returns
+    ``(state, budgets)`` with the same budget tuple and the state
+    untouched.  ``partial`` is accepted for the JAX signature and has no
+    effect."""
     return state, budget_candidates(sspec, max(int(batch), 1))

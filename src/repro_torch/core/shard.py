@@ -1,4 +1,5 @@
-"""Sharded DurableMap: hash-partitioned shard runtime on one GPU.
+"""Sharded DurableMap: hash-partitioned shard runtime on one GPU, or on
+one process per GPU under ``use_shard_map``.
 
 PyTorch port of ``repro.core.shard``.  S *independent* durable sets, each
 with its own node pool and volatile index, multiply capacity while keeping
@@ -35,8 +36,18 @@ Layout:
                 vmap gives.  The kernels therefore launch once per shard
                 per batch (``hash_probe`` or ``table_probe`` on lookups,
                 ``recovery_scan`` on recovery).  One dispatch over the
-                shard axis is ROADMAP queue A, item 7c; several GPUs under
-                ``use_shard_map`` are item 7b, and raise.
+                shard axis is ROADMAP queue A, item 7c.
+  mesh          under ``use_shard_map`` in a ``torch.distributed`` group of
+                several ranks (:mod:`repro_torch.launch.mesh`), the D
+                ranks stand in for the JAX package's ``shard_map`` mesh:
+                rank r holds storage rows ``r*S/D .. (r+1)*S/D - 1`` of
+                every leaf on its own device and runs only those rows'
+                bodies.  Every rank calls the facade with the same batches
+                and gets the same results; only host-side lane results and
+                counters cross between ranks (a ``gloo`` all-gather), never
+                state.  The facade's counters (``psyncs``, ``ops``,
+                ``len``, ``overflowed``) are collectives there: read them
+                on every rank.
   recovery      ``crash_and_recover`` draws an independent adversary ``u``
                 per shard and rebuilds every volatile index.
 
@@ -90,9 +101,11 @@ class ShardSpec:
                     With a cap, a shard receiving more lanes drops the
                     excess (counted + warned, like v1 past its budget)
     n_device_groups v2 only: explicit stage-1 group count D (0 = auto: the
-                    mesh size under ``use_shard_map``, else 1).  On one GPU
-                    the groups are logical: they change the route, not
-                    the device
+                    mesh size under ``use_shard_map``, else 1).  On one
+                    device the groups are logical: they change the route,
+                    not the device; on a mesh a count other than the mesh
+                    size keeps every rank on the one-device path over the
+                    whole state, as JAX keeps plain vmap
     pipeline_depth  v2 only: depth of the dispatch pipeline through
                     :class:`ShardedDurableMap` (1 = synchronous).  At depth
                     k the facade keeps the newest batch STAGED host-side
@@ -100,11 +113,13 @@ class ShardSpec:
                     dispatched batches un-forced, on the one default
                     stream.  Results, state and psync counters equal depth
                     1; a crash abandons only the staged batch
-    use_shard_map   partition the shards over the CUDA devices when more
-                    than one is visible (not ported: raises
-                    ``NotImplementedError`` naming ROADMAP item 7b; a
-                    single-device process stays on the one-device path,
-                    as the JAX package stays on plain vmap)
+    use_shard_map   partition the shards over the ranks of the initialized
+                    ``torch.distributed`` group, one process per GPU (D =
+                    the largest power of two dividing S that the world has
+                    ranks for).  One rank, or no group, stays on the
+                    one-device path, as the JAX package stays on plain
+                    vmap; several visible CUDA devices and no group raise
+                    ``RuntimeError``
     """
     base: SetSpec
     n_shards: int = 8
@@ -281,11 +296,12 @@ def np_v1_drop_mask(keys: np.ndarray, *, n_shards: int, lane_budget: int
 
 def make_state(sspec: ShardSpec, device="cuda") -> SetState:
     """Stacked fresh state on ``device``: every SetState leaf gains a
-    leading shard axis (dim0 == S), each slice exactly
-    ``engine.make_state(shard_spec)`` in memory of its own (``repeat``,
-    never an ``expand``ed view that would share one shard's writes)."""
+    leading shard axis (dim0 == S, or this rank's S/D rows on a mesh),
+    each slice exactly ``engine.make_state(shard_spec)`` in memory of its
+    own (``repeat``, never an ``expand``ed view that would share one
+    shard's writes)."""
     base = E.make_state(sspec.shard_spec(), device=device)
-    s = sspec.n_shards
+    s = len(RT.local_rows(sspec))
     return SetState(*(x.unsqueeze(0).repeat((s,) + (1,) * x.dim())
                       for x in base))
 
@@ -342,21 +358,58 @@ def _host_i32(x) -> np.ndarray:
     return np.asarray(x, np.int32)
 
 
+def whole_rows(sspec: ShardSpec, *parts: np.ndarray,
+               everywhere: bool = True) -> list:
+    """Whole (S, ...) host arrays from this process's rows of each (int32
+    planes): the parts themselves on the one-device path; on a mesh, one
+    all-gather of every rank's rows (a collective), as ``shard_map``'s
+    ``out_specs`` assembles them.  ``everywhere=False`` gathers to rank 0
+    alone; the other ranks get None for each array."""
+    mesh = RT.shard_mesh(sspec)
+    if mesh is None:
+        return list(parts)
+    d, s = RT.mesh_groups(sspec), sspec.n_shards
+    tails = [p.shape[1:] for p in parts]
+    got = mesh.gather(parts if parts[0].shape[0] else None,
+                      [(s // d,) + t for t in tails], d, everywhere)
+    if got is None:
+        return [None] * len(parts)
+    return [g.reshape((s,) + t).astype(p.dtype)
+            for g, t, p in zip(got, tails, parts)]
+
+
+def _all_rows(sspec: ShardSpec, outs: list, like: torch.Tensor,
+              *fields) -> list:
+    """Each output ``i`` of ``fields`` (pairs of index and dtype) as an
+    (S, L) tensor on ``like``'s device: this process's shards stacked, and
+    on a mesh every rank's rows (:func:`whole_rows`)."""
+    if RT.shard_mesh(sspec) is None:
+        return [torch.stack([x[i] for x in outs]).to(dt) for i, dt in fields]
+    l = like.shape[-1]
+    local = (RT._to_host(*(torch.stack([x[i] for x in outs])
+                           for i, _ in fields)) if outs else
+             [np.zeros((0, l), np.int32)] * len(fields))
+    return [torch.from_numpy(g).to(device=like.device, dtype=dt)
+            for g, (_, dt) in zip(whole_rows(sspec, *local), fields)]
+
+
 def _apply_impl(state: SetState, ops: torch.Tensor, keys: torch.Tensor,
                 values: torch.Tensor, *, sspec: ShardSpec
                 ) -> Tuple[SetState, torch.Tensor, torch.Tensor]:
     """Route a mixed batch and run every shard.  Returns (stacked state,
-    per-lane result, dropped-lane count)."""
-    RT.check_single_device(sspec)
+    per-lane result, dropped-lane count).  On a mesh every rank routes the
+    whole batch, runs its own rows and all-gathers the (S, L) results."""
     spec = sspec.shard_spec()
     l = sspec.lane_budget(keys.shape[0])
     r_ops, r_keys, r_vals, slot, dropped = route(
         ops, keys, values, n_shards=sspec.n_shards, lane_budget=l)
+    rows = RT.local_rows(sspec)
+    mine = slice(rows.start, rows.stop)
     outs = run_shards(
         state, lambda st, o, k, v: E.apply_batch_impl(st, o, k, v,
                                                       spec=spec),
-        range(sspec.n_shards), r_ops, r_keys, r_vals)
-    r_res = torch.stack([x[0] for x in outs])
+        range(len(rows)), r_ops[mine], r_keys[mine], r_vals[mine])
+    (r_res,) = _all_rows(sspec, outs, r_ops, (0, torch.bool))
     return state, gather(r_res, slot, False), dropped
 
 
@@ -392,19 +445,23 @@ def contains(state: SetState, keys: torch.Tensor, *, sspec: ShardSpec
 def get(state: SetState, keys: torch.Tensor, *, sspec: ShardSpec,
         default: int = 0
         ) -> Tuple[SetState, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Sharded value lookup: (state, values-or-default, present, dropped)."""
-    RT.check_single_device(sspec)
+    """Sharded value lookup: (state, values-or-default, present, dropped).
+    On a mesh as :func:`apply_batch`."""
     spec = sspec.shard_spec()
     l = sspec.lane_budget(keys.shape[0])
     ops = torch.full(keys.shape, OP_CONTAINS, dtype=_I32, device=keys.device)
     r_ops, r_keys, _, slot, dropped = route(
         ops, keys, keys, n_shards=sspec.n_shards, lane_budget=l)
+    rows = RT.local_rows(sspec)
+    mine = slice(rows.start, rows.stop)
     outs = run_shards(
         state, lambda st, k, a: E.get_impl(st, k, spec=spec,
                                            default=default, active=a),
-        range(sspec.n_shards), r_keys, r_ops == OP_CONTAINS)
-    vals = gather(torch.stack([x[0] for x in outs]), slot, default).to(_I32)
-    present = gather(torch.stack([x[1] for x in outs]), slot, False)
+        range(len(rows)), r_keys[mine], (r_ops == OP_CONTAINS)[mine])
+    r_vals, r_pres = _all_rows(sspec, outs, r_keys, (0, _I32),
+                               (1, torch.bool))
+    vals = gather(r_vals, slot, default).to(_I32)
+    present = gather(r_pres, slot, False)
     return state, vals, present, dropped
 
 
@@ -473,8 +530,9 @@ def recover(persisted: torch.Tensor, keys: torch.Tensor, values: torch.Tensor,
     """Per-shard recovery on the planes' device: every shard's
     classification (the ``recovery_scan`` kernel on the card) and
     volatile-index rebuild, one shard after another, into a fresh stacked
-    state.  Returns (stacked state, per-shard stage histogram i32[S, 5])."""
-    RT.check_single_device(sspec)
+    state.  Returns (stacked state, per-shard stage histogram i32[S, 5]).
+    On a mesh the planes, the state and the histogram are this rank's
+    rows."""
     spec = sspec.shard_spec()
     out = make_state(sspec, device=keys.device)
     planes = (persisted, keys, values) + (() if stamp is None else (stamp,))
@@ -482,7 +540,9 @@ def recover(persisted: torch.Tensor, keys: torch.Tensor, values: torch.Tensor,
     def body(st, *p):
         return E.recover_impl(*p, spec=spec)
 
-    outs = run_shards(out, body, range(sspec.n_shards), *planes)
+    outs = run_shards(out, body, range(out.keys.shape[0]), *planes)
+    if not outs:                          # a mesh rank past D: no rows
+        return out, torch.zeros((0, 5), dtype=_I32, device=keys.device)
     return out, torch.stack([x[0] for x in outs])
 
 
@@ -494,15 +554,15 @@ def hybrid_recover(snap: SetState, persisted: torch.Tensor,
     shard axis (``delta_idx`` is (S, D), padded per shard with the shard
     capacity), each shard through ``engine.hybrid_recover``.  Equal to
     :func:`recover` on the same crash planes.  ``snap`` is updated in
-    place and returned: callers must not use it as a snapshot again."""
-    RT.check_single_device(sspec)
+    place and returned: callers must not use it as a snapshot again.  On
+    a mesh every argument is this rank's rows."""
     spec = sspec.shard_spec()
 
     def body(st, p, k, v, t, d):
         return (E.hybrid_recover(st, p, k, v, t, d, spec=spec),)
 
-    run_shards(snap, body, range(sspec.n_shards), persisted, keys, values,
-               stamp, delta_idx)
+    run_shards(snap, body, range(snap.keys.shape[0]), persisted, keys,
+               values, stamp, delta_idx)
     return snap
 
 
@@ -597,7 +657,9 @@ class _LazyBatch:
 
 
 class ShardedDurableMap(MetricsMixin):
-    """DurableMap facade over S independent shards on one device.
+    """DurableMap facade over S independent shards on one device, or over
+    the ranks of a process group under ``use_shard_map`` (each rank holds
+    its S/D rows; see the module docstring).
 
     >>> m = ShardedDurableMap(SetSpec(capacity=65536, backend="bucket"),
     ...                       n_shards=8)                  # on the GPU
@@ -608,7 +670,18 @@ class ShardedDurableMap(MetricsMixin):
     Every backend registered with the engine works unchanged.  Routing past
     the lane budget drops lanes (counted in ``router_dropped``, warned
     once, result False) -- impossible for batches of <= ``min_lane_budget``
-    lanes.  Results come back as host numpy arrays.
+    lanes.  Results come back as host numpy arrays.  On a mesh every rank
+    makes the same calls with the same arguments: a crash adversary ``u``
+    is the whole (S, N) one, of which each rank takes its rows.  The
+    counters ``psyncs``, ``ops``, ``len`` and ``overflowed`` are
+    collectives there, read by every rank at the same point (so is a
+    metrics registry's snapshot: every rank attaches one); ``repr`` shows
+    this rank's rows alone and runs no collective.
+
+    A known limit on a mesh: a snapshot is built on rank 0 alone, which
+    receives the whole (S, N) capture and recovers all S shards on its
+    device (``snapshot_build``), so rank 0's card must hold the whole
+    map's state once per snapshot (ROADMAP item 7e).
     """
 
     def __init__(self, spec=None, n_shards: Optional[int] = None,
@@ -635,9 +708,11 @@ class ShardedDurableMap(MetricsMixin):
                               **shard_kw)
         E.get_backend(sspec.base.backend)     # fail fast
         sspec.shard_spec()                    # validate per-shard geometry
-        RT.check_single_device(sspec)
         self.sspec = sspec
-        self.device = resolve_device(device)
+        self.mesh = RT.shard_mesh(sspec)      # None: the one-device path
+        self.rows = RT.local_rows(sspec)      # storage rows held here
+        self.device = resolve_device(
+            device if self.mesh is None else self.mesh.device(device))
         self.state = make_state(sspec, device=self.device)
         self.last_recovery_hist = None        # i32[5], summed over shards
         self.last_recovery_hist_shards = None  # i32[S, 5]
@@ -666,7 +741,20 @@ class ShardedDurableMap(MetricsMixin):
     def overflowed(self) -> bool:
         """True once ANY shard latched its index overflow."""
         self._dispatch_staged()
-        return bool(self.state.overflow.any())
+        flag = bool(self.state.overflow.any())
+        return flag if self.mesh is None else self.mesh.any(flag)
+
+    def rows_of(self, x):
+        """This process's rows of a whole (S, ...) array: all of it on the
+        one-device path."""
+        return x[self.rows.start:self.rows.stop]
+
+    def _total(self, t) -> int:
+        """A counter summed over this process's shards, and over the ranks
+        on a mesh."""
+        v = int(t)
+        return v if self.mesh is None else self.mesh.sum(v)
+
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -859,15 +947,17 @@ class ShardedDurableMap(MetricsMixin):
         self._metrics_pre_recovery()          # counters are about to reset
 
     def _adversary(self, u, seed: int) -> torch.Tensor:
-        """The crash adversary (S, N) float32 on the map's device; by
-        default an INDEPENDENT uniform draw per shard from ``seed``, as the
-        JAX package draws it."""
+        """This process's rows of the crash adversary (S, N) float32, on
+        the map's device; by default an INDEPENDENT uniform draw per shard
+        from ``seed``, as the JAX package draws it (the whole draw on
+        every rank of a mesh, so the crash is the one-device map's)."""
         if u is None:
             u = np.random.default_rng(seed).random(
-                tuple(self.state.cur.shape)).astype(np.float32)
+                (self.n_shards, self.spec.capacity)).astype(np.float32)
         if not isinstance(u, torch.Tensor):
             u = np.asarray(u, np.float32)
-        return torch.as_tensor(u, dtype=torch.float32, device=self.device)
+        return torch.as_tensor(self.rows_of(u), dtype=torch.float32,
+                               device=self.device)
 
     def crash_and_recover(self, u=None, seed: int = 0):
         """Crash all shards and rebuild each one.  ``u`` defaults to an
@@ -880,7 +970,8 @@ class ShardedDurableMap(MetricsMixin):
         self._sync()
         t0 = time.perf_counter()
         self.state, hist = crash_and_recover(self.state, u, sspec=self.sspec)
-        self.last_recovery_hist_shards = E._host(hist)
+        (self.last_recovery_hist_shards,) = whole_rows(self.sspec,
+                                                       E._host(hist))
         self.last_recovery_hist = self.last_recovery_hist_shards.sum(axis=0)
         self._sync()                          # honest recovery timing
         self.last_recovery_seconds = time.perf_counter() - t0
@@ -904,22 +995,30 @@ class ShardedDurableMap(MetricsMixin):
     def snapshot_capture(self) -> dict:
         """Flush the pipeline to a clean dispatch boundary, host-copy the
         stacked durable planes, and open a new stamp generation on every
-        shard.  Zero psyncs -- a pure NVM read."""
+        shard.  Zero psyncs -- a pure NVM read.  On a mesh a collective:
+        rank 0, which builds the snapshot, gets the whole (S, N) planes;
+        every other rank gets None for each."""
         self.pipeline_flush()
         pool = E.export_pool(self.state)
-        cap = {"watermark": E._host(self.state.epoch),        # (S,)
-               "raw_stage": pool["stage"], "keys": pool["keys"],
-               "values": pool["values"], "stamp": pool["stamp"]}
+        w, stage, keys, values, stamp = whole_rows(
+            self.sspec, E._host(self.state.epoch), pool["stage"],
+            pool["keys"], pool["values"], pool["stamp"], everywhere=False)
+        cap = {"watermark": w,                                 # (S,)
+               "raw_stage": stage, "keys": keys, "values": values,
+               "stamp": stamp}
         self.state = self.state._replace(epoch=self.state.epoch + 1)
         return cap
 
     def snapshot_build(self, cap: dict):
         """Canonicalize the capture with the normal per-shard ``recover``
-        (safe in a background thread).  Returns (planes, meta); every
-        plane keeps its leading shard axis."""
+        of all S shards on this process's device, with no collective (safe
+        in a background thread; on a mesh only rank 0 builds, from its
+        whole capture).  Returns (planes, meta); every plane keeps its
+        leading shard axis."""
+        sspec = dataclasses.replace(self.sspec, use_shard_map=False)
         st, hist = recover(*(E._on_device(cap[f], self.device, np.int32)
                              for f in ("raw_stage", "keys", "values",
-                                       "stamp")), sspec=self.sspec)
+                                       "stamp")), sspec=sspec)
         planes = {f: E._host(getattr(st, f)) for f in self._SNAP_FIELDS}
         planes["raw_stage"] = cap["raw_stage"]
         meta = {"kind": "sharded_map",
@@ -928,10 +1027,11 @@ class ShardedDurableMap(MetricsMixin):
         return planes, meta
 
     def _snapshot_state(self, planes: dict) -> SetState:
-        """The canonical stacked snapshot state on the map's device; every
-        leaf owns its memory."""
+        """The canonical stacked snapshot state on the map's device (this
+        process's rows of the stored planes); every leaf owns its
+        memory."""
         def leaf(f):
-            return E._on_device(planes[f], self.device)
+            return E._on_device(self.rows_of(planes[f]), self.device)
         cur = leaf("cur")
         return make_state(self.sspec, device=self.device)._replace(
             keys=leaf("keys"), values=leaf("values"), cur=cur,
@@ -945,7 +1045,9 @@ class ShardedDurableMap(MetricsMixin):
         the device: ``(delta_idx i32[S, D] on the device, shard rows,
         slots, persisted stages)``, the last three host arrays in
         row-major order.  D is the largest shard's delta count rounded up
-        to a power of two, at least 8, as in the JAX package."""
+        to a power of two, at least 8, as in the JAX package (the largest
+        over every rank's shards on a mesh).  ``watermark`` and the rows
+        are this process's."""
         s, n = stamp.shape
         w = torch.as_tensor(np.asarray(watermark, np.int32).reshape(-1, 1),
                             device=stamp.device)
@@ -955,6 +1057,8 @@ class ShardedDurableMap(MetricsMixin):
         rows, cols, stages = (a.astype(np.int64) for a in host)
         counts = np.bincount(rows, minlength=s)
         dmax = int(counts.max()) if s else 0
+        if self.mesh is not None:
+            dmax = self.mesh.max(dmax)
         d = E._padded_len(dmax)
         start = np.concatenate([[0], np.cumsum(counts)[:-1]])
         delta_idx = np.full((s, d), n, np.int32)
@@ -975,22 +1079,25 @@ class ShardedDurableMap(MetricsMixin):
         t0 = time.perf_counter()
         crashed = crash(self.state, u)
         delta_idx, rows, cols, stages = self._find_delta(
-            crashed[0], crashed[3], meta["watermark"])
+            crashed[0], crashed[3],
+            self.rows_of(np.asarray(meta["watermark"])))
         # the stage histogram a full scan would count, corrected in
         # O(delta) from the snapshot's: the capture-time raw stages of the
         # delta slots go out, their crash-time stages come in
-        hist = np.asarray(meta["hist"], np.int64).copy()       # (S, 5)
-        raw = np.asarray(planes["raw_stage"])
+        hist = self.rows_of(
+            np.asarray(meta["hist"], np.int64)).copy()         # (S, 5)
+        raw = self.rows_of(np.asarray(planes["raw_stage"]))
         np.add.at(hist, (rows, np.clip(raw[rows, cols], 0, 4)), -1)
         np.add.at(hist, (rows, np.clip(stages, 0, 4)), 1)
         snap = self._snapshot_state(planes)
         self.state = hybrid_recover(snap, *crashed, delta_idx,
                                     sspec=self.sspec)
-        self.last_recovery_hist_shards = hist.astype(np.int32)
+        (self.last_recovery_hist_shards,) = whole_rows(
+            self.sspec, hist.astype(np.int32))
         self.last_recovery_hist = self.last_recovery_hist_shards.sum(axis=0)
         self._sync()
         self.last_recovery_seconds = time.perf_counter() - t0
-        n_delta = int(rows.size)
+        n_delta = self._total(rows.size)
         total = self.n_shards * n
         self._metrics_post_recovery(scanned_slots=n_delta,
                                     from_snapshot=total - n_delta,
@@ -1003,17 +1110,27 @@ class ShardedDurableMap(MetricsMixin):
         # dispatch the staged batch first so the counters reflect every
         # submitted batch
         self._dispatch_staged()
-        return int(self.state.n_psync.sum())
+        return self._total(self.state.n_psync.sum())
 
     @property
     def ops(self):
         self._dispatch_staged()
-        return int(self.state.n_ops.sum())
+        return self._total(self.state.n_ops.sum())
 
     def __len__(self):
         self._dispatch_staged()
-        return int(self.state.size.sum())
+        return self._total(self.state.size.sum())
 
     def __repr__(self):
-        return (f"ShardedDurableMap(size={len(self)}, psyncs={self.psyncs}, "
+        if self.mesh is None:
+            return (f"ShardedDurableMap(size={len(self)}, "
+                    f"psyncs={self.psyncs}, n_shards={self.n_shards}, "
+                    f"spec={self.spec})")
+        # one rank's view: no collective, so any rank may print it alone
+        self._dispatch_staged()
+        st = self.state
+        return (f"ShardedDurableMap(rank={self.mesh.rank}, "
+                f"rows={self.rows.start}:{self.rows.stop}, "
+                f"local_size={int(st.size.sum())}, "
+                f"local_psyncs={int(st.n_psync.sum())}, "
                 f"n_shards={self.n_shards}, spec={self.spec})")

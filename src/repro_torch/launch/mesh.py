@@ -1,0 +1,249 @@
+"""Process-group mesh for the sharded durable map: one process per GPU.
+
+PyTorch port of the helpers the JAX package's sharded map takes from
+``repro.launch.mesh`` (``compat_make_mesh``, ``compat_shard_map``).  JAX
+partitions the shard axis over a 1-D ``("shards",)`` device mesh inside one
+controller; here a ``torch.distributed`` process group of D ranks stands in
+for the mesh, one process per GPU, because the map's path is bound by the
+host's launches: one Python thread driving D cards would issue their
+launches one after another.
+
+  rows      rank r holds storage rows ``r*S/D .. (r+1)*S/D - 1`` of every
+            state leaf -- the rows ``PartitionSpec("shards")`` gives device
+            r.  Ranks past D (a world that is not a power of two dividing
+            S) hold none.
+  bodies    each rank runs its own rows' shard bodies with the existing
+            kernels, on its own device.
+  outputs   the shard bodies never communicate (the JAX program under
+            ``shard_map`` has no collective), so only host-side lane
+            results and counters cross between ranks: :meth:`ShardMesh.
+            gather` is ``out_specs=P("shards")``, an all-gather of each
+            rank's rows into the (D, ...) array, over a ``gloo`` group of
+            its own (made with ``dist.new_group(backend="gloo")``, so it
+            works under any default group, NCCL included).
+
+Every method of :class:`ShardMesh` is a collective: every rank calls it, in
+the same order.  The map's facade keeps that order because every rank makes
+the same calls on the same batches.
+
+:func:`spawn` starts a group on one host (the tests run 4 ``gloo`` ranks on
+the CPU; on the card the ranks may share one GPU).  ``torchrun`` or any
+other launcher that initializes the default group works as well.
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import queue as queue_mod
+import shutil
+import tempfile
+import time
+import traceback
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+_TIMEOUT = datetime.timedelta(minutes=10)   # a collective's wait, per call
+_SPAWN_TIMEOUT = 900.0                      # seconds for a spawned group
+
+_MESH = None          # (default group, ShardMesh): one gloo group per group
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardMesh:
+    """This process's place in the group: its rank, the world size, and the
+    ``gloo`` group of the host-side collectives."""
+    rank: int
+    world: int
+    group: object
+
+    def rows(self, n_shards: int, d: int) -> range:
+        """The storage rows this rank holds when S shards split over D
+        ranks: its contiguous block of S/D, none past rank D - 1."""
+        per = n_shards // d
+        if self.rank >= d:
+            return range(0)
+        return range(self.rank * per, (self.rank + 1) * per)
+
+    def device(self, requested="cuda") -> torch.device:
+        """The rank's device: ``cuda:(rank % device_count)`` for a bare
+        ``"cuda"``, else what the caller asked for (``"cpu"``, or a card
+        by index)."""
+        dev = torch.device(requested)
+        n = torch.cuda.device_count()
+        if dev.type == "cuda" and dev.index is None and n:
+            return torch.device("cuda", self.rank % n)
+        return dev
+
+    def gather(self, parts: Optional[Sequence[np.ndarray]],
+               shapes: Sequence[tuple], d: int,
+               everywhere: bool = True) -> Optional[list]:
+        """``out_specs=P("shards")``: each output's rows from ranks 0 to
+        D - 1, stacked into a (D, *shape) int32 array, in ONE all-gather.
+        ``parts`` are this rank's outputs (each of ``shape`` or with a
+        leading axis of 1); a rank past D holds none and passes None.
+        ``everywhere=False`` gathers to rank 0 alone: the other ranks get
+        None and never hold the whole arrays."""
+        sizes = [int(np.prod(s, dtype=np.int64)) for s in shapes]
+        n = sum(sizes)
+        if parts is None:
+            flat = np.zeros((n,), np.int32)
+        else:
+            flat = np.concatenate([np.asarray(p, np.int32).reshape(-1)
+                                   for p in parts]) if parts else \
+                np.zeros((0,), np.int32)
+        if flat.size != n:
+            raise ValueError(f"gather: {flat.size} values for shapes "
+                             f"{list(shapes)}")
+        mine = torch.from_numpy(flat)
+        if everywhere or self.rank == 0:
+            got = [torch.empty((n,), dtype=torch.int32)
+                   for _ in range(self.world)]
+        if everywhere:
+            dist.all_gather(got, mine, group=self.group)
+        elif self.rank == 0:
+            dist.gather(mine, got, dst=0, group=self.group)
+        else:
+            dist.gather(mine, None, dst=0, group=self.group)
+            return None
+        rows = torch.stack(got[:d]).numpy()
+        out, at = [], 0
+        for s, k in zip(shapes, sizes):
+            out.append(rows[:, at:at + k].reshape((d,) + tuple(s)))
+            at += k
+        return out
+
+    def _reduce(self, value: int, op) -> int:
+        t = torch.tensor([int(value)], dtype=torch.int64)
+        dist.all_reduce(t, op=op, group=self.group)
+        return int(t[0])
+
+    def sum(self, value: int) -> int:
+        return self._reduce(value, dist.ReduceOp.SUM)
+
+    def max(self, value: int) -> int:
+        return self._reduce(value, dist.ReduceOp.MAX)
+
+    def any(self, flag: bool) -> bool:
+        return bool(self._reduce(bool(flag), dist.ReduceOp.MAX))
+
+    def broadcast(self, value: int) -> int:
+        """Rank 0's value on every rank (a decision rank 0 takes, such as
+        whether a snapshot is due or which step recovery reads, made the
+        same everywhere)."""
+        t = torch.tensor([int(value)], dtype=torch.int64)
+        dist.broadcast(t, src=0, group=self.group)
+        return int(t[0])
+
+    def barrier(self) -> None:
+        dist.barrier(group=self.group)
+
+
+def world_size() -> int:
+    """Ranks in the initialized default process group; 0 without one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 0
+
+
+def current_mesh() -> ShardMesh:
+    """The :class:`ShardMesh` of the initialized default group.  Its
+    ``gloo`` group is made once per default group, on the first call,
+    which every rank makes at the same point (it is a collective)."""
+    global _MESH
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("no torch.distributed process group is "
+                           "initialized")
+    world = dist.group.WORLD
+    if _MESH is None or _MESH[0] is not world:
+        group = dist.new_group(backend="gloo", timeout=_TIMEOUT)
+        _MESH = (world, ShardMesh(dist.get_rank(), dist.get_world_size(),
+                                  group))
+    return _MESH[1]
+
+
+def shard_map(body, mesh: ShardMesh, d: int, *rows):
+    """Run ``body(*row_r)`` on this rank's row ``r`` of each (D, ...)
+    argument, as ``shard_map`` runs the per-device program on device r's
+    block; a rank past D runs nothing and returns None.  The outputs stay
+    on the rank: :meth:`ShardMesh.gather` stacks them when they are read."""
+    if mesh.rank >= d:
+        return None
+    return body(*(x[mesh.rank] for x in rows))
+
+
+# ---------------------------------------------------------------------------
+# Starting a group on one host
+# ---------------------------------------------------------------------------
+
+
+def _rank_main(fn, rank: int, world: int, init: str, out, args) -> None:
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", init_method=init, rank=rank,
+                                world_size=world, timeout=_TIMEOUT)
+        try:
+            out.put((rank, True, fn(rank, *args)))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:                       # reported, then re-raised
+        out.put((rank, False, traceback.format_exc()))
+        raise
+
+
+def spawn(fn, world: int, *args) -> list:
+    """Run ``fn(rank, *args)`` in ``world`` fresh processes that form a
+    ``gloo`` process group, and return their results in rank order.
+
+    The processes start by the ``spawn`` method (``fn``, its arguments and
+    its result are pickled: ``fn`` must be importable by name), rendezvous
+    through a file in a temporary directory (no TCP port to race for), run
+    on one intra-op thread each, and destroy the group at the end.  A rank
+    that raises, dies or is still running after ``_SPAWN_TIMEOUT`` seconds
+    fails the call, and every rank is stopped."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="repro_torch_mesh_")
+    init = "file://" + os.path.join(tmp, "rendezvous")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main,
+                         args=(fn, r, world, init, out, args), daemon=True)
+             for r in range(world)]
+    results, errors = {}, []
+    try:
+        for p in procs:
+            p.start()
+        end = time.monotonic() + _SPAWN_TIMEOUT
+        while len(results) + len(errors) < world:
+            try:
+                rank, ok, value = out.get(timeout=1.0)
+            except queue_mod.Empty:
+                dead = [p for p in procs if p.exitcode not in (None, 0)]
+                if dead and not errors:
+                    errors.append(f"rank {procs.index(dead[0])} died with "
+                                  f"exit code {dead[0].exitcode}")
+                if errors or time.monotonic() > end:
+                    break
+                continue
+            if ok:
+                results[rank] = value
+            else:
+                errors.append(f"rank {rank} raised:\n{value}")
+                break
+        if not errors and len(results) < world:
+            errors.append(f"ranks {sorted(set(range(world)) - set(results))}"
+                          f" did not finish in {_SPAWN_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.pid is None:                 # never started
+                continue
+            p.join(timeout=10.0 if not errors else 1.0)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=5.0)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if errors:
+        raise RuntimeError("spawn: " + "\n".join(errors))
+    return [results[r] for r in range(world)]

@@ -20,6 +20,7 @@ Design constraints, in order:
 """
 from __future__ import annotations
 
+import threading
 import time
 from typing import Callable, Dict, Optional
 
@@ -176,6 +177,10 @@ class MetricsRegistry:
     callable returning a flat dict -- that is invoked ONLY at snapshot
     time, so the device->host crossing happens at an explicit
     force/flush boundary, never per-op (DESIGN.md §10).
+
+    A background thread (a ``Snapshotter``'s build) may create metrics
+    while the main thread snapshots: creation and the snapshot's copy of
+    the tables hold one lock.
     """
 
     def __init__(self, sinks=()):
@@ -183,30 +188,30 @@ class MetricsRegistry:
         self._gauges: Dict[str, Gauge] = {}
         self._hists: Dict[str, Histogram] = {}
         self._collectors: Dict[str, Callable[[], dict]] = {}
+        self._lock = threading.Lock()
         self.sinks = list(sinks)
 
     # -- metric accessors (create on first use) ---------------------------
 
+    def _get(self, table: dict, name: str, make):
+        m = table.get(name)
+        if m is None:
+            with self._lock:
+                m = table.get(name)
+                if m is None:
+                    m = table[name] = make()
+        return m
+
     def counter(self, name: str) -> Counter:
-        c = self._counters.get(name)
-        if c is None:
-            c = self._counters[name] = Counter()
-        return c
+        return self._get(self._counters, name, Counter)
 
     def gauge(self, name: str) -> Gauge:
-        g = self._gauges.get(name)
-        if g is None:
-            g = self._gauges[name] = Gauge()
-        return g
+        return self._get(self._gauges, name, Gauge)
 
     def histogram(self, name: str, max_samples: Optional[int] = None
                   ) -> Histogram:
-        h = self._hists.get(name)
-        if h is None:
-            h = self._hists[name] = Histogram(
-                **({} if max_samples is None
-                   else {"max_samples": max_samples}))
-        return h
+        return self._get(self._hists, name, lambda: Histogram(
+            **({} if max_samples is None else {"max_samples": max_samples})))
 
     def span(self, name: str) -> Span:
         """``with registry.span("route"): ...`` -- stage timer into the
@@ -218,7 +223,8 @@ class MetricsRegistry:
         """Register a flat-dict provider read at snapshot time.  The
         latest registration under a name wins (a structure re-attaching
         after recovery replaces its old closure)."""
-        self._collectors[name] = fn
+        with self._lock:
+            self._collectors[name] = fn
 
     # -- read path --------------------------------------------------------
 
@@ -227,12 +233,16 @@ class MetricsRegistry:
         collector's device-counter crossing.  THE force boundary at
         which device telemetry becomes host-visible.  Collectors run
         FIRST so gauges they refresh (e.g. snapshot age) read current."""
-        collected = {k: fn() for k, fn in self._collectors.items()}
+        with self._lock:
+            collectors = list(self._collectors.items())
+        collected = {k: fn() for k, fn in collectors}
+        with self._lock:
+            counters, gauges, hists = (list(t.items()) for t in (
+                self._counters, self._gauges, self._hists))
         return {
-            "counters": {k: c.value for k, c in self._counters.items()},
-            "gauges": {k: g.value for k, g in self._gauges.items()},
-            "histograms": {k: h.snapshot()
-                           for k, h in self._hists.items()},
+            "counters": {k: c.value for k, c in counters},
+            "gauges": {k: g.value for k, g in gauges},
+            "histograms": {k: h.snapshot() for k, h in hists},
             "collected": collected,
         }
 
@@ -240,9 +250,12 @@ class MetricsRegistry:
         """Clear gauges and histograms (the volatile view); counters --
         the durable monotone totals -- survive, mirroring how recovery
         rebuilds volatile indexes but never un-counts committed work."""
-        for g in self._gauges.values():
+        with self._lock:
+            gauges, hists = list(self._gauges.values()), list(
+                self._hists.values())
+        for g in gauges:
             g.set(0.0)
-        for h in self._hists.values():
+        for h in hists:
             h.reset()
 
     def emit(self, label: str = "") -> dict:

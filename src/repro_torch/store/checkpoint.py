@@ -280,6 +280,11 @@ class CheckpointManager:
         finally:
             tmp.close()
 
+    def refresh(self):
+        """Re-read which steps are committed, for a reader of a directory
+        that another process writes."""
+        self._recover_index()
+
     def latest_step(self) -> Optional[int]:
         return max(self.committed) if self.committed else None
 

@@ -32,6 +32,17 @@ PyTorch port of ``repro.store.snapshot``.  The port's ``DurableMap``,
 have the hooks; ``load_resharded`` restores a sharded-map snapshot at
 another shard count.  The store layout is the JAX package's, so either
 package restores the other's snapshots.
+
+A sharded map partitioned over the ranks of a process group (its ``mesh``)
+is snapshotted by one :class:`Snapshotter` per rank on one directory, which
+every rank must see (a local path on one host, a shared file system
+across hosts).  The capture is a collective, on every rank's main thread;
+rank 0 alone receives the whole capture, builds and writes, so the store
+holds the files a one-device map's would, and its background thread runs
+no collective (a ``gloo`` collective there would interleave with the
+dispatch's).  Recovery reads the step rank 0 last committed, sent to every
+rank, and raises on every rank when any rank's view of the directory lacks
+it; each rank keeps its own rows.
 """
 from __future__ import annotations
 
@@ -45,7 +56,8 @@ import torch
 
 from repro_torch.core import engine as E
 from repro_torch.core import shard as SH
-from repro_torch.core.resize import ElasticShardedMap, reshard_planes
+from repro_torch.core.resize import (ElasticShardedMap,
+                                     check_not_partitioned, reshard_planes)
 from repro_torch.store.checkpoint import CheckpointManager
 
 
@@ -97,6 +109,10 @@ class Snapshotter:
                  metrics=None, name: Optional[str] = None):
         self.structure = structure
         self.policy = policy or SnapshotPolicy()
+        # a map partitioned over ranks: collectives on the main thread, and
+        # only rank 0 builds and writes
+        self.mesh = getattr(structure, "mesh", None)
+        self._writes = self.mesh is None or self.mesh.rank == 0
         self.store = CheckpointManager(directory, layout="dirs", keep=keep)
         self._name = name or getattr(structure, "_m_name", "structure")
         self._m = metrics if metrics is not None \
@@ -130,11 +146,12 @@ class Snapshotter:
         now = time.monotonic()
         if not self.supports_hybrid:
             return None
-        if self._pending is not None and not self._pending.done():
-            return None                       # one build in flight at a time
-        if not self.policy.due(step, self._last_step, now, self._last_time):
-            return None
-        return self.snapshot(step)
+        # one build in flight at a time
+        due = (self._pending is None or self._pending.done()) and \
+            self.policy.due(step, self._last_step, now, self._last_time)
+        if self.mesh is not None:
+            due = bool(self.mesh.broadcast(due))  # rank 0 decides for all
+        return self.snapshot(step) if due else None
 
     def snapshot(self, step: Optional[int] = None) -> Future:
         """Capture NOW (synchronous, cheap -- a host copy of already-durable
@@ -152,8 +169,12 @@ class Snapshotter:
         self._last_time = time.monotonic()
         t0 = time.perf_counter()
         cap = self.structure.snapshot_capture()
-        self._pending = self._pool.submit(self._build_and_save, step, cap,
-                                          t0)
+        if self._writes:
+            self._pending = self._pool.submit(self._build_and_save, step,
+                                              cap, t0)
+        else:                                 # rank 0 writes this step
+            self._pending = Future()
+            self._pending.set_result(step)
         return self._pending
 
     def _build_and_save(self, step: int, cap: dict, t0: float) -> int:
@@ -174,7 +195,11 @@ class Snapshotter:
         return step
 
     def wait(self) -> Optional[int]:
-        """Block until the in-flight build (if any) commits."""
+        """Block until the in-flight build (if any) commits.  On a rank
+        other than 0 of a mesh, where rank 0 alone builds and writes, there
+        is nothing to wait for: the step returned is the one captured,
+        committed only if rank 0's build succeeds (``recover`` reads the
+        step rank 0 actually committed)."""
         if self._pending is None:
             return None
         step = self._pending.result()
@@ -201,6 +226,8 @@ class Snapshotter:
                     #       step, so recovery proceeds from the last one
             self._pending = None
         step = self.store.latest_step()
+        if self.mesh is not None:
+            step = self._committed_on_every_rank(step)
         if step is None or not self.supports_hybrid:
             self.structure.crash_and_recover(u)
         else:
@@ -209,6 +236,23 @@ class Snapshotter:
             self.structure.hybrid_crash_and_recover(planes, meta, u)
         self._fix_epoch()
         return self.structure
+
+    def _committed_on_every_rank(self, step: Optional[int]) -> Optional[int]:
+        """The step rank 0 last committed (its build has ended), sent to
+        every rank, so every rank takes the same recovery path with the
+        same collectives.  Raises on every rank when any rank's store does
+        not hold it: the directory is not one that every rank sees."""
+        got = self.mesh.broadcast(-1 if step is None else step)
+        step = None if got < 0 else got
+        self.store.refresh()
+        missing = step is not None and step not in self.store.committed
+        if self.mesh.any(missing):
+            raise RuntimeError(
+                f"snapshot step {step}, committed by rank 0, is missing from "
+                f"another rank's view of {self.store.dir!r}: "
+                "every rank of a mesh must snapshot to one directory that "
+                "all of them see")
+        return step
 
     def _fix_epoch(self):
         """Stamp-generation monotonicity across snapshots WITHOUT
@@ -226,6 +270,8 @@ class Snapshotter:
             w = ws if w is None else np.maximum(w, ws)
         if w is None:
             return
+        if self.mesh is not None:
+            w = self.structure.rows_of(w)
         st = self.structure.state
         self.structure.state = st._replace(epoch=torch.maximum(
             st.epoch, torch.tensor(np.asarray(w + 1, np.int32),
@@ -283,7 +329,9 @@ def load_resharded(directory: str, spec, n_shards: int, elastic: bool = True,
     stored one -- resharding moves nodes ACROSS shards, never resizes a
     shard's pool.  Returns an
     :class:`~repro_torch.core.resize.ElasticShardedMap` (``elastic=False``:
-    a plain :class:`~repro_torch.core.shard.ShardedDurableMap`)."""
+    a plain :class:`~repro_torch.core.shard.ShardedDurableMap`).  A map
+    partitioned over several ranks (``use_shard_map`` in a process group)
+    raises ``NotImplementedError`` (ROADMAP item 7d)."""
     store = CheckpointManager(directory, layout="dirs")
     try:
         step = store.latest_step()
@@ -304,6 +352,7 @@ def load_resharded(directory: str, spec, n_shards: int, elastic: bool = True,
             m = SH.ShardedDurableMap(spec, n_shards=n_shards, device=device,
                                      **shard_kwargs)
             inner = m
+        check_not_partitioned(inner.sspec)
         if inner.sspec.per_shard_capacity != per:
             raise ValueError(
                 f"per-shard capacity mismatch: snapshot has {per}-slot "

@@ -754,6 +754,75 @@ def test_sharded_hybrid_recovery_on_the_card_equals_full(cuda, tmp_path):
     sn.close()
 
 
+def sharded_mesh_run(backend, snap_dir):
+    """One map of 8 shards of 2^11 slots on the card under
+    ``use_shard_map`` (on this rank's rows inside a process group, on all
+    8 without one): a prefill, 10 mixed batches, a crash (through a
+    snapshot on bucket), 5 batches.  Returns the results, counters,
+    histogram, rows held, their leaves and this process's launches."""
+    from repro_torch.kernels.recovery_scan.kernel import scan_cuda as scan
+    lookup = probe_cuda if backend == "bucket" else table_probe_cuda
+    scan.launches = lookup.launches = 0
+    rng = np.random.default_rng(41)
+    m = ShardedDurableMap(SetSpec(capacity=1 << 14, backend=backend),
+                          n_shards=8, device="cuda", use_shard_map=True)
+    res = [m.insert(k) for k in np.split(
+        rng.choice(1 << 13, 1 << 12, replace=False).astype(np.int32), 4)]
+    sn = None
+    if backend == "bucket":
+        sn = Snapshotter(m, snap_dir)
+        sn.snapshot()
+        sn.wait()
+    batches = list(_shard_traffic(rng, 15, 256, 1 << 13))
+    res += [m.apply(ops, k) for ops, k in batches[:10]]
+    u = np.random.default_rng(42).random((8, 1 << 11)).astype(np.float32)
+    if sn is not None:
+        sn.recover(u)
+        sn.close()
+    else:
+        m.crash_and_recover(u)
+    res += [m.apply(ops, k) for ops, k in batches[10:]]
+    return {"results": np.concatenate(res),
+            "hist": m.last_recovery_hist_shards,
+            "counters": (m.psyncs, m.ops, len(m)),
+            "rows": (m.rows.start, m.rows.stop), "device": str(m.device),
+            "leaves": state_to_numpy(m.state),
+            "launches": (scan.launches, lookup.launches)}
+
+
+def sharded_mesh_rank(rank, snap_dir):
+    return {b: sharded_mesh_run(b, f"{snap_dir}/{b}_mesh")
+            for b in ("bucket", "probe")}
+
+
+def test_sharded_mesh_of_two_ranks_on_the_card_matches_one_process(
+        cuda, tmp_path):
+    """``use_shard_map`` over 2 gloo ranks sharing the card, each holding 4
+    of the 8 shards: bucket (snapshot and hybrid recovery) and probe,
+    every result, counter, histogram and each rank's rows of every leaf
+    equal to the one-process map's on the card; each rank launched its
+    path's kernels."""
+    from repro_torch.launch.mesh import spawn
+    one = {b: sharded_mesh_run(b, str(tmp_path / f"{b}_one"))
+           for b in ("bucket", "probe")}
+    ranks = spawn(sharded_mesh_rank, 2, str(tmp_path))
+    for b in ("bucket", "probe"):
+        assert one[b]["rows"] == (0, 8)
+        for r, got in enumerate(r_[b] for r_ in ranks):
+            lo, hi = got["rows"]
+            assert (lo, hi) == (4 * r, 4 * r + 4)
+            assert got["device"] == "cuda:0"
+            for k in ("results", "hist"):
+                np.testing.assert_array_equal(got[k], one[b][k],
+                                              err_msg=f"{b} rank {r} {k}")
+            assert got["counters"] == one[b]["counters"]
+            for f, leaf in got["leaves"].items():
+                np.testing.assert_array_equal(
+                    leaf, one[b]["leaves"][f][lo:hi],
+                    err_msg=f"{b} rank {r} leaf {f}")
+            assert min(got["launches"]) > 0, (b, r, got["launches"])
+
+
 def test_sharded_state_rows_are_separate_on_the_card(cuda):
     st = TS.make_state(TS.ShardSpec(base=SetSpec(capacity=64,
                                                  backend="bucket"),

@@ -93,3 +93,37 @@ def test_obs_exports_every_name_of_the_jax_package():
     assert set(TO.__all__) == set(JO.__all__)
     for name in TO.__all__:
         assert hasattr(TO, name)
+
+
+def test_registry_snapshots_while_threads_create_metrics():
+    """A ``Snapshotter``'s build thread creates metrics while the main
+    thread snapshots the registry: every snapshot completes, and no
+    metric is lost."""
+    import sys
+    import threading
+    m = TO.MetricsRegistry()
+    n = 300
+
+    def create(k):
+        for i in range(n):
+            m.histogram(f"span.t{k}.{i}").record(1e-3)
+            m.counter(f"t{k}.{i}").inc()
+            m.gauge(f"t{k}.{i}").set(1.0)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=create, args=(k,))
+                   for k in range(4)]
+        for t in threads:
+            t.start()
+        while any(t.is_alive() for t in threads):
+            m.snapshot()
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(old)
+    snap = m.snapshot()
+    assert [len(snap[k]) for k in ("histograms", "counters", "gauges")] == \
+        [4 * n] * 3

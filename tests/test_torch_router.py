@@ -208,13 +208,18 @@ def test_shard_spec_errors_match_jax(kw):
 
 
 def test_use_shard_map_on_one_device_stays_put():
-    """A one-device process under ``use_shard_map`` runs as without it,
-    as the JAX package stays on plain vmap; several CUDA devices would
-    raise naming ROADMAP item 7b."""
+    """A process with no ``torch.distributed`` group under
+    ``use_shard_map`` runs as without it, as the JAX package stays on
+    plain vmap: one group, no mesh, every row held here."""
     _, ts = _specs(n_shards=8, use_shard_map=True)
-    assert TR.mesh_devices(ts) == (1 if torch.cuda.device_count() <= 1
-                                   else TR.mesh_devices(ts))
+    assert not torch.distributed.is_initialized()
     if torch.cuda.device_count() <= 1:
-        TR.check_single_device(ts)
+        assert TR.mesh_devices(ts) == 1 and TR.mesh_groups(ts) == 1
         assert TR.resolve_groups(ts) == 1
-    assert "item 7b" in TR.MULTI_GPU
+        assert TR.shard_mesh(ts) is None
+        assert TR.local_rows(ts) == range(8)
+        m = TS.ShardedDurableMap(TSpec(capacity=128), n_shards=8,
+                                 use_shard_map=True, device="cpu")
+        assert m.mesh is None and m.rows == range(8)
+        assert m.state.keys.shape[0] == 8
+        assert m.insert([1, 2]).all() and len(m) == 2

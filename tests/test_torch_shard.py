@@ -9,9 +9,11 @@ The same seeded batches (numpy) go through ``repro.core.shard`` and
 must be equal.  Then the runtime's own cases: per-shard memory, the
 per-shard executor's write-back, the no-op ``precompile``, v1's drop
 latch, the stash overflow, a probe shard whose ``table_claim`` takes
-several rounds, and the multi-GPU path that raises.  The router settings
-are in ``test_torch_shard_router``, the functional API in
-``test_torch_shard_functional``.  The JAX side runs as its own tests run
+several rounds, and ``use_shard_map`` over several GPUs with no process
+group, which raises, as resizing a map partitioned over ranks does.  The
+router settings are in ``test_torch_shard_router``, the functional API in
+``test_torch_shard_functional``, the map over several ranks in
+``test_torch_mesh``.  The JAX side runs as its own tests run
 it (Pallas kernels in interpret mode)."""
 import warnings
 
@@ -288,13 +290,28 @@ def test_facade_constructor_forms_agree():
     assert r.startswith("ShardedDurableMap(size=0, psyncs=0, n_shards=2")
 
 
-def test_use_shard_map_over_several_gpus_names_item_7b(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+def test_use_shard_map_over_several_gpus_names_item_7b(monkeypatch,
+                                                       tmp_path):
+    """Several visible CUDA devices and no process group raise, saying how
+    to start one process per GPU (ROADMAP item 7b is ported); without
+    ``use_shard_map`` the map stays on one device.  Resizing a map
+    partitioned over ranks raises naming ROADMAP item 7d."""
+    from repro_torch.core import resize as TZ
+    from repro_torch.launch import mesh as MS
+    from repro_torch.store.snapshot import Snapshotter, load_resharded
     base = TSpec(capacity=64)
-    with pytest.raises(NotImplementedError, match="item 7b"):
+    m = TS.ShardedDurableMap(base, n_shards=4, device="cpu")   # no mesh
+    sn = Snapshotter(TS.ShardedDurableMap(TSpec(capacity=64,
+                                                backend="bucket"),
+                                          n_shards=4, device="cpu"),
+                     str(tmp_path))
+    sn.snapshot()
+    sn.close()
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    with pytest.raises(RuntimeError, match="one process per GPU") as e:
         TS.ShardedDurableMap(base, n_shards=4, use_shard_map=True,
                              device="cpu")
-    m = TS.ShardedDurableMap(base, n_shards=4, device="cpu")   # no mesh
+    assert "torchrun" in str(e.value)
     assert m.insert([1, 2]).all()
     sspec = TS.ShardSpec(base=base, n_shards=4, use_shard_map=True)
     st = m.state
@@ -304,7 +321,25 @@ def test_use_shard_map_over_several_gpus_names_item_7b(monkeypatch):
                lambda: TR.dispatch_plan(st, TR.host_route(
                    sspec, *(np.zeros(4, np.int32) for _ in range(3))),
                    sspec=sspec)):
-        with pytest.raises(NotImplementedError, match="item 7b"):
+        with pytest.raises(RuntimeError, match="one process per GPU"):
+            fn()
+    # a group of 4 ranks, this process rank 0: the map holds rows 0 and 1
+    monkeypatch.setattr(MS, "world_size", lambda: 4)
+    monkeypatch.setattr(MS, "current_mesh",
+                        lambda: MS.ShardMesh(rank=0, world=4, group=None))
+    part = TS.ShardedDurableMap(base, n_shards=8, use_shard_map=True,
+                                device="cpu")
+    assert part.rows == range(0, 2) and part.state.keys.shape[0] == 2
+    for fn in (lambda: TZ.ElasticShardedMap(base, n_shards=8,
+                                            use_shard_map=True,
+                                            device="cpu"),
+               lambda: load_resharded(str(tmp_path), TSpec(
+                   capacity=128, backend="bucket"), 8, device="cpu",
+                   use_shard_map=True),
+               lambda: load_resharded(str(tmp_path), TSpec(
+                   capacity=128, backend="bucket"), 8, elastic=False,
+                   device="cpu", use_shard_map=True)):
+        with pytest.raises(NotImplementedError, match="item 7d"):
             fn()
 
 
