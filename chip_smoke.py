@@ -178,6 +178,21 @@ Phases, each of which exits non-zero on failure:
    whose names hold "resize" or "elastic".  Launch counts are zeroed
    before each run and read after it (``launches_resize`` in the JSON
    record).
+3e2. Online resize over several processes: ``ElasticShardedMap(...,
+   use_shard_map=True)`` in 4 ``gloo`` ranks sharing the card, against
+   one process running the same calls.  2 shards (bucket: 2^18 slots a
+   shard, 2^18 keys prefilled from hash-1M's key range 2^20; probe:
+   2^16 and 2^16, its children rebuild their tables at each commit)
+   split online to 4 (D 2 -> 4: rows move between ranks) and to 8, one
+   ``step()`` per 1024-lane 90/5/5 batch, ``migrate_chunk`` 16384; merged
+   to 4 and 2 by steps; a crash mid-split 2 -> 4 and the split finished;
+   on bucket, ``load_resharded`` of a snapshot of the 4-shard map at 2
+   and 16 shards.  Every result, the counters and each leaf row (by
+   digest) at every checkpoint, the crash's histogram and each load,
+   on every rank against one process; each rank's launches, zeroed in
+   the rank before its run, > 0 (``launches_mesh_resize`` in the JSON
+   record); each rank's median ms per copy step and per commit step and
+   the part of it in the ``gloo`` collectives.
 
 4. Attention kernels against their plain versions on the card, in f32 and
    bf16 at the JAX tests' tolerances: ``gqa_decode`` at qwen3-32b's decode
@@ -330,6 +345,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -1870,11 +1886,12 @@ MESH_GEOMETRY = dict(capacity=1 << 21, key_range=1 << 20, prefill=1 << 19,
 @contextlib.contextmanager
 def timed_collectives():
     """Seconds and calls spent in this process's host-side collectives of
-    ``launch/mesh.py`` (``all_gather``, ``all_reduce``), each one's wait
-    for the other ranks included, while the block runs."""
+    ``launch/mesh.py`` (``all_gather``, ``all_reduce``, ``broadcast``),
+    each one's wait for the other ranks included, while the block runs."""
     spent = {"s": 0.0, "n": 0}
     dist = mesh.dist
-    real = {n: getattr(dist, n) for n in ("all_gather", "all_reduce")}
+    real = {n: getattr(dist, n)
+            for n in ("all_gather", "all_reduce", "broadcast")}
 
     def timed(f):
         def call(*a, **k):
@@ -2769,6 +2786,255 @@ def run_resize_phase(dev, per=1 << 18, kr=1 << 20, b=1024):
             "table_probe": {"probe_split": probe_launches["table_probe"],
                             "serve": {k: v["table_probe"]
                                       for k, v in serve_launches.items()}}}
+
+
+# ---------------------------------------------------------------------------
+# 3e2. online resize over 4 processes sharing the card
+# ---------------------------------------------------------------------------
+
+MESH_RESIZE_CHUNK = 16384          # migrate_chunk of phase 3e2
+# per backend: slots a shard and keys prefilled into the first 2 shards
+# (the probe backend's children rebuild their tables at each commit, 488
+# ms per 4 -> 8 split at 2^18 a shard: it runs at 2^16); a rehearsal on
+# the CPU passes smaller ones
+MESH_RESIZE_GEOMETRY = {"bucket": dict(per=1 << 18, prefill=1 << 18),
+                        "probe": dict(per=1 << 16, prefill=1 << 16)}
+
+
+def row_digests(m) -> dict:
+    """A digest of each storage row this process holds of every leaf of
+    ``m``, by global row: ranks compare with one process without moving
+    the rows."""
+    out = {}
+    for f in m.state._fields:
+        leaf = TE._host(getattr(m.state, f))
+        out[f] = {m.rows.start + i: (str(leaf.dtype),
+                                     hashlib.sha1(leaf[i].tobytes())
+                                     .hexdigest())
+                  for i in range(leaf.shape[0])}
+    return out
+
+
+def elastic_counters(m) -> tuple:
+    f = m.frontier
+    return (m.n_shards, m.psyncs, m.ops, len(m), bool(m.overflowed),
+            m.migration_psyncs, m.migrated_nodes, m.splits, m.merges,
+            f.phase, f.committed, f.units)
+
+
+def mesh_resize_run(backend, snap_dir, device="cuda", geo=None):
+    """One run of phase 3e2 on an ``ElasticShardedMap(use_shard_map=True)``
+    (on this rank's rows inside a process group, on every row in a process
+    without one): 2 shards prefilled, split online to 4 and to 8 with one
+    ``step()`` per mixed batch, merged back to 4 and 2 by steps without
+    traffic, a crash mid-split 2 -> 4 and the split finished, and (bucket)
+    ``load_resharded`` of a snapshot of the 4-shard map at 2 and 16 shards.
+    Returns every result, the counters and each leaf row's digest at every
+    checkpoint, the recovery histogram, the ms of each copy step and each
+    commit step with the part in the collectives, and this process's
+    launches of the path's kernels."""
+    g = {**MESH_RESIZE_GEOMETRY[backend], "key_range": 1 << 20,
+         "lanes": 1024, "prefill_batch": PREFILL_BATCH,
+         "chunk": MESH_RESIZE_CHUNK, **(geo or {}).get(backend, {})}
+    lookup, lname = lookup_kernel(backend)
+    scan_cuda.launches = lookup.launches = 0
+    rng = np.random.default_rng([SEED, g["per"], 9])
+    m = ElasticShardedMap(SetSpec(capacity=2 * g["per"], mode="soft",
+                                  backend=backend),
+                          n_shards=2, migrate_chunk=g["chunk"],
+                          device=device, use_shard_map=True)
+    pre = rng.choice(g["key_range"], g["prefill"], replace=False).astype(
+        np.int32).reshape(-1, g["prefill_batch"])
+    res = [m.insert(k, k * 7 + 1) for k in pre]
+    checks, steps = [], {"copy": [], "commit": []}
+
+    def checkpoint(tag):
+        maps = {"map": m.map}
+        if m.target is not None:
+            maps["target"] = m.target
+        checks.append((tag, elastic_counters(m),
+                       {k: row_digests(x) for k, x in maps.items()}))
+
+    def step(coll):
+        """One migration step, timed (device synced) with the part in the
+        collectives; returns whether the migration finished."""
+        f0, c0 = m.frontier.committed, coll["s"]
+        sync(m.device)
+        t0 = time.perf_counter()
+        done = m.step()
+        sync(m.device)
+        dt = time.perf_counter() - t0
+        kind = "commit" if (done or m.frontier.committed != f0) else "copy"
+        steps[kind].append((1e3 * dt, 1e3 * (coll["s"] - c0)))
+        return done
+
+    def migrate(kind, coll, with_traffic):
+        getattr(m, f"begin_{kind}")()
+        while True:
+            if with_traffic:
+                ops, keys, vals = traffic(rng, 1, g["lanes"], g["key_range"])
+                res.append(m.apply(ops[0], keys[0], vals[0]))
+            if step(coll):
+                break
+        checkpoint(f"{kind} to {m.n_shards}")
+
+    hist = None
+    with timed_collectives() as coll:
+        for _ in range(2):                    # 2 -> 4 -> 8 under traffic
+            migrate("split", coll, True)
+        for _ in range(2):                    # 8 -> 4 -> 2
+            migrate("merge", coll, False)
+        m.begin_split()                       # the crash drill, 2 -> 4
+        for _ in range(3):
+            step(coll)
+        checkpoint("before the crash")
+        m.crash_and_recover(seed=SEED + 5)
+        hist = m.last_recovery_hist
+        checkpoint("after the crash")
+        while not step(coll):
+            pass
+        checkpoint("crash drill finished")
+    loads = {}
+    if backend == "bucket":
+        inner = m.map
+        sn = Snapshotter(inner, snap_dir)
+        sn.snapshot()
+        sn.wait()
+        sn.close()
+        for s in (2, 16):
+            sync(m.device)
+            t0 = time.perf_counter()
+            lm = load_resharded(snap_dir, SetSpec(capacity=g["per"] * s,
+                                                  mode="soft",
+                                                  backend=backend), s,
+                                device=device, use_shard_map=True)
+            sync(m.device)
+            loads[s] = {"ms": 1e3 * (time.perf_counter() - t0),
+                        "counters": (len(lm), lm.psyncs, lm.n_shards),
+                        "hist": lm.map.last_recovery_hist_shards,
+                        "digests": row_digests(lm.map)}
+            del lm
+    return {"results": np.concatenate([np.asarray(r).reshape(-1)
+                                       for r in res]),
+            "checks": checks, "hist": hist, "steps": steps, "loads": loads,
+            "device": str(m.device),
+            "launches": {"recovery_scan": scan_cuda.launches,
+                         lname: lookup.launches}}
+
+
+def mesh_resize_rank(rank, snap_dir, device, geo):
+    """A rank of phase 3e2: both backends on the mesh."""
+    return {b: mesh_resize_run(b, os.path.join(snap_dir, f"{b}_mesh"),
+                               device, geo)
+            for b in ("bucket", "probe")}
+
+
+def mesh_rows(s, rank):
+    """The rows a rank of ``MESH_RANKS`` holds of an S-shard mesh map:
+    all of them at S = 1, else its block of S / D, D = min(S, ranks)."""
+    d = min(s, MESH_RANKS)
+    if d == 1:
+        return set(range(s))
+    per = s // d
+    return set(range(rank * per, (rank + 1) * per)) if rank < d else set()
+
+
+def check_digests(label, want, got, n_shards, rank):
+    for f, rows in got.items():
+        expect(set(rows) == mesh_rows(n_shards, rank),
+               f"{label}: rank {rank} holds rows {sorted(rows)} of {f}")
+        for r, d in rows.items():
+            expect(d == want[f][r], f"{label}: rank {rank} row {r} of leaf "
+                   f"{f} differs from one process")
+
+
+def check_mesh_resize(label, want, got):
+    """Every rank against the one-process run: results, counters and every
+    leaf row at every checkpoint, the histogram, each load; launches > 0
+    on every rank (each holds rows at 4 and 8 shards)."""
+    expect(len(got) == MESH_RANKS, f"{label}: {len(got)} ranks answered")
+    for r, g in enumerate(got):
+        expect(np.array_equal(g["results"], want["results"]),
+               f"{label}: rank {r} results differ from one process")
+        expect(np.array_equal(g["hist"], want["hist"]),
+               f"{label}: rank {r} recovery histogram differs")
+        expect([c[0] for c in g["checks"]] == [c[0] for c in want["checks"]],
+               f"{label}: rank {r} checkpoints differ")
+        for (tag, ctr, maps), (_, wctr, wmaps) in zip(g["checks"],
+                                                      want["checks"]):
+            expect(ctr == wctr, f"{label} {tag}: rank {r} counters {ctr} "
+                   f"!= {wctr}")
+            expect(set(maps) == set(wmaps), f"{label} {tag}: maps")
+            for k in maps:
+                s = ctr[0] if k == "map" else (
+                    2 * ctr[0] if ctr[9] == "split" else ctr[0] // 2)
+                check_digests(f"{label} {tag} {k}", wmaps[k], maps[k], s, r)
+        for s, ld in g["loads"].items():
+            w = want["loads"][s]
+            expect(ld["counters"] == w["counters"] and
+                   np.array_equal(ld["hist"], w["hist"]),
+                   f"{label} load at {s}: rank {r} counters/histogram")
+            check_digests(f"{label} load at {s}", w["digests"], ld["digests"],
+                          s, r)
+        expect(all(v > 0 for v in g["launches"].values()),
+               f"{label}: rank {r} launched {g['launches']}")
+
+
+def step_ms(steps, kind):
+    """Median ms of a kind of step and of its part in the collectives."""
+    xs = steps[kind]
+    if not xs:
+        return (0.0, 0.0, 0)
+    return (float(np.median([a for a, _ in xs])),
+            float(np.median([b for _, b in xs])), len(xs))
+
+
+def run_mesh_resize_phase(dev, smi, geo=None):
+    """Phase 3e2.  Returns each backend's per-rank launches."""
+    t0 = time.perf_counter()
+    print(f"phase 3e2: ElasticShardedMap(use_shard_map=True) over "
+          f"{MESH_RANKS} gloo ranks sharing one card: 2 shards (bucket "
+          f"{MESH_RESIZE_GEOMETRY['bucket']['per']} slots a shard, probe "
+          f"{MESH_RESIZE_GEOMETRY['probe']['per']}), split online to 4 and "
+          f"8 with one step() per 1024-lane 90/5/5 batch, migrate_chunk "
+          f"{MESH_RESIZE_CHUNK}, merged to 4 and 2, a crash mid-split, "
+          "load_resharded at 2 and 16 (bucket); against one process")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mresize_") as tmp:
+        one = {}
+        for b in ("bucket", "probe"):
+            one[b] = mesh_resize_run(b, os.path.join(tmp, f"{b}_one"),
+                                     str(dev), geo)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        ranks = mesh.spawn(mesh_resize_rank, MESH_RANKS, tmp, str(dev), geo)
+        spawn_s = time.perf_counter() - t1
+    out = {}
+    for b in ("bucket", "probe"):
+        got = [r[b] for r in ranks]
+        check_mesh_resize(f"mesh resize {b}", one[b], got)
+        out[b] = [g["launches"] for g in got]
+        print(f"mesh resize {b}: {MESH_RANKS} ranks equal to one process "
+              f"(results, counters and every leaf row at "
+              f"{len(one[b]['checks'])} checkpoints: "
+              f"{[c[0] for c in one[b]['checks']]}; the crash's histogram; "
+              f"loads at {sorted(one[b]['loads'])}); launches by rank "
+              f"{out[b]} ({smi})")
+        for kind in ("copy", "commit"):
+            per_rank = [step_ms(x["steps"], kind) for x in got]
+            o = step_ms(one[b]["steps"], kind)
+            print(f"mesh resize {b}: {kind} step, median ms by rank "
+                  f"{[round(x[0], 4) for x in per_rank]}, of which in gloo "
+                  f"collectives (their wait for the other ranks included) "
+                  f"{[round(x[1], 4) for x in per_rank]}, over {o[2]} "
+                  f"steps; one process {o[0]:.4f} ms ({smi})")
+        for s, ld in one[b]["loads"].items():
+            print(f"mesh resize {b}: load_resharded at {s} shards, ms by "
+                  f"rank {[round(x['loads'][s]['ms'], 3) for x in got]}, "
+                  f"one process {ld['ms']:.3f} ({smi})")
+    print(f"phase 3e2: {time.perf_counter() - t0:.1f} s (the spawn and the "
+          f"ranks' runs {spawn_s:.1f} s)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4404,6 +4670,10 @@ def main() -> int:
     resize = run_resize_phase(dev)
     torch.cuda.empty_cache()
 
+    # 3e2. online resize over 4 processes sharing the card
+    mesh_resized = run_mesh_resize_phase(dev, smi)
+    torch.cuda.empty_cache()
+
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
     attn = check_attention_kernels(dev)
@@ -4450,6 +4720,9 @@ def main() -> int:
          "shard_shape": sharded["shapes"]["recovery_scan"],
          "launches_queue": queue["recovery_scan"],
          "launches_resize": resize["recovery_scan"],
+         "launches_mesh_resize": {
+             b: [r["recovery_scan"] for r in mesh_resized[b]]
+             for b in mesh_resized},
          "launches_serving_spine": {"one_wave": spine["recovery_scan"],
                                     "waves": waves["recovery_scan"]},
          "launches_open_loop": open_loop["recovery_scan"],
@@ -4469,6 +4742,8 @@ def main() -> int:
          "shard_shape": sharded["shapes"]["hash_probe"],
          "launches_queue": queue["hash_probe"],
          "launches_resize": resize["hash_probe"],
+         "launches_mesh_resize": [r["hash_probe"]
+                                  for r in mesh_resized["bucket"]],
          "launches_open_loop": open_loop["hash_probe"],
          # the second route of probe_pallas (the probe backend's
          # table_lookup), the entry table_probe of the same source
@@ -4481,6 +4756,8 @@ def main() -> int:
              "launches_mesh": [r["table_probe"] for r in meshed["probe"]],
              "launches_queue": queue["table_probe"],
              "launches_resize": resize["table_probe"],
+             "launches_mesh_resize": [r["table_probe"]
+                                      for r in mesh_resized["probe"]],
              "launches_serving_spine": {"one_wave": spine["table_probe"],
                                         "waves": waves["table_probe"]},
              "launches_open_loop": open_loop["table_probe"],

@@ -57,6 +57,21 @@ owns its memory (``RT._to_host``, ``engine._host``): the sharded map
 writes its rows in place, so a view would change under the migration.
 A chunk's four planes cross in one copy; the commit finds its delta on
 the device and copies only the delta slots.
+
+Under ``use_shard_map`` in a process group of several ranks
+(:mod:`repro_torch.launch.mesh`) the old and the new map each hold their
+own rows on every rank, and a resize moves rows between ranks when S
+crosses the world size (D changes: a split 1 -> 2 or 2 -> 4, a merge 4 -> 2
+or 2 -> 1 over 4 ranks; with D fixed, children 2p and 2p+1 sit on their
+parent's rank).  The migration's host state -- the open unit, its
+watermarks and child buffers, the frontier, the counters -- is the same
+on every rank, so every rank makes the same calls and collectives in the
+same order: the rank holding a source row copies it to the host and
+broadcasts the planes (no broadcast where every rank holds the row), every
+rank fills the same buffers, and the rank holding each destination row
+rebuilds it (``import_pool``) at its local index.  A merge that does not
+fit raises on every rank.  The JAX package runs the same protocol on the
+global arrays under ``shard_map``; the rows come out equal.
 """
 from __future__ import annotations
 
@@ -76,17 +91,21 @@ from repro_torch.core.shard import ShardSpec, ShardedDurableMap, np_shard_of
 
 PLANES = ("stage", "keys", "values", "stamp")
 
-MESH_RESIZE = ("resharding a map partitioned over several ranks "
-               "(use_shard_map in a process group of more than one rank) "
-               "moves rows between ranks, which is not ported yet (ROADMAP "
-               "queue A, item 7d); build the map without use_shard_map")
 
-
-def check_not_partitioned(sspec) -> None:
-    """Raise where a resize would have to move rows across the ranks of a
-    process-group mesh: that path is not ported."""
-    if RT.mesh_devices(sspec) > 1:
-        raise NotImplementedError(MESH_RESIZE)
+def check_resizable_placement(sspec) -> None:
+    """Refuse strided placement wherever storage rows can differ from
+    shard ids (several stage-1 groups, or a mesh): the migration and the
+    plane functions move storage row u as shard u, so such a resize would
+    lose acknowledged keys (the JAX package loses them; ROADMAP C)."""
+    if sspec.placement == "strided" and (sspec.n_device_groups > 1
+                                         or sspec.use_shard_map):
+        raise ValueError(
+            "resizing a strided map with several device groups "
+            f"(n_device_groups={sspec.n_device_groups}, use_shard_map="
+            f"{sspec.use_shard_map}) is refused: the migration moves storage "
+            "row u as shard u, and under strided placement storage rows "
+            "are not shard ids, so keys would be lost; use "
+            "placement='contiguous'")
 
 
 class ResizeCapacityError(RuntimeError):
@@ -244,10 +263,15 @@ class ElasticShardedMap(MetricsMixin):
 
     Constraints: router v2 and ``pipeline_depth == 1`` (the frontier
     protocol commits at dispatch boundaries; the synchronous facade IS
-    always at one); not under ``use_shard_map`` in a process group of more
-    than one rank (``NotImplementedError``, ROADMAP item 7d).  Aggregates
-    mask retired rows by the frontier; the old map is dropped entirely
-    once every unit committed.
+    always at one); no strided placement with several device groups
+    (:func:`check_resizable_placement`).  Aggregates mask retired rows by
+    the frontier; the old map is dropped entirely once every unit
+    committed.
+
+    Under ``use_shard_map`` in a process group every rank makes the same
+    calls with the same batches (see the module docstring): the traffic,
+    the migration steps, ``len``, ``overflowed``, ``psyncs``, ``ops`` and
+    ``repr`` are collectives there.  ``device`` is the rank's own.
     """
 
     def __init__(self, spec=None, n_shards: Optional[int] = None,
@@ -256,7 +280,7 @@ class ElasticShardedMap(MetricsMixin):
                  **spec_kwargs):
         self.map = ShardedDurableMap(spec, n_shards=n_shards, device=device,
                                      **spec_kwargs)
-        check_not_partitioned(self.map.sspec)
+        check_resizable_placement(self.map.sspec)
         if self.map.sspec.router != "v2":
             raise ValueError("ElasticShardedMap requires router='v2' "
                              "(frontier-masked gets use the stage-1 plan)")
@@ -424,7 +448,7 @@ class ElasticShardedMap(MetricsMixin):
             raise RuntimeError(f"migration already running: {self.frontier}")
         if self.map.n_shards < 2:
             raise ValueError("cannot merge a 1-shard map")
-        sizes = E._host(self.map.state.size)
+        (sizes,) = SH.whole_rows(self.sspec, E._host(self.map.state.size))
         pair = sizes[0::2] + sizes[1::2]
         cap = self.sspec.per_shard_capacity
         if int(pair.max()) > cap:
@@ -488,13 +512,15 @@ class ElasticShardedMap(MetricsMixin):
         the old one."""
         split = self.frontier.phase == "split"
         rows = (u,) if split else (2 * u, 2 * u + 1)
-        st = self.map.state
-        epoch = E._host(st.epoch)
+        m = self.map
+        st = m.state
+        (epoch,) = SH.whole_rows(self.sspec, E._host(st.epoch))
         wm = {r: int(epoch[r]) for r in rows}
         new_epoch = st.epoch.clone()
         for r in rows:
-            new_epoch[r] += 1
-        self.map.state = st._replace(epoch=new_epoch)
+            if r in m.rows:              # the rank holding the row bumps it
+                new_epoch[m.local_row(r)] += 1
+        m.state = st._replace(epoch=new_epoch)
         n = self.sspec.per_shard_capacity
         shape = (2, n) if split else (n,)
         self._mig = {
@@ -502,23 +528,43 @@ class ElasticShardedMap(MetricsMixin):
             "buf": {k: np.zeros(shape, np.int32) for k in PLANES},
         }
 
+    def _from_holder(self, row: int, read, k: int,
+                     n: Optional[int] = None) -> list:
+        """The ``k`` host arrays ``read(local index)`` gives of storage row
+        ``row`` of the old map, read on the process holding the row and,
+        on a mesh, sent to every rank in ONE broadcast.  ``n`` is each
+        array's length where every rank knows it; else the holder
+        broadcasts it first."""
+        m = self.map
+        if m.mesh is None:               # every process holds every row
+            return read(row)
+        src = m.mesh.holder(row, m.n_shards, RT.mesh_groups(m.sspec))
+        mine = read(m.local_row(row)) if m.mesh.rank == src else None
+        if n is None:
+            n = m.mesh.broadcast(mine[0].size if mine else 0, src=src)
+        return m.mesh.broadcast_arrays(src, mine, [(n,)] * k)
+
     def _read_row(self, row: int, lo: int, hi: int) -> dict:
         """Host copy of one shard row's durable planes over [lo, hi), the
-        four planes in one device-to-host copy -- at a dispatch boundary
-        ``flushed`` IS the persisted stage."""
-        st = self.map.state
-        return dict(zip(PLANES, RT._to_host(
-            st.flushed[row, lo:hi], st.keys[row, lo:hi],
-            st.values[row, lo:hi], st.stamp[row, lo:hi])))
+        four planes in one device-to-host copy (and one broadcast on a
+        mesh) -- at a dispatch boundary ``flushed`` IS the persisted
+        stage."""
+        def read(i):
+            st = self.map.state
+            return RT._to_host(st.flushed[i, lo:hi], st.keys[i, lo:hi],
+                               st.values[i, lo:hi], st.stamp[i, lo:hi])
+        return dict(zip(PLANES, self._from_holder(row, read, 4, hi - lo)))
 
     def _read_delta(self, row: int, watermark: int):
         """The slots of one shard row stamped past ``watermark`` (found
         on the device) and their durable planes: ``(slots i64[D], planes
         dict)``, copied to the host in one transfer."""
-        st = self.map.state
-        idx = torch.nonzero(st.stamp[row] > watermark).flatten()
-        host = RT._to_host(idx, st.flushed[row][idx], st.keys[row][idx],
-                           st.values[row][idx], st.stamp[row][idx])
+        def read(i):
+            st = self.map.state
+            idx = torch.nonzero(st.stamp[i] > watermark).flatten()
+            return RT._to_host(idx, st.flushed[i][idx], st.keys[i][idx],
+                               st.values[i][idx], st.stamp[i][idx])
+        host = self._from_holder(row, read, 5)
         return host[0].astype(np.int64), dict(zip(PLANES, host[1:]))
 
     def _copy_split(self, src: dict, where) -> int:
@@ -565,7 +611,8 @@ class ElasticShardedMap(MetricsMixin):
         the delta (slots whose stamp moved past the watermark while the
         copy ran), bulk-persist, rebuild the destination shard(s)
         through the normal recovery path (zero psyncs), install them in
-        the target map, and durably advance the frontier (one psync)."""
+        the target map (on a mesh, on the rank holding each), and durably
+        advance the frontier (one psync)."""
         mig = self._mig
         u = mig["unit"]
         if self.frontier.phase == "split":
@@ -586,11 +633,14 @@ class ElasticShardedMap(MetricsMixin):
             rows = {u: merge_pair(mig["buf"], self._read_row(b, 0, n))}
         self.migration_psyncs += 1       # ONE bulk persist of the patch
         moved = 0
+        tgt = self.target
         for row, planes in sorted(rows.items()):
+            moved += int(np.sum(planes["stage"] == VALID))
+            if row not in tgt.rows:      # another rank holds it
+                continue
             state_r, _ = E.import_pool(planes, spec=self.sspec.shard_spec(),
                                        device=self.device)
-            SH._write_row(self.target.state, row, state_r)
-            moved += int(np.sum(planes["stage"] == VALID))
+            SH._write_row(tgt.state, tgt.local_row(row), state_r)
         self.frontier.stamp(self.frontier.phase, u + 1, self.frontier.units)
         self.migration_psyncs += 1       # the frontier advance
         self.migrated_nodes += moved
@@ -679,9 +729,13 @@ class ElasticShardedMap(MetricsMixin):
 
     def _both(self, leaf: str):
         """The per-shard leaf of both maps, frontier-masked, from one
-        device-to-host copy."""
-        return self._masked(*RT._to_host(getattr(self.map.state, leaf),
-                                         getattr(self.target.state, leaf)))
+        device-to-host copy (and, on a mesh, each map's whole rows: a
+        collective)."""
+        old, new = RT._to_host(getattr(self.map.state, leaf),
+                               getattr(self.target.state, leaf))
+        (old,) = SH.whole_rows(self.map.sspec, old)
+        (new,) = SH.whole_rows(self.target.sspec, new)
+        return self._masked(old, new)
 
     def __len__(self):
         if not self.migrating:

@@ -125,6 +125,17 @@ def local_rows(sspec) -> range:
     return mesh.rows(sspec.n_shards, mesh_groups(sspec))
 
 
+def group_mesh(sspec):
+    """The :class:`~repro_torch.launch.mesh.ShardMesh` of the process group
+    a ``use_shard_map`` map lives in, whether or not its rows are
+    partitioned (a resize or a reload can change that), or None without a
+    group of several ranks."""
+    if not sspec.use_shard_map:
+        return None
+    from repro_torch.launch.mesh import current_mesh, world_size
+    return current_mesh() if world_size() > 1 else None
+
+
 def resolve_groups(sspec) -> int:
     """Stage-1 group count D: an explicit ``n_device_groups`` override, or
     the mesh size (1 unless ``use_shard_map`` on a multi-device process).

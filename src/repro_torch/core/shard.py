@@ -711,8 +711,9 @@ class ShardedDurableMap(MetricsMixin):
         self.sspec = sspec
         self.mesh = RT.shard_mesh(sspec)      # None: the one-device path
         self.rows = RT.local_rows(sspec)      # storage rows held here
+        group = RT.group_mesh(sspec)          # the rank's own device
         self.device = resolve_device(
-            device if self.mesh is None else self.mesh.device(device))
+            device if group is None else group.device(device))
         self.state = make_state(sspec, device=self.device)
         self.last_recovery_hist = None        # i32[5], summed over shards
         self.last_recovery_hist_shards = None  # i32[S, 5]
@@ -749,12 +750,21 @@ class ShardedDurableMap(MetricsMixin):
         one-device path."""
         return x[self.rows.start:self.rows.stop]
 
+    def local_row(self, row: int) -> int:
+        """This process's index of storage row ``row`` in the state's
+        leaves.  Raises ``IndexError`` where the process does not hold the
+        row: a read or write of it there would hit another row."""
+        if row not in self.rows:
+            raise IndexError(f"storage row {row} is not held here (rows "
+                             f"{self.rows.start}:{self.rows.stop} of "
+                             f"{self.n_shards})")
+        return row - self.rows.start
+
     def _total(self, t) -> int:
         """A counter summed over this process's shards, and over the ranks
         on a mesh."""
         v = int(t)
         return v if self.mesh is None else self.mesh.sum(v)
-
 
     def _sync(self):
         if self.device.type == "cuda":

@@ -21,10 +21,17 @@ launches one after another.
             rank's rows into the (D, ...) array, over a ``gloo`` group of
             its own (made with ``dist.new_group(backend="gloo")``, so it
             works under any default group, NCCL included).
+  resize    an online split or merge (``repro_torch.core.resize``) moves
+            rows between ranks through the host: the rank holding a
+            source row copies it to the host and
+            :meth:`ShardMesh.broadcast_arrays` sends the planes to every
+            rank, where the rank holding each destination row rebuilds
+            it.
 
-Every method of :class:`ShardMesh` is a collective: every rank calls it, in
-the same order.  The map's facade keeps that order because every rank makes
-the same calls on the same batches.
+Every method of :class:`ShardMesh` but ``rows``, ``holder`` and ``device``
+is a collective: every rank calls it, in the same order.  The map's facade
+keeps that order because every rank makes the same calls on the same
+batches.
 
 :func:`spawn` starts a group on one host (the tests run 4 ``gloo`` ranks on
 the CPU; on the card the ranks may share one GPU).  ``torchrun`` or any
@@ -67,6 +74,12 @@ class ShardMesh:
         if self.rank >= d:
             return range(0)
         return range(self.rank * per, (self.rank + 1) * per)
+
+    def holder(self, row: int, n_shards: int, d: int) -> int:
+        """The rank holding storage row ``row`` when S shards split over D
+        ranks (the inverse of :meth:`rows`); rank 0 when D is 1, where
+        every rank holds every row."""
+        return row // (n_shards // d) if d > 1 else 0
 
     def device(self, requested="cuda") -> torch.device:
         """The rank's device: ``cuda:(rank % device_count)`` for a bare
@@ -130,13 +143,38 @@ class ShardMesh:
     def any(self, flag: bool) -> bool:
         return bool(self._reduce(bool(flag), dist.ReduceOp.MAX))
 
-    def broadcast(self, value: int) -> int:
-        """Rank 0's value on every rank (a decision rank 0 takes, such as
-        whether a snapshot is due or which step recovery reads, made the
-        same everywhere)."""
+    def broadcast(self, value: int, src: int = 0) -> int:
+        """Rank ``src``'s value on every rank (a decision rank 0 takes, such
+        as whether a snapshot is due or which step recovery reads, made the
+        same everywhere; the length of what rank ``src`` sends next)."""
         t = torch.tensor([int(value)], dtype=torch.int64)
-        dist.broadcast(t, src=0, group=self.group)
+        dist.broadcast(t, src=src, group=self.group)
         return int(t[0])
+
+    def broadcast_arrays(self, src: int, arrays: Optional[Sequence],
+                         shapes: Sequence[tuple]) -> list:
+        """Rank ``src``'s int32 host arrays on every rank, in ONE broadcast
+        of their concatenation.  Rank ``src`` passes its arrays; every rank
+        passes their ``shapes`` (the other ranks pass None for
+        ``arrays``).  Each rank gets arrays that own their memory."""
+        sizes = [int(np.prod(s, dtype=np.int64)) for s in shapes]
+        if self.rank == src:
+            flat = np.concatenate([np.asarray(a, np.int32).reshape(-1)
+                                   for a in arrays]) if sizes else \
+                np.zeros((0,), np.int32)
+            if flat.size != sum(sizes):
+                raise ValueError(f"broadcast_arrays: {flat.size} values for "
+                                 f"shapes {list(shapes)}")
+            t = torch.from_numpy(flat)
+        else:
+            t = torch.empty((sum(sizes),), dtype=torch.int32)
+        dist.broadcast(t, src=src, group=self.group)
+        flat = t.numpy()
+        out, at = [], 0
+        for s, k in zip(shapes, sizes):
+            out.append(flat[at:at + k].reshape(tuple(s)))
+            at += k
+        return out
 
     def barrier(self) -> None:
         dist.barrier(group=self.group)

@@ -55,9 +55,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import engine as E
+from repro_torch.core import router as RT
 from repro_torch.core import shard as SH
 from repro_torch.core.resize import (ElasticShardedMap,
-                                     check_not_partitioned, reshard_planes)
+                                     check_resizable_placement,
+                                     reshard_planes)
 from repro_torch.store.checkpoint import CheckpointManager
 
 
@@ -227,7 +229,7 @@ class Snapshotter:
             self._pending = None
         step = self.store.latest_step()
         if self.mesh is not None:
-            step = self._committed_on_every_rank(step)
+            step = _committed_on_every_rank(self.mesh, self.store, step)
         if step is None or not self.supports_hybrid:
             self.structure.crash_and_recover(u)
         else:
@@ -236,23 +238,6 @@ class Snapshotter:
             self.structure.hybrid_crash_and_recover(planes, meta, u)
         self._fix_epoch()
         return self.structure
-
-    def _committed_on_every_rank(self, step: Optional[int]) -> Optional[int]:
-        """The step rank 0 last committed (its build has ended), sent to
-        every rank, so every rank takes the same recovery path with the
-        same collectives.  Raises on every rank when any rank's store does
-        not hold it: the directory is not one that every rank sees."""
-        got = self.mesh.broadcast(-1 if step is None else step)
-        step = None if got < 0 else got
-        self.store.refresh()
-        missing = step is not None and step not in self.store.committed
-        if self.mesh.any(missing):
-            raise RuntimeError(
-                f"snapshot step {step}, committed by rank 0, is missing from "
-                f"another rank's view of {self.store.dir!r}: "
-                "every rank of a mesh must snapshot to one directory that "
-                "all of them see")
-        return step
 
     def _fix_epoch(self):
         """Stamp-generation monotonicity across snapshots WITHOUT
@@ -304,6 +289,25 @@ class Snapshotter:
         self.store.close()
 
 
+def _committed_on_every_rank(mesh, store, step: Optional[int]
+                             ) -> Optional[int]:
+    """The step rank 0 last committed (its build has ended), sent to every
+    rank, so every rank takes the same recovery path with the same
+    collectives.  Raises on every rank when any rank's store does not hold
+    it: the directory is not one that every rank sees."""
+    got = mesh.broadcast(-1 if step is None else step)
+    step = None if got < 0 else got
+    store.refresh()
+    missing = step is not None and step not in store.committed
+    if mesh.any(missing):
+        raise RuntimeError(
+            f"snapshot step {step}, committed by rank 0, is missing from "
+            f"another rank's view of {store.dir!r}: "
+            "every rank of a mesh must snapshot to one directory that "
+            "all of them see")
+    return step
+
+
 # ---------------------------------------------------------------------------
 # Elastic restore: rebuild a sharded map from a snapshot taken at a
 # DIFFERENT shard count (DESIGN.md §12).
@@ -329,12 +333,31 @@ def load_resharded(directory: str, spec, n_shards: int, elastic: bool = True,
     stored one -- resharding moves nodes ACROSS shards, never resizes a
     shard's pool.  Returns an
     :class:`~repro_torch.core.resize.ElasticShardedMap` (``elastic=False``:
-    a plain :class:`~repro_torch.core.shard.ShardedDurableMap`).  A map
-    partitioned over several ranks (``use_shard_map`` in a process group)
-    raises ``NotImplementedError`` (ROADMAP item 7d)."""
+    a plain :class:`~repro_torch.core.shard.ShardedDurableMap`).  Strided
+    placement with several device groups is refused, as for a resize
+    (:func:`~repro_torch.core.resize.check_resizable_placement`).
+
+    Under ``use_shard_map`` in a process group every rank calls it with
+    the same arguments on one directory that every rank sees: every rank
+    reads the step rank 0 found committed (and raises where its view
+    lacks it), reshards the whole planes on the host and recovers only
+    the rows it holds at the new geometry, whose D may differ from the
+    snapshot's."""
     store = CheckpointManager(directory, layout="dirs")
     try:
+        if elastic:
+            m = ElasticShardedMap(spec, n_shards=n_shards, device=device,
+                                  **shard_kwargs)
+            inner = m.map
+        else:
+            m = SH.ShardedDurableMap(spec, n_shards=n_shards, device=device,
+                                     **shard_kwargs)
+            inner = m
+            check_resizable_placement(inner.sspec)
+        group = RT.group_mesh(inner.sspec)
         step = store.latest_step()
+        if group is not None:
+            step = _committed_on_every_rank(group, store, step)
         if step is None:
             raise FileNotFoundError(
                 f"no committed snapshot under {directory!r}")
@@ -344,15 +367,6 @@ def load_resharded(directory: str, spec, n_shards: int, elastic: bool = True,
                  "values": np.asarray(planes["values"]),
                  "stamp": np.asarray(planes["stamp"])}
         s_old, per = canon["stage"].shape
-        if elastic:
-            m = ElasticShardedMap(spec, n_shards=n_shards, device=device,
-                                  **shard_kwargs)
-            inner = m.map
-        else:
-            m = SH.ShardedDurableMap(spec, n_shards=n_shards, device=device,
-                                     **shard_kwargs)
-            inner = m
-        check_not_partitioned(inner.sspec)
         if inner.sspec.per_shard_capacity != per:
             raise ValueError(
                 f"per-shard capacity mismatch: snapshot has {per}-slot "
@@ -361,22 +375,26 @@ def load_resharded(directory: str, spec, n_shards: int, elastic: bool = True,
                 "nodes across shards, it cannot resize a shard's pool")
         out = reshard_planes(canon, s_old, n_shards)
         state, hist = SH.recover(
-            *(E._on_device(out[f], inner.device, np.int32)
+            *(E._on_device(inner.rows_of(out[f]), inner.device, np.int32)
               for f in ("stage", "keys", "values", "stamp")),
             sspec=inner.sspec)
         # stamp strictly above every stored watermark (see _fix_epoch):
         # the watermark vector is per OLD shard, so after resharding the
-        # safe bound is the global max
+        # safe bound is the global max (the same on every rank)
         w = None
         for s in store.committed:
             extra = store.extra(s)
             if extra and "watermark" in extra:
                 ws = int(np.max(np.asarray(extra["watermark"])))
                 w = ws if w is None else max(w, ws)
+        if group is not None:
+            w = group.max(-1 if w is None else w)
+            w = None if w < 0 else w
         if w is not None:
             state = state._replace(epoch=state.epoch.clamp(min=w + 1))
         inner.state = state
-        inner.last_recovery_hist_shards = E._host(hist)
+        (inner.last_recovery_hist_shards,) = SH.whole_rows(inner.sspec,
+                                                           E._host(hist))
         inner.last_recovery_hist = inner.last_recovery_hist_shards.sum(axis=0)
         if elastic:
             m.last_recovery_hist = inner.last_recovery_hist

@@ -823,6 +823,74 @@ def test_sharded_mesh_of_two_ranks_on_the_card_matches_one_process(
             assert min(got["launches"]) > 0, (b, r, got["launches"])
 
 
+def mesh_resize_run(backend):
+    """An elastic map of 2^11-slot shards on the card under
+    ``use_shard_map`` (its rows inside a process group, every row without
+    one): 1 shard prefilled, split online to 2 and to 4 with one
+    ``step()`` per mixed batch, then merged back to 2 and 1 under reads
+    and removes.  Returns the results, the counters and this process's
+    rows of every leaf after each migration, and the launches."""
+    from repro_torch.core.resize import ElasticShardedMap
+    from repro_torch.kernels.recovery_scan.kernel import scan_cuda as scan
+    lookup = probe_cuda if backend == "bucket" else table_probe_cuda
+    scan.launches = lookup.launches = 0
+    rng = np.random.default_rng(44)
+    m = ElasticShardedMap(SetSpec(capacity=1 << 11, backend=backend),
+                          n_shards=1, migrate_chunk=512, device="cuda",
+                          use_shard_map=True)
+    res = [m.insert(k) for k in np.split(
+        rng.choice(1 << 12, 1 << 9, replace=False).astype(np.int32), 4)]
+    after = []
+    for kind in ("split", "split", "merge", "merge"):
+        getattr(m, f"begin_{kind}")()
+        for ops, k in _shard_traffic(rng, 64, 256, 1 << 12):
+            if kind == "merge":           # the merged shards must hold both
+                ops = np.where(ops == TE.OP_INSERT, TE.OP_CONTAINS, ops)
+            res.append(m.apply(ops, k))
+            res.append(m.get(k, default=-1))
+            if m.step():
+                break
+        after.append({"counters": (m.n_shards, m.psyncs, m.ops, len(m),
+                                   m.migration_psyncs, m.migrated_nodes),
+                      "rows": (m.map.rows.start, m.map.rows.stop),
+                      "leaves": state_to_numpy(m.map.state)})
+    return {"results": np.concatenate([np.asarray(r).reshape(-1)
+                                       for r in res]),
+            "after": after, "launches": (scan.launches, lookup.launches)}
+
+
+def mesh_resize_rank(rank):
+    return {b: mesh_resize_run(b) for b in ("bucket", "probe")}
+
+
+def test_mesh_resize_of_two_ranks_on_the_card_matches_one_process(cuda):
+    """``ElasticShardedMap(use_shard_map=True)`` over 2 gloo ranks sharing
+    the card: split 1 -> 2 (rows move from the state both ranks hold to
+    one row each) -> 4, merged back 4 -> 2 -> 1, on both backends; every
+    result and counter and each rank's rows of every leaf after each
+    migration equal to the one-process map's; each rank launched its
+    path's kernels."""
+    from repro_torch.launch.mesh import spawn
+    one = {b: mesh_resize_run(b) for b in ("bucket", "probe")}
+    ranks = spawn(mesh_resize_rank, 2)
+    for b in ("bucket", "probe"):
+        assert [a["counters"][0] for a in one[b]["after"]] == [2, 4, 2, 1]
+        for r, got in enumerate(r_[b] for r_ in ranks):
+            np.testing.assert_array_equal(got["results"], one[b]["results"],
+                                          err_msg=f"{b} rank {r}")
+            for g, w in zip(got["after"], one[b]["after"]):
+                s = w["counters"][0]
+                assert g["counters"] == w["counters"], (b, r)
+                lo, hi = g["rows"]
+                assert (lo, hi) == ((0, 1) if s == 1 else
+                                    (r * s // 2, (r + 1) * s // 2))
+                for f, leaf in g["leaves"].items():
+                    np.testing.assert_array_equal(
+                        leaf, w["leaves"][f][lo:hi],
+                        err_msg=f"{b} rank {r} S={s} leaf {f}")
+            assert min(got["launches"]) > 0, (b, r, got["launches"])
+
+
 def test_sharded_state_rows_are_separate_on_the_card(cuda):
     st = TS.make_state(TS.ShardSpec(base=SetSpec(capacity=64,
                                                  backend="bucket"),

@@ -214,8 +214,9 @@ def _mesh_edges(rank, snap_root):
 def torch_rank(rank, snap_root):
     """One rank of the port: every scenario with a metrics registry
     attached, with the storage rows this rank holds and its state's
-    device, then an ``ElasticShardedMap`` on the mesh, which must refuse,
-    and the edges of :func:`_mesh_edges`."""
+    device, then an ``ElasticShardedMap`` on the mesh split from 8 to 16
+    shards (``tests/test_torch_mesh_resize.py`` holds resizes against
+    JAX), and the edges of :func:`_mesh_edges`."""
     from repro_torch.core.engine import SetSpec
     from repro_torch.core.resize import ElasticShardedMap
     from repro_torch.obs import MetricsRegistry
@@ -232,11 +233,13 @@ def torch_rank(rank, snap_root):
         # crash lands where cur == flushed, so no result shows it)
         rec["adversary"] = m._adversary(None, 3).numpy()
         out[name] = rec
-    try:                                  # resizing across ranks: item 7d
-        ElasticShardedMap(SetSpec(capacity=CAP), n_shards=S,
-                          use_shard_map=True, device="cpu")
-    except NotImplementedError as e:
-        out["resize"] = str(e)
+    em = ElasticShardedMap(SetSpec(capacity=CAP), n_shards=S,
+                           use_shard_map=True, device="cpu")
+    keys = np.arange(40, dtype=np.int32)
+    em.insert(keys)
+    em.split()
+    out["resize"] = (em.n_shards, len(em), em.map.rows,
+                     bool(em.contains(keys).all()))
     out["edges"] = _mesh_edges(rank, snap_root)
     return out
 
@@ -355,7 +358,8 @@ def test_mesh_scenarios_drop_crash_and_snapshot(runs):
         assert out["snapshot"]["snapshot_step"][0] == 2
     assert [tuple(o["two_shards"]["rows"]) for o in ranks] == \
         [(0, 1), (1, 2), (0, 0), (0, 0)]
-    assert all("item 7d" in o.get("resize", "") for o in ranks)
+    assert [o["resize"] for o in ranks] == [
+        (2 * S, 40, range(4 * r, 4 * r + 4), True) for r in range(RANKS)]
     # rank 0 alone wrote, the files a one-device map writes
     names = sorted(os.listdir(tmp / "torch" / "snapshot"))
     assert names == sorted(os.listdir(tmp / "jax" / "snap" / "snapshot"))

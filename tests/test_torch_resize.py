@@ -9,9 +9,11 @@ three backends, every state leaf bit-identical to JAX's
 under traffic with per-batch results, ``psyncs``, ``migration_psyncs``,
 the frontier sequence and ``migrated_nodes`` equal step by step; a crash
 at every split and merge step, both maps crashed in lockstep; the merge
-refusal and the facade's constraints; ``load_resharded`` at 1 and 4
-shards from a snapshot that each package wrote; the elastic overflow
-message; and the serve CLI's ``--autosplit`` lines.  The JAX side runs as
+refusal and the facade's constraints; a strided resize over 2 device
+groups, which loses keys in JAX and which the port refuses;
+``load_resharded`` at 1 and 4 shards from a snapshot that each package
+wrote; the elastic overflow message; and the serve CLI's ``--autosplit``
+lines.  The JAX side runs as
 its own tests run it (Pallas kernels in interpret mode)."""
 import numpy as np
 import pytest
@@ -352,6 +354,45 @@ def test_elastic_facade_constraints():
         m.begin_merge()
     assert m.target.device == m.device == torch.device("cpu")
     assert m.pipeline_flush() is m and m.supports_hybrid is False
+
+
+def test_strided_resize_loses_keys_in_jax_and_the_port_refuses(tmp_path):
+    """Strided placement over 2 stage-1 groups: storage row u is not shard
+    u, but the migration moves storage row u as shard u.  The JAX package
+    acknowledges 300 keys and finds fewer after ``split()`` while ``len``
+    still says 300 (ROADMAP C); the port refuses such a resize and such a
+    reload.  One group (the serve CLI's ``--placement strided
+    --autosplit``) is unaffected."""
+    kw = dict(n_shards=4, migrate_chunk=128, placement="strided")
+    keys = np.arange(1, 301, dtype=np.int32)
+    jm = JR.ElasticShardedMap(JSpec(capacity=1024, backend="bucket"),
+                              n_device_groups=2, **kw)
+    for i in range(0, 300, 100):
+        jm.insert(keys[i:i + 100])
+    jm.split()
+    found = sum(int(np.asarray(jm.contains(keys[i:i + 100])).sum())
+                for i in range(0, 300, 100))
+    assert found < 300 and len(jm) == 300, found
+    spec = TSpec(capacity=1024, backend="bucket")
+    for extra in (dict(n_device_groups=2), dict(use_shard_map=True)):
+        with pytest.raises(ValueError, match="storage row u as shard u"):
+            TR.ElasticShardedMap(spec, device="cpu", **kw, **extra)
+    src = TS.ShardedDurableMap(spec, n_shards=4, device="cpu")
+    src.insert(keys[:B])
+    d = str(tmp_path / "snap")
+    sn = TSN.Snapshotter(src, d)
+    sn.snapshot()
+    sn.close()
+    for elastic in (True, False):
+        with pytest.raises(ValueError, match="storage row u as shard u"):
+            TSN.load_resharded(d, TSpec(capacity=2048, backend="bucket"), 8,
+                               elastic=elastic, device="cpu",
+                               placement="strided", n_device_groups=2)
+    one = TR.ElasticShardedMap(spec, device="cpu", **kw)   # one group
+    for i in range(0, 300, 100):
+        one.insert(keys[i:i + 100])
+    one.split()
+    assert one.contains(keys).all() and len(one) == 300
 
 
 def test_open_unit_bumps_a_new_epoch_tensor():

@@ -294,19 +294,26 @@ def test_use_shard_map_over_several_gpus_names_item_7b(monkeypatch,
                                                        tmp_path):
     """Several visible CUDA devices and no process group raise, saying how
     to start one process per GPU (ROADMAP item 7b is ported); without
-    ``use_shard_map`` the map stays on one device.  Resizing a map
-    partitioned over ranks raises naming ROADMAP item 7d."""
+    ``use_shard_map`` the map stays on one device.  On rank 0 of a group of
+    4, an elastic map holds its rows and its split target's, and
+    ``load_resharded`` restores rank 0's rows of the one-device reload
+    (the group's collectives stand in for 4 ranks with equal data; the
+    real group is ``tests/test_torch_mesh_resize.py``'s)."""
     from repro_torch.core import resize as TZ
     from repro_torch.launch import mesh as MS
     from repro_torch.store.snapshot import Snapshotter, load_resharded
     base = TSpec(capacity=64)
     m = TS.ShardedDurableMap(base, n_shards=4, device="cpu")   # no mesh
-    sn = Snapshotter(TS.ShardedDurableMap(TSpec(capacity=64,
-                                                backend="bucket"),
-                                          n_shards=4, device="cpu"),
-                     str(tmp_path))
+    src = TS.ShardedDurableMap(TSpec(capacity=64, backend="bucket"),
+                               n_shards=4, device="cpu")
+    src.insert(np.arange(40, dtype=np.int32))
+    sn = Snapshotter(src, str(tmp_path))
     sn.snapshot()
     sn.close()
+    whole = {el: load_resharded(str(tmp_path), TSpec(capacity=128,
+                                                     backend="bucket"), 8,
+                                elastic=el, device="cpu")
+             for el in (True, False)}
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     with pytest.raises(RuntimeError, match="one process per GPU") as e:
         TS.ShardedDurableMap(base, n_shards=4, use_shard_map=True,
@@ -330,17 +337,28 @@ def test_use_shard_map_over_several_gpus_names_item_7b(monkeypatch,
     part = TS.ShardedDurableMap(base, n_shards=8, use_shard_map=True,
                                 device="cpu")
     assert part.rows == range(0, 2) and part.state.keys.shape[0] == 2
-    for fn in (lambda: TZ.ElasticShardedMap(base, n_shards=8,
-                                            use_shard_map=True,
-                                            device="cpu"),
-               lambda: load_resharded(str(tmp_path), TSpec(
-                   capacity=128, backend="bucket"), 8, device="cpu",
-                   use_shard_map=True),
-               lambda: load_resharded(str(tmp_path), TSpec(
-                   capacity=128, backend="bucket"), 8, elastic=False,
-                   device="cpu", use_shard_map=True)):
-        with pytest.raises(NotImplementedError, match="item 7d"):
-            fn()
+    el = TZ.ElasticShardedMap(base, n_shards=8, use_shard_map=True,
+                              device="cpu")
+    assert el.map.rows == range(0, 2)
+    el.begin_split()                      # the 16-shard target: 4 a rank
+    assert el.target.rows == range(0, 4) and el.migrating
+    # rank 0's collectives in a group whose 4 ranks hold equal data
+    import torch.distributed as dist
+    monkeypatch.setattr(dist, "broadcast", lambda t, src, group: None)
+    monkeypatch.setattr(dist, "all_reduce", lambda t, op, group: None)
+    monkeypatch.setattr(dist, "all_gather", lambda got, t, group: [
+        g.copy_(t) for g in got])
+    for elastic in (True, False):
+        lm = load_resharded(str(tmp_path), TSpec(capacity=128,
+                                                 backend="bucket"), 8,
+                            elastic=elastic, device="cpu",
+                            use_shard_map=True)
+        inner, one = ((lm.map, whole[True].map) if elastic
+                      else (lm, whole[False]))
+        assert inner.rows == range(0, 2) and lm.psyncs == 0
+        got, want = state_to_numpy(inner.state), state_to_numpy(one.state)
+        for f in got:
+            np.testing.assert_array_equal(got[f], want[f][0:2], err_msg=f)
 
 
 def test_nop_lanes_not_transported_and_budget_neutral():
