@@ -407,7 +407,7 @@ from repro_torch.obs import MetricsRegistry  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.store.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.store.snapshot import (Snapshotter,  # noqa: E402
-                                        load_resharded)
+                                        SnapshotPolicy, load_resharded)
 from repro_torch.train import steps as TS  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
@@ -1930,11 +1930,10 @@ def mesh_run(backend, snap_dir, device="cuda", geo=None):
     pre = rng.choice(g["key_range"], g["prefill"], replace=False).astype(
         np.int32).reshape(-1, g["prefill_batch"])
     res = [m.insert(k, k * 7 + 1) for k in pre]
-    sn = None
+    sn, snap = None, None
     if backend == "bucket":
         sn = Snapshotter(m, snap_dir)
-        sn.snapshot()
-        sn.wait()
+        snap = snapshot_cost(m, sn)
     n, lanes = g["batches"], g["lanes"]
     ops, keys, vals = traffic(rng, n + g["after"], lanes, g["key_range"])
     if m.mesh is not None:
@@ -1962,14 +1961,90 @@ def mesh_run(backend, snap_dir, device="cuda", geo=None):
                        for f in m.state._fields},
             "ops_s": ops_s, "device": str(m.device),
             "coll_ms": 1e3 * coll["s"] / n, "coll_calls": coll["n"] / n,
+            "snapshot": snap,
             "launches": {"recovery_scan": scan_cuda.launches,
                          lname: lookup.launches}}
 
 
+def snapshot_cost(m, sn):
+    """One snapshot of ``m`` through ``sn``, captured and waited for: the
+    ``recovery_scan`` launches of its build in this process, the device
+    memory its capture and build added to this process's peak (MiB), the
+    ms of the capture on the main thread (``snapshot()``) and of
+    ``wait()``, and the step."""
+    cuda = m.device.type == "cuda"
+    sync(m.device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(m.device)
+        base = torch.cuda.memory_allocated(m.device)
+    scans = scan_cuda.launches
+    t0 = time.perf_counter()
+    sn.snapshot()
+    t1 = time.perf_counter()
+    step = sn.wait()
+    t2 = time.perf_counter()
+    peak = (torch.cuda.max_memory_allocated(m.device) - base) / 2 ** 20 \
+        if cuda else float("nan")
+    return {"build_launches": scan_cuda.launches - scans, "peak_mib": peak,
+            "capture_ms": 1e3 * (t1 - t0), "wait_ms": 1e3 * (t2 - t1),
+            "step": step, "rows": (m.rows.start, m.rows.stop)}
+
+
+def mesh_one_writer(snap_dir, device="cuda", geo=None):
+    """Phase 3c2's map at one shard under ``use_shard_map`` (every rank
+    holds the one row, D = 1): the prefill, three snapshots through the
+    cadence and recovery through the last, more batches.  Returns the
+    step each ``wait()`` gave, the results, counters and leaves."""
+    g = geo or MESH_GEOMETRY
+    cap = g["capacity"] // N_SHARDS
+    rng = np.random.default_rng([SEED, cap, 6])
+    m = ShardedDurableMap(SetSpec(capacity=cap, backend="bucket"),
+                          n_shards=1, device=device, use_shard_map=True)
+    pre = rng.choice(g["key_range"], cap // 4, replace=False).astype(
+        np.int32).reshape(-1, g["prefill_batch"] // 4)
+    res = [m.insert(k, k * 7 + 1) for k in pre]
+    sn = Snapshotter(m, snap_dir, SnapshotPolicy(every_steps=1))
+    ops, keys, vals = traffic(rng, 6, g["lanes"], g["key_range"])
+    waits = []
+    for i in range(3):
+        res.append(m.apply(ops[i], keys[i], vals[i]))
+        sn.maybe_snapshot()
+        waits.append(sn.wait())
+    u = np.random.default_rng([SEED, 8]).random((1, cap)).astype(np.float32)
+    sn.recover(u)
+    sn.close()
+    res += [m.apply(ops[i], keys[i], vals[i]) for i in range(3, 6)]
+    return {"waits": waits, "results": np.concatenate(res),
+            "counters": (m.psyncs, m.ops, len(m)),
+            "hist": m.last_recovery_hist_shards,
+            "leaves": {f: TE._host(getattr(m.state, f))
+                       for f in m.state._fields}}
+
+
 def mesh_rank(rank, snap_dir, device, geo):
-    """A rank of phase 3c2: both backends on the mesh."""
-    return {b: mesh_run(b, os.path.join(snap_dir, f"{b}_mesh"), device, geo)
-            for b in ("bucket", "probe")}
+    """A rank of phase 3c2: both backends on the mesh, then one shard held
+    by every rank."""
+    out = {b: mesh_run(b, os.path.join(snap_dir, f"{b}_mesh"), device, geo)
+           for b in ("bucket", "probe")}
+    out["one_writer"] = mesh_one_writer(os.path.join(snap_dir, "d1_mesh"),
+                                        device, geo)
+    return out
+
+
+def same_files(a, b) -> list:
+    """The files of two snapshot step directories that differ, byte for
+    byte (a file missing on either side differs)."""
+    names = set(os.listdir(a)) | set(os.listdir(b))
+    bad = []
+    for n in sorted(names):
+        pa, pb = os.path.join(a, n), os.path.join(b, n)
+        if not (os.path.exists(pa) and os.path.exists(pb)):
+            bad.append(n)
+            continue
+        with open(pa, "rb") as fa, open(pb, "rb") as fb:
+            if fa.read() != fb.read():
+                bad.append(n)
+    return bad
 
 
 def check_mesh(label, want, got, device):
@@ -1995,6 +2070,37 @@ def check_mesh(label, want, got, device):
                    f"{label}: rank {r} leaf {f} differs from one process")
         expect(all(v > 0 for v in g["launches"].values()),
                f"{label}: rank {r} launched {g['launches']}")
+        if g["snapshot"] is not None:
+            sn = g["snapshot"]
+            expect(sn["step"] == want["snapshot"]["step"],
+                   f"{label}: rank {r} waited for step {sn['step']}")
+            # each rank builds its rows alone: one recovery_scan a row
+            expect(sn["build_launches"] == hi - lo,
+                   f"{label}: rank {r} launched recovery_scan "
+                   f"{sn['build_launches']} times for the snapshot's build "
+                   f"of its {hi - lo} rows")
+
+
+def check_one_writer(want, got, dirs):
+    """The one-shard map on every rank (D = 1) against one process: every
+    rank waited for the same steps, and its results, counters, histogram
+    and leaves equal; the store kept the same steps."""
+    expect(dirs[0] == dirs[1], f"mesh one shard: stored {dirs[1]}, one "
+           f"process {dirs[0]}")
+    for r, g in enumerate(got):
+        expect(g["waits"] == want["waits"] == [1, 2, 3],
+               f"mesh one shard: rank {r} waited for {g['waits']}")
+        for k in ("results", "hist"):
+            expect(np.array_equal(g[k], want[k]),
+                   f"mesh one shard: rank {r} {k} differ from one process")
+        expect(tuple(g["counters"]) == tuple(want["counters"]),
+               f"mesh one shard: rank {r} counters {g['counters']}")
+        for f, leaf in g["leaves"].items():
+            expect(np.array_equal(leaf, want["leaves"][f]),
+                   f"mesh one shard: rank {r} leaf {f} differs")
+    print(f"mesh one shard (D = 1, rank 0 the one writer): {len(got)} ranks "
+          f"snapshotted steps {want['waits']} and recovered equal to one "
+          f"process (store {dirs[1]})")
 
 
 def run_mesh_phase(dev, smi, geo=None):
@@ -2013,9 +2119,21 @@ def run_mesh_phase(dev, smi, geo=None):
                               geo)
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
+        d1 = mesh_one_writer(os.path.join(tmp, "d1_one"), str(dev), geo)
         t1 = time.perf_counter()
         ranks = mesh.spawn(mesh_rank, MESH_RANKS, tmp, str(dev), geo)
         spawn_s = time.perf_counter() - t1
+        step = f"step_{one['bucket']['snapshot']['step']:012d}"
+        differ = same_files(os.path.join(tmp, "bucket_one", step),
+                            os.path.join(tmp, "bucket_mesh", step))
+        expect(not differ, f"mesh bucket: the stored files {differ} differ "
+               "from the one-process snapshot's")
+        d1_dirs = [sorted(os.listdir(os.path.join(tmp, d)))
+                   for d in ("d1_one", "d1_mesh")]
+    expect(one["bucket"]["snapshot"]["build_launches"] == N_SHARDS,
+           f"one process: {one['bucket']['snapshot']['build_launches']} "
+           f"recovery_scan launches for the build of {N_SHARDS} shards")
+    check_one_writer(d1, [r["one_writer"] for r in ranks], d1_dirs)
     out = {}
     for b in ("bucket", "probe"):
         got = [r[b] for r in ranks]
@@ -2034,6 +2152,20 @@ def run_mesh_phase(dev, smi, geo=None):
               f"{got[0]['coll_calls']:.2f} calls; one process: "
               f"{1e3 * g['lanes'] / one[b]['ops_s']:.4f} ms, "
               f"{one[b]['coll_calls']:.2f} calls")
+    snaps = [r["bucket"]["snapshot"] for r in ranks]
+    mine = one["bucket"]["snapshot"]
+    print(f"mesh bucket snapshot: each rank captures, builds and writes its "
+          f"rows; stored files equal to one process's byte for byte; "
+          f"recovery_scan launches for the build by rank "
+          f"{[x['build_launches'] for x in snaps]} (one process "
+          f"{mine['build_launches']}); device memory added to the peak by "
+          f"the capture and build, MiB by rank "
+          f"{[round(x['peak_mib'], 3) for x in snaps]} (one process "
+          f"{mine['peak_mib']:.3f}); capture ms on the main thread by rank "
+          f"{[round(x['capture_ms'], 3) for x in snaps]} (one process "
+          f"{mine['capture_ms']:.3f}); wait ms by rank "
+          f"{[round(x['wait_ms'], 3) for x in snaps]} (one process "
+          f"{mine['wait_ms']:.3f}) ({smi})")
     print(f"phase 3c2: {time.perf_counter() - t0:.1f} s (the spawn and the "
           f"ranks' runs {spawn_s:.1f} s)")
     return out

@@ -358,22 +358,18 @@ def _host_i32(x) -> np.ndarray:
     return np.asarray(x, np.int32)
 
 
-def whole_rows(sspec: ShardSpec, *parts: np.ndarray,
-               everywhere: bool = True) -> list:
+def whole_rows(sspec: ShardSpec, *parts: np.ndarray) -> list:
     """Whole (S, ...) host arrays from this process's rows of each (int32
     planes): the parts themselves on the one-device path; on a mesh, one
     all-gather of every rank's rows (a collective), as ``shard_map``'s
-    ``out_specs`` assembles them.  ``everywhere=False`` gathers to rank 0
-    alone; the other ranks get None for each array."""
+    ``out_specs`` assembles them."""
     mesh = RT.shard_mesh(sspec)
     if mesh is None:
         return list(parts)
     d, s = RT.mesh_groups(sspec), sspec.n_shards
     tails = [p.shape[1:] for p in parts]
     got = mesh.gather(parts if parts[0].shape[0] else None,
-                      [(s // d,) + t for t in tails], d, everywhere)
-    if got is None:
-        return [None] * len(parts)
+                      [(s // d,) + t for t in tails], d)
     return [g.reshape((s,) + t).astype(p.dtype)
             for g, t, p in zip(got, tails, parts)]
 
@@ -678,10 +674,11 @@ class ShardedDurableMap(MetricsMixin):
     metrics registry's snapshot: every rank attaches one); ``repr`` shows
     this rank's rows alone and runs no collective.
 
-    A known limit on a mesh: a snapshot is built on rank 0 alone, which
-    receives the whole (S, N) capture and recovers all S shards on its
-    device (``snapshot_build``), so rank 0's card must hold the whole
-    map's state once per snapshot (ROADMAP item 7e).
+    A snapshot of a map in a group (:class:`~repro_torch.store.snapshot.
+    Snapshotter`) is captured, built and written by each rank for the
+    rows it holds (``snapshot_rows``), as the JAX package's ``shard_map``
+    recovers each device's rows; where every rank holds every row (D = 1),
+    rank 0 alone does it.
     """
 
     def __init__(self, spec=None, n_shards: Optional[int] = None,
@@ -711,9 +708,9 @@ class ShardedDurableMap(MetricsMixin):
         self.sspec = sspec
         self.mesh = RT.shard_mesh(sspec)      # None: the one-device path
         self.rows = RT.local_rows(sspec)      # storage rows held here
-        group = RT.group_mesh(sspec)          # the rank's own device
+        self.group = RT.group_mesh(sspec)     # the ranks it lives among
         self.device = resolve_device(
-            device if group is None else group.device(device))
+            device if self.group is None else self.group.device(device))
         self.state = make_state(sspec, device=self.device)
         self.last_recovery_hist = None        # i32[5], summed over shards
         self.last_recovery_hist_shards = None  # i32[S, 5]
@@ -1002,39 +999,76 @@ class ShardedDurableMap(MetricsMixin):
     def supports_hybrid(self) -> bool:
         return E.supports_hybrid_recovery(self.spec)
 
+    @property
+    def snapshot_rows(self) -> range:
+        """The storage rows this process captures, builds and writes in a
+        snapshot: the rows it holds, save where every rank of a group holds
+        every row (D = 1), where rank 0 writes them all and the others
+        none."""
+        if self.mesh is None and self.group is not None \
+                and self.group.rank != 0:
+            return range(0)
+        return self.rows
+
     def snapshot_capture(self) -> dict:
-        """Flush the pipeline to a clean dispatch boundary, host-copy the
-        stacked durable planes, and open a new stamp generation on every
-        shard.  Zero psyncs -- a pure NVM read.  On a mesh a collective:
-        rank 0, which builds the snapshot, gets the whole (S, N) planes;
-        every other rank gets None for each."""
+        """Flush the pipeline to a clean dispatch boundary, host-copy this
+        process's ``snapshot_rows`` of the durable planes and their
+        epochs, and open a new stamp generation on every shard it holds.
+        Zero psyncs -- a pure NVM read -- and no collective save the
+        flush's: no plane crosses between ranks.  ``rows`` names the
+        storage rows of the copies."""
         self.pipeline_flush()
-        pool = E.export_pool(self.state)
-        w, stage, keys, values, stamp = whole_rows(
-            self.sspec, E._host(self.state.epoch), pool["stage"],
-            pool["keys"], pool["values"], pool["stamp"], everywhere=False)
-        cap = {"watermark": w,                                 # (S,)
-               "raw_stage": stage, "keys": keys, "values": values,
-               "stamp": stamp}
-        self.state = self.state._replace(epoch=self.state.epoch + 1)
+        rows = self.snapshot_rows
+        mine = slice(0, len(rows))           # they are the first held
+        st = self.state
+        cap = {"rows": rows, "watermark": E._host(st.epoch[mine]),
+               "raw_stage": E._host(st.flushed[mine]),
+               "keys": E._host(st.keys[mine]),
+               "values": E._host(st.values[mine]),
+               "stamp": E._host(st.stamp[mine])}
+        self.state = st._replace(epoch=st.epoch + 1)
         return cap
 
     def snapshot_build(self, cap: dict):
-        """Canonicalize the capture with the normal per-shard ``recover``
-        of all S shards on this process's device, with no collective (safe
-        in a background thread; on a mesh only rank 0 builds, from its
-        whole capture).  Returns (planes, meta); every plane keeps its
-        leading shard axis."""
-        sspec = dataclasses.replace(self.sspec, use_shard_map=False)
+        """Canonicalize a capture with the normal per-shard ``recover`` of
+        its rows on this process's device (one ``recovery_scan`` a row on
+        the card), under a spec of those rows alone, so it runs no
+        collective (safe in a background thread).  Returns (planes, meta)
+        of the captured rows: every plane keeps its leading shard axis;
+        ``snapshot_meta`` of the whole watermark and histogram is what the
+        store keeps.  In a group the step this build belongs to commits,
+        and its future completes, only at a later main-thread call of the
+        :class:`~repro_torch.store.snapshot.Snapshotter` on every rank."""
+        k = len(cap["rows"])
+        if not k:                            # a rank that writes no row
+            return {}, self.snapshot_meta(cap["watermark"],
+                                          np.zeros((0, 5), np.int32))
+        sspec = dataclasses.replace(self.sspec, use_shard_map=False,
+                                    n_device_groups=0).with_n_shards(k)
         st, hist = recover(*(E._on_device(cap[f], self.device, np.int32)
                              for f in ("raw_stage", "keys", "values",
                                        "stamp")), sspec=sspec)
         planes = {f: E._host(getattr(st, f)) for f in self._SNAP_FIELDS}
         planes["raw_stage"] = cap["raw_stage"]
-        meta = {"kind": "sharded_map",
-                "watermark": np.asarray(cap["watermark"]).tolist(),
-                "hist": E._host(hist).tolist()}
-        return planes, meta
+        return planes, self.snapshot_meta(cap["watermark"], E._host(hist))
+
+    @staticmethod
+    def snapshot_meta(watermark, hist) -> dict:
+        """The manifest ``extra`` of a snapshot: the per-shard watermark
+        (S,) and stage histogram (S, 5), as the JAX package stores them."""
+        return {"kind": "sharded_map",
+                "watermark": np.asarray(watermark).tolist(),
+                "hist": np.asarray(hist).tolist()}
+
+    def snapshot_layout(self) -> dict:
+        """Each stored plane's numpy dtype and whole (S, ...) shape: what
+        ``snapshot_build`` of every row gives, without building."""
+        def whole(t):
+            return (E._host(t[:0]).dtype,
+                    (self.n_shards,) + tuple(t.shape[1:]))
+        out = {f: whole(getattr(self.state, f)) for f in self._SNAP_FIELDS}
+        out["raw_stage"] = whole(self.state.flushed)
+        return out
 
     def _snapshot_state(self, planes: dict) -> SetState:
         """The canonical stacked snapshot state on the map's device (this

@@ -92,14 +92,12 @@ class ShardMesh:
         return dev
 
     def gather(self, parts: Optional[Sequence[np.ndarray]],
-               shapes: Sequence[tuple], d: int,
-               everywhere: bool = True) -> Optional[list]:
+               shapes: Sequence[tuple], d: int) -> list:
         """``out_specs=P("shards")``: each output's rows from ranks 0 to
-        D - 1, stacked into a (D, *shape) int32 array, in ONE all-gather.
-        ``parts`` are this rank's outputs (each of ``shape`` or with a
-        leading axis of 1); a rank past D holds none and passes None.
-        ``everywhere=False`` gathers to rank 0 alone: the other ranks get
-        None and never hold the whole arrays."""
+        D - 1, stacked into a (D, *shape) int32 array on every rank, in ONE
+        all-gather.  ``parts`` are this rank's outputs (each of ``shape``
+        or with a leading axis of 1); a rank past D holds none and passes
+        None."""
         sizes = [int(np.prod(s, dtype=np.int64)) for s in shapes]
         n = sum(sizes)
         if parts is None:
@@ -111,17 +109,9 @@ class ShardMesh:
         if flat.size != n:
             raise ValueError(f"gather: {flat.size} values for shapes "
                              f"{list(shapes)}")
-        mine = torch.from_numpy(flat)
-        if everywhere or self.rank == 0:
-            got = [torch.empty((n,), dtype=torch.int32)
-                   for _ in range(self.world)]
-        if everywhere:
-            dist.all_gather(got, mine, group=self.group)
-        elif self.rank == 0:
-            dist.gather(mine, got, dst=0, group=self.group)
-        else:
-            dist.gather(mine, None, dst=0, group=self.group)
-            return None
+        got = [torch.empty((n,), dtype=torch.int32)
+               for _ in range(self.world)]
+        dist.all_gather(got, torch.from_numpy(flat), group=self.group)
         rows = torch.stack(got[:d]).numpy()
         out, at = [], 0
         for s, k in zip(shapes, sizes):

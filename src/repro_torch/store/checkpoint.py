@@ -54,6 +54,8 @@ from repro_torch.store.tensorstore import (BF16_BITS, DurableArea, Record,
                                            write_npy)
 
 COMMIT = "__commit__"
+_READ_HEADER = {(1, 0): np.lib.format.read_array_header_1_0,
+                (2, 0): np.lib.format.read_array_header_2_0}
 
 
 def _map_with_path(fn, tree, path=()):
@@ -109,6 +111,11 @@ def _like(arr: np.ndarray, leaf):
     return np.asarray(arr, dtype=getattr(leaf, "dtype", None))
 
 
+def _leaf_file(name: str) -> str:
+    """The file of leaf ``name`` in a step directory."""
+    return name.replace("/", "__") + ".npy"
+
+
 def _fsync_dir(path: str):
     fd = os.open(path, os.O_RDONLY)
     try:
@@ -138,6 +145,7 @@ class CheckpointManager:
         self.index: Dict[int, Dict[str, Any]] = {}        # volatile only
         self.committed: List[int] = []
         self._extra: Dict[int, Any] = {}      # dirs-layout manifest extras
+        self._open_rows: Dict[int, List[str]] = {}   # begun, not committed
         self._pool = ThreadPoolExecutor(max_workers=1)
         self._pending: Optional[Future] = None
         self._recover_index()
@@ -179,22 +187,36 @@ class CheckpointManager:
 
     def _save_sync_dirs(self, step: int, tree, extra=None):
         leaves = _flatten(tree)
-        final = os.path.join(self.dir, f"step_{step:012d}")
-        tmp = os.path.join(self.dir, f".tmp-step_{step:012d}")
-        if os.path.exists(tmp):          # garbage from a crashed save
-            shutil.rmtree(tmp)
-        os.makedirs(tmp)
-        manifest = {"step": step, "leaves": {}, "extra": extra}
+        tmp = self._fresh_tmp(step)
         for name, arr in leaves.items():
-            fn = name.replace("/", "__") + ".npy"
-            p = os.path.join(tmp, fn)
+            p = os.path.join(tmp, _leaf_file(name))
             with open(p, "wb") as f:
                 write_npy(f, arr)
                 f.flush()
                 os.fsync(f.fileno())
             self._dir_fsyncs += 1
             self.bytes_written += os.path.getsize(p)
-            manifest["leaves"][name] = fn
+        return self._commit_tmp(step, list(leaves), extra)
+
+    def _tmp_path(self, step: int) -> str:
+        return os.path.join(self.dir, f".tmp-step_{step:012d}")
+
+    def _fresh_tmp(self, step: int) -> str:
+        tmp = self._tmp_path(step)
+        if os.path.exists(tmp):          # garbage from a crashed save
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        return tmp
+
+    def _commit_tmp(self, step: int, names, extra) -> int:
+        """Write the manifest of ``step``'s tmp directory (its leaves
+        ``names`` in flatten order, whose files are durable), fsync the
+        directory and rename it: the commit point."""
+        tmp = self._tmp_path(step)
+        final = os.path.join(self.dir, f"step_{step:012d}")
+        manifest = {"step": step,
+                    "leaves": {n: _leaf_file(n) for n in names},
+                    "extra": extra}
         mp = os.path.join(tmp, "manifest.json")
         with open(mp, "wb") as f:
             f.write(json.dumps(manifest).encode())
@@ -217,6 +239,71 @@ class CheckpointManager:
         self.committed.append(step)
         self._gc()
         return step
+
+    # -- one step written by several processes (dirs layout) ------------------
+    #
+    # A map whose rows are partitioned over the ranks of a process group
+    # writes each step from every rank: the committing process creates the
+    # step's tmp directory with every leaf's file at its whole shape
+    # (begin_rows), each process writes the byte range of its own rows
+    # (write_rows), and the committing process writes the manifest and
+    # renames (commit_rows).  The files are byte for byte the ones save()
+    # writes for the whole arrays.
+
+    def begin_rows(self, step: int, layout: Dict[str, tuple]):
+        """Create ``step``'s tmp directory holding, for each leaf name of
+        ``layout`` (name -> (numpy dtype, whole shape)), its ``.npy`` file
+        at that shape: ``np.save``'s header, then zeros (a sparse file)
+        until :meth:`write_rows` fills them.  Returns nothing; nothing is
+        committed until :meth:`commit_rows`."""
+        if self.layout != "dirs":
+            raise ValueError("begin_rows requires layout='dirs'")
+        tmp = self._fresh_tmp(step)
+        for name in sorted(layout):
+            dtype, shape = layout[name]
+            dtype = np.dtype(dtype)
+            p = os.path.join(tmp, _leaf_file(name))
+            with open(p, "wb") as f:
+                np.lib.format.write_array_header_1_0(
+                    f, {"descr": np.lib.format.dtype_to_descr(dtype),
+                        "fortran_order": False, "shape": tuple(shape)})
+                self.bytes_written += f.tell()
+                f.truncate(f.tell() + dtype.itemsize
+                           * int(np.prod(shape, dtype=np.int64)))
+        self._open_rows[step] = sorted(layout)  # a flat dict's flatten order
+
+    def write_rows(self, step: int, start: int, planes: Dict[str, Any]):
+        """Write rows ``start .. start + k - 1`` of each leaf of ``planes``
+        (name -> its k rows) into the files :meth:`begin_rows` created for
+        ``step``, then flush and fsync each.  Raises ``FileNotFoundError``
+        where this process's view of the directory lacks the step, and
+        ``ValueError`` where a file's shape or dtype does not take the
+        rows."""
+        tmp = self._tmp_path(step)
+        for name in sorted(planes):
+            rows = np.ascontiguousarray(planes[name])
+            with open(os.path.join(tmp, _leaf_file(name)), "r+b") as f:
+                shape, _, dtype = _READ_HEADER[np.lib.format.read_magic(f)](f)
+                if (dtype != rows.dtype or shape[1:] != rows.shape[1:]
+                        or start + rows.shape[0] > shape[0]):
+                    raise ValueError(
+                        f"{name}: rows {start}:{start + rows.shape[0]} "
+                        f"{rows.dtype}{rows.shape[1:]} do not fit the "
+                        f"stored {dtype}{shape}")
+                row = dtype.itemsize * int(np.prod(shape[1:], dtype=np.int64))
+                f.seek(f.tell() + start * row)
+                f.write(rows.tobytes())
+                f.flush()
+                os.fsync(f.fileno())
+            self._dir_fsyncs += 1
+            self.bytes_written += rows.nbytes
+
+    def commit_rows(self, step: int, extra=None) -> int:
+        """Commit ``step`` once every process's :meth:`write_rows` has
+        ended: the manifest, the directory's fsync and the rename, as
+        :meth:`save` ends.  Only the process that called
+        :meth:`begin_rows` commits."""
+        return self._commit_tmp(step, self._open_rows.pop(step), extra)
 
     def wait(self):
         if self._pending is not None:
@@ -293,17 +380,22 @@ class CheckpointManager:
         step = step if step is not None else self.latest_step()
         return self._extra.get(step)
 
-    def _arrays(self, step: int) -> Dict[str, np.ndarray]:
+    def _arrays(self, step: int, mmap: bool = False
+                ) -> Dict[str, np.ndarray]:
         recs = self.index[step]
         if self.layout == "dirs":
-            return {name: np.load(path) for name, path in recs.items()}
+            mode = "r" if mmap else None
+            return {name: np.load(path, mmap_mode=mode)
+                    for name, path in recs.items()}
         return {name: decode_array(self._payload(r))
                 for name, r in recs.items() if name != COMMIT}
 
     def restore(self, step: Optional[int] = None, like=None,
-                shardings=None):
+                shardings=None, mmap: bool = False):
         """Restore a step.  ``like`` (a tree of tensors or arrays) fixes the
-        tree structure, and each leaf's kind, dtype and device.  The JAX
+        tree structure, and each leaf's kind, dtype and device.  ``mmap``
+        (dirs layout) maps each leaf's file read-only instead of reading
+        it, so a reader that copies a few rows reads only those.  The JAX
         package's ``shardings`` (a tree of ``NamedSharding``) has no form on
         one GPU and raises."""
         if shardings is not None:
@@ -313,7 +405,7 @@ class CheckpointManager:
         step = step if step is not None else self.latest_step()
         if step is None or step not in self.index:
             return None
-        arrays = self._arrays(step)
+        arrays = self._arrays(step, mmap)
         if like is None:
             return arrays
         return _map_with_path(lambda name, leaf: _like(arrays[name], leaf),

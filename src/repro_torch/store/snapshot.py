@@ -33,22 +33,33 @@ have the hooks; ``load_resharded`` restores a sharded-map snapshot at
 another shard count.  The store layout is the JAX package's, so either
 package restores the other's snapshots.
 
-A sharded map partitioned over the ranks of a process group (its ``mesh``)
-is snapshotted by one :class:`Snapshotter` per rank on one directory, which
+A sharded map in a process group (``use_shard_map``; its ``group``) is
+snapshotted by one :class:`Snapshotter` per rank on one directory, which
 every rank must see (a local path on one host, a shared file system
-across hosts).  The capture is a collective, on every rank's main thread;
-rank 0 alone receives the whole capture, builds and writes, so the store
-holds the files a one-device map's would, and its background thread runs
-no collective (a ``gloo`` collective there would interleave with the
-dispatch's).  Recovery reads the step rank 0 last committed, sent to every
+across hosts).  Each rank captures, builds and writes the rows it holds,
+as the JAX package's ``shard_map`` recovers each device's rows: at the
+capture rank 0 creates the step's tmp directory with every plane's
+``.npy`` at its whole shape (one broadcast tells the ranks it is there),
+each rank's background thread recovers its rows and writes their byte
+range of each file, and rank 0 writes the manifest and renames once every
+rank's part has ended.  The store holds the files a one-device map's
+would, byte for byte; no plane crosses between ranks, and no background
+thread runs a collective (a ``gloo`` collective there would interleave
+with the dispatch's).  Where every rank holds every row (D = 1), rank 0
+alone builds and writes, as one process would.  The ranks agree at their
+main-thread calls (``maybe_snapshot``, ``snapshot``, ``wait``, ``recover``,
+``close``): one all-gather of each rank's part status and the meta of its
+rows (watermark and stage histogram), and after rank 0's rename one
+broadcast.  Recovery reads the step rank 0 last committed, sent to every
 rank, and raises on every rank when any rank's view of the directory lacks
-it; each rank keeps its own rows.
+it; each rank reads only its rows of the stored planes.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from concurrent.futures import ThreadPoolExecutor, Future
+from concurrent.futures import Future, ThreadPoolExecutor
+from concurrent.futures import wait as futures_wait
 from typing import Optional
 
 import numpy as np
@@ -104,6 +115,14 @@ class Snapshotter:
     ``<name>.snapshot_bytes_written`` counter,
     ``<name>.snapshot_age_seconds`` gauge, and a ``<name>.snapshotter``
     collector -- all reachable from ``MetricsRegistry.snapshot()``.
+
+    On a map in a process group (see the module docstring) every rank
+    makes the same calls, and the future of a step completes only at a
+    main-thread call on every rank (``maybe_snapshot``, ``snapshot``,
+    ``wait``, ``recover`` or ``close``) once rank 0 has renamed the step:
+    its build ends in the background, but the group agrees on it there.
+    ``wait()`` returns the committed step on every rank, or raises on
+    every rank when any rank's part failed (nothing is committed then).
     """
 
     def __init__(self, structure, directory: str,
@@ -111,10 +130,13 @@ class Snapshotter:
                  metrics=None, name: Optional[str] = None):
         self.structure = structure
         self.policy = policy or SnapshotPolicy()
-        # a map partitioned over ranks: collectives on the main thread, and
-        # only rank 0 builds and writes
-        self.mesh = getattr(structure, "mesh", None)
-        self._writes = self.mesh is None or self.mesh.rank == 0
+        # a map in a process group: every rank writes its rows (rank 0 all
+        # of them where the rows are not partitioned), and the group agrees
+        # on each step by collectives on the main thread
+        self.group = getattr(structure, "group", None)
+        self._per = (structure.n_shards // RT.mesh_groups(structure.sspec)
+                     if self.group is not None else 0)  # rows a rank writes
+        self._part = None               # (step, part future, t0, bytes)
         self.store = CheckpointManager(directory, layout="dirs", keep=keep)
         self._name = name or getattr(structure, "_m_name", "structure")
         self._m = metrics if metrics is not None \
@@ -143,22 +165,27 @@ class Snapshotter:
 
     def maybe_snapshot(self, step: Optional[int] = None) -> Optional[Future]:
         """Cadence check; captures + schedules a background build when the
-        policy says so.  Returns the build future, or None."""
+        policy says so.  Returns the build future, or None.  In a group,
+        rank 0's decision holds on every rank, and a step in flight is
+        committed here once every rank's part has ended."""
         step = self._next_step if step is None else step
         now = time.monotonic()
         if not self.supports_hybrid:
             return None
-        # one build in flight at a time
-        due = (self._pending is None or self._pending.done()) and \
-            self.policy.due(step, self._last_step, now, self._last_time)
-        if self.mesh is not None:
-            due = bool(self.mesh.broadcast(due))  # rank 0 decides for all
+        due = self.policy.due(step, self._last_step, now, self._last_time)
+        if self.group is None:               # one build in flight at a time
+            due = due and (self._pending is None or self._pending.done())
+        elif self._pending is None:
+            due = bool(self.group.broadcast(due))  # rank 0 decides for all
+        else:
+            due = self._settle(block=False, due=due)
         return self.snapshot(step) if due else None
 
     def snapshot(self, step: Optional[int] = None) -> Future:
         """Capture NOW (synchronous, cheap -- a host copy of already-durable
         planes) and build + persist in the background.  Returns the future
-        of the committed step id."""
+        of the committed step id (in a group, completed at a later
+        main-thread call: see the class docstring)."""
         if not self.supports_hybrid:
             raise ValueError(
                 f"{type(self.structure).__name__} spec has no canonical "
@@ -171,39 +198,146 @@ class Snapshotter:
         self._last_time = time.monotonic()
         t0 = time.perf_counter()
         cap = self.structure.snapshot_capture()
-        if self._writes:
+        if self.group is None:
             self._pending = self._pool.submit(self._build_and_save, step,
                                               cap, t0)
-        else:                                 # rank 0 writes this step
-            self._pending = Future()
-            self._pending.set_result(step)
+            return self._pending
+        made = None
+        if self.group.rank == 0:
+            try:
+                self.store.begin_rows(step, self.structure.snapshot_layout())
+            except Exception as e:            # raised below, on every rank
+                made = e
+        if not self.group.broadcast(made is None):
+            if made is not None:
+                raise made
+            raise RuntimeError(f"snapshot step {step}: rank 0 could not "
+                               f"create it in {self.store.dir!r}")
+        self._part = (step, self._pool.submit(self._write_part, step, cap),
+                      t0, self.store.bytes_written)
+        self._pending = Future()
         return self._pending
 
     def _build_and_save(self, step: int, cap: dict, t0: float) -> int:
         planes, meta = self.structure.snapshot_build(cap)
         b0 = self.store.bytes_written
         self.store.save(step, planes, extra=meta)
+        self._record(t0, int(np.max(meta["watermark"])),
+                     self.store.bytes_written - b0)
+        return step
+
+    def _write_part(self, step: int, cap: dict):
+        """A rank's part of a step in a group, in its background thread:
+        build its rows and write them into the files rank 0 created.  No
+        collective.  Returns the meta of its rows."""
+        planes, meta = self.structure.snapshot_build(cap)
+        if len(cap["rows"]):
+            try:
+                self.store.write_rows(step, cap["rows"].start, planes)
+            except FileNotFoundError as e:
+                raise _Unshared(f"snapshot step {step} is missing from "
+                                f"this rank's view of {self.store.dir!r}"
+                                ) from e
+        return meta
+
+    def _record(self, t0: float, watermark: int, nbytes: int):
         self.last_duration = time.perf_counter() - t0
         self._last_commit_time = time.monotonic()
         self.snapshots += 1
         if self._m is not None:
             m, n = self._m, self._name
             m.histogram(f"span.{n}.snapshot").record(self.last_duration)
-            m.counter(f"{n}.snapshot_bytes_written").inc(
-                self.store.bytes_written - b0)
+            m.counter(f"{n}.snapshot_bytes_written").inc(nbytes)
             m.counter(f"{n}.snapshots").inc()
-            m.gauge(f"{n}.last_snapshot_watermark").set(
-                int(np.max(meta["watermark"])))
-        return step
+            m.gauge(f"{n}.last_snapshot_watermark").set(watermark)
+
+    def _settle(self, block: bool, due: bool = False) -> bool:
+        """The group's agreement on the step in flight, on the main thread
+        of every rank: ONE all-gather of each rank's part status, rank 0's
+        ``due`` and the meta of the rank's rows.  While a part runs (and
+        ``block`` is False) the step stays in flight and this returns
+        False.  Once every part has ended, rank 0 commits (the manifest
+        and the rename), one broadcast tells every rank, and the step's
+        future completes; if any rank's part, or the commit, failed, it
+        raises on every rank and nothing is committed.  Returns rank 0's
+        ``due``."""
+        step, part, t0, b0 = self._part
+        if block:
+            futures_wait([part])
+        per, s = self._per, self.structure.n_shards
+        vec = np.zeros((3 + 6 * per,), np.int32)
+        vec[1] = bool(due)
+        if not part.done():
+            vec[0] = _RUNNING
+        elif part.exception() is not None:
+            vec[0] = (_UNSHARED if isinstance(part.exception(), _Unshared)
+                      else _FAILED)
+        else:
+            vec[0] = _DONE
+            meta = part.result()
+            w = np.asarray(meta["watermark"], np.int32)
+            if w.size:                       # a rank that wrote rows
+                vec[2] = w.max()
+                vec[3:3 + per] = w
+                vec[3 + per:] = np.asarray(meta["hist"]).reshape(-1)
+        (got,) = self.group.gather([vec], [vec.shape], self.group.world)
+        codes, due = got[:, 0], bool(got[0, 1])
+        if (codes == _RUNNING).any():
+            return False
+        self._part = None
+        pending, self._pending = self._pending, None
+        bad = np.flatnonzero(codes != _DONE)
+        if bad.size:
+            raise self._failure(step, bad, codes, part, pending)
+        err = None
+        if self.group.rank == 0:
+            try:
+                # ranks 0 .. D - 1 wrote the rows in order
+                self.store.commit_rows(step, self.structure.snapshot_meta(
+                    got[:, 3:3 + per].reshape(-1)[:s],
+                    got[:, 3 + per:].reshape(-1, 5)[:s]))
+            except Exception as e:            # raised below, on every rank
+                err = e
+        if not self.group.broadcast(err is None):
+            err = err or RuntimeError(
+                f"snapshot step {step}: rank 0 failed to commit it")
+            pending.set_exception(err)
+            raise err
+        self._record(t0, int(got[:, 2].max()), self.store.bytes_written - b0)
+        pending.set_result(step)
+        return due
+
+    def _failure(self, step, bad, codes, part, pending) -> Exception:
+        """The error every rank raises for a step whose part failed on the
+        ranks ``bad``: the directory message where a rank's view lacked the
+        step, else the first failing rank, with this rank's own error."""
+        if (codes == _UNSHARED).any():
+            e = RuntimeError(
+                f"snapshot step {step}, created by rank 0, is missing from "
+                f"the view of {self.store.dir!r} of rank(s) "
+                f"{np.flatnonzero(codes == _UNSHARED).tolist()}: every rank "
+                "of a mesh must snapshot to one directory that all of them "
+                "see")
+        else:
+            mine = part.exception()
+            e = RuntimeError(
+                f"snapshot step {step} was not committed: the part of "
+                f"rank(s) {bad.tolist()} failed"
+                + (f" (here: {mine!r})" if mine is not None else ""))
+        pending.set_exception(e)
+        return e
 
     def wait(self) -> Optional[int]:
-        """Block until the in-flight build (if any) commits.  On a rank
-        other than 0 of a mesh, where rank 0 alone builds and writes, there
-        is nothing to wait for: the step returned is the one captured,
-        committed only if rank 0's build succeeds (``recover`` reads the
-        step rank 0 actually committed)."""
+        """Block until the in-flight build (if any) commits, and return its
+        step.  In a group this is a collective: it returns the same step
+        on every rank once rank 0 has renamed it, or raises on every
+        rank."""
         if self._pending is None:
             return None
+        if self.group is not None:
+            step = self._part[0]
+            self._settle(block=True)
+            return step
         step = self._pending.result()
         self._pending = None
         return step
@@ -219,21 +353,24 @@ class Snapshotter:
         cancelled-too-late build still commits a CONSISTENT snapshot, so
         recovery through it is equally bit-identical, just cheaper)."""
         if self._pending is not None:
-            if not self._pending.cancel():
+            # in a group the ranks settle the step together: a build runs
+            # on to its end there
+            if self.group is not None or not self._pending.cancel():
                 try:
-                    self._pending.result()    # too late to die mid-save
+                    self.wait()               # too late to die mid-save
                 except Exception:
                     pass    # a FAILED build is a crashed save: it left at
                     #       worst ignored .tmp-* residue, never a committed
                     #       step, so recovery proceeds from the last one
             self._pending = None
         step = self.store.latest_step()
-        if self.mesh is not None:
-            step = _committed_on_every_rank(self.mesh, self.store, step)
+        if self.group is not None:
+            step = _committed_on_every_rank(self.group, self.store, step)
         if step is None or not self.supports_hybrid:
             self.structure.crash_and_recover(u)
         else:
-            planes = self.store.restore(step)
+            # in a group each rank copies only its rows of the mapped files
+            planes = self.store.restore(step, mmap=self.group is not None)
             meta = self.store.extra(step)
             self.structure.hybrid_crash_and_recover(planes, meta, u)
         self._fix_epoch()
@@ -255,7 +392,7 @@ class Snapshotter:
             w = ws if w is None else np.maximum(w, ws)
         if w is None:
             return
-        if self.mesh is not None:
+        if self.group is not None:
             w = self.structure.rows_of(w)
         st = self.structure.state
         self.structure.state = st._replace(epoch=torch.maximum(
@@ -287,6 +424,13 @@ class Snapshotter:
             #       teardown still must release the pool and the store
         self._pool.shutdown()
         self.store.close()
+
+
+_RUNNING, _DONE, _FAILED, _UNSHARED = 1, 2, 3, 4   # a rank's part status
+
+
+class _Unshared(OSError):
+    """A rank's view of the store lacks the step rank 0 created."""
 
 
 def _committed_on_every_rank(mesh, store, step: Optional[int]

@@ -5,6 +5,8 @@ JAX, so they run where only the port is installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import os
+
 import numpy as np
 import pytest
 
@@ -821,6 +823,51 @@ def test_sharded_mesh_of_two_ranks_on_the_card_matches_one_process(
                     leaf, one[b]["leaves"][f][lo:hi],
                     err_msg=f"{b} rank {r} leaf {f}")
             assert min(got["launches"]) > 0, (b, r, got["launches"])
+
+
+def mesh_snapshot_run(snap_dir):
+    """8 bucket shards of 2^11 slots on the card under ``use_shard_map``,
+    prefilled and snapshotted once: this process's ``recovery_scan``
+    launches for the snapshot's build, its rows and the step."""
+    from repro_torch.kernels.recovery_scan.kernel import scan_cuda as scan
+    rng = np.random.default_rng(45)
+    m = ShardedDurableMap(SetSpec(capacity=1 << 14, backend="bucket"),
+                          n_shards=8, device="cuda", use_shard_map=True)
+    for k in np.split(rng.choice(1 << 13, 1 << 12,
+                                 replace=False).astype(np.int32), 4):
+        m.insert(k, k * 3)
+    sn = Snapshotter(m, snap_dir)
+    scan.launches = 0
+    sn.snapshot()
+    step = sn.wait()
+    launches = scan.launches
+    sn.close()
+    return {"rows": (m.rows.start, m.rows.stop), "launches": launches,
+            "step": step}
+
+
+def mesh_snapshot_rank(rank, snap_dir):
+    return mesh_snapshot_run(snap_dir)
+
+
+def test_sharded_mesh_snapshot_is_built_by_each_rank_on_the_card(
+        cuda, tmp_path):
+    """A snapshot of the 8-shard map over 2 gloo ranks sharing the card:
+    each rank builds its 4 rows (4 ``recovery_scan`` launches, one
+    process 8), and the stored files equal one process's byte for
+    byte."""
+    from repro_torch.launch.mesh import spawn
+    one = mesh_snapshot_run(str(tmp_path / "one"))
+    ranks = spawn(mesh_snapshot_rank, 2, str(tmp_path / "mesh"))
+    assert one["launches"] == 8 and one["step"] == 1
+    assert [(r["rows"], r["launches"], r["step"]) for r in ranks] == \
+        [((0, 4), 4, 1), ((4, 8), 4, 1)]
+    step = "step_000000000001"
+    files = sorted(os.listdir(tmp_path / "one" / step))
+    assert files == sorted(os.listdir(tmp_path / "mesh" / step))
+    for fn in files:
+        assert (tmp_path / "one" / step / fn).read_bytes() == \
+            (tmp_path / "mesh" / step / fn).read_bytes(), fn
 
 
 def mesh_resize_run(backend):

@@ -18,11 +18,25 @@ recovery, a bucket snapshot with hybrid recovery, the three modes, 2
 shards over 4 ranks (ranks 2 and 3 hold no rows) and ``n_device_groups``
 2 (every rank on the one-device path over the whole state).  A metrics
 registry attached on every rank collects JAX's counters; ``repr`` runs no
-collective; only rank 0 receives a snapshot's whole capture; and recovery
-through a snapshot directory the ranks do not share raises on every rank."""
+collective.
+
+Snapshots: each rank captures and builds exactly its own rows, no
+``torch.distributed`` call runs off a main thread, a snapshot's
+collectives carry only the small meta (never a plane), and the stored
+``.npy`` files and manifest equal the JAX run's byte for byte.  A map
+whose rows every rank holds (one shard, or ``n_device_groups`` 2) has one
+writer a step and the same committed step on every rank; a rank whose
+build is slow neither hangs the group nor lets a rank report a step that
+was not committed; a snapshot directory the ranks do not share raises on
+every rank."""
+import contextlib
+import faulthandler
+import json
 import os
 import subprocess
 import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -30,6 +44,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.launch.mesh import spawn  # noqa: E402
+from repro_torch.store.snapshot import Snapshotter  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(os.path.dirname(HERE), "src")
@@ -152,10 +167,81 @@ def run_scenario(api, name, snap_dir, **map_kw):
     return rec, m
 
 
+# ``torch.distributed`` calls that move data or wait for other ranks
+COLLECTIVES = ("all_gather", "all_gather_into_tensor", "all_gather_object",
+               "all_reduce", "gather", "broadcast", "broadcast_object_list",
+               "barrier", "reduce", "scatter", "send", "recv", "isend",
+               "irecv")
+_WATCH = {"depth": 0, "bytes": [], "off_main": []}
+
+
+def _nbytes(args) -> int:
+    n = 0
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            n += a.numel() * a.element_size()
+        elif isinstance(a, (list, tuple)):
+            n += _nbytes(a)
+    return n
+
+
+@contextlib.contextmanager
+def _watch_collectives():
+    """Wrap every ``torch.distributed`` collective: a call off the main
+    thread is recorded in ``_WATCH["off_main"]`` and raises; inside a
+    snapshot call of :class:`_WatchedSnapshotter` the bytes of the tensors
+    a call is given (sent and received) add to the call's entry of
+    ``_WATCH["bytes"]``."""
+    import torch.distributed as dist
+    real = {n: getattr(dist, n) for n in COLLECTIVES if hasattr(dist, n)}
+
+    def wrap(name, f):
+        def call(*a, **k):
+            if threading.current_thread() is not threading.main_thread():
+                _WATCH["off_main"].append(name)
+                raise AssertionError(f"dist.{name} off the main thread")
+            if _WATCH["depth"]:
+                _WATCH["bytes"][-1] += _nbytes(list(a) + list(k.values()))
+            return f(*a, **k)
+        return call
+    _WATCH.update(depth=0, bytes=[], off_main=[])
+    for n, f in real.items():
+        setattr(dist, n, wrap(n, f))
+    try:
+        yield _WATCH
+    finally:
+        for n, f in real.items():
+            setattr(dist, n, f)
+
+
+class _WatchedSnapshotter(Snapshotter):
+    """The port's :class:`Snapshotter`, its ``maybe_snapshot`` and ``wait``
+    each counted as one entry of ``_WATCH["bytes"]``."""
+
+    @contextlib.contextmanager
+    def _counted(self):
+        if not _WATCH["depth"]:
+            _WATCH["bytes"].append(0)
+        _WATCH["depth"] += 1
+        try:
+            yield
+        finally:
+            _WATCH["depth"] -= 1
+
+    def maybe_snapshot(self, step=None):
+        with self._counted():
+            return super().maybe_snapshot(step)
+
+    def wait(self):
+        with self._counted():
+            return super().wait()
+
+
 class _TorchAPI:
     from repro_torch.core.engine import SetSpec
     from repro_torch.core.shard import ShardedDurableMap
-    from repro_torch.store.snapshot import Snapshotter, SnapshotPolicy
+    from repro_torch.store.snapshot import SnapshotPolicy
+    Snapshotter = _WatchedSnapshotter
     map_kw = {"device": "cpu"}
 
     @staticmethod
@@ -174,13 +260,12 @@ def _collected(reg, steps):
 
 def _mesh_edges(rank, snap_root):
     """A map on the mesh that prints its rows with no collective, captures
-    the whole planes on rank 0 alone, and refuses to recover through a
-    snapshot directory that is not shared: each rank snapshots to a
-    directory of its own."""
+    and builds only its rows (a 2-shard map: none on ranks 2 and 3), and
+    refuses to commit a snapshot to a directory that is not shared: each
+    rank snapshots to a directory of its own."""
     import torch.distributed as dist
     from repro_torch.core.engine import SetSpec
     from repro_torch.core.shard import ShardedDurableMap
-    from repro_torch.store.snapshot import Snapshotter
     out = {}
     m = ShardedDurableMap(SetSpec(capacity=CAP, backend="bucket"),
                           n_shards=S, use_shard_map=True, device="cpu")
@@ -197,18 +282,128 @@ def _mesh_edges(rank, snap_root):
     finally:
         for n, f in real.items():
             setattr(dist, n, f)
-    cap = m.snapshot_capture()
-    out["capture"] = [cap[f] is not None for f in
-                      ("watermark", "raw_stage", "keys", "values", "stamp")]
+    for s in (S, 2):
+        two = ShardedDurableMap(SetSpec(capacity=CAP, backend="bucket"),
+                                n_shards=s, use_shard_map=True, device="cpu")
+        two.insert(np.arange(40, dtype=np.int32))
+        st = two.state
+        held = {"watermark": st.epoch, "raw_stage": st.flushed,
+                "keys": st.keys, "values": st.values, "stamp": st.stamp}
+        held = {f: t.numpy().copy() for f, t in held.items()}
+        cap = two.snapshot_capture()
+        planes, meta = two.snapshot_build(cap)
+        out[f"capture{s}"] = {
+            "rows": (cap["rows"].start, cap["rows"].stop),
+            "held": (two.rows.start, two.rows.stop),
+            "equal": [f for f in held if np.array_equal(cap[f], held[f])],
+            "built": sorted({p.shape[0] for p in planes.values()}),
+            "meta_rows": len(meta["watermark"])}
     sn = Snapshotter(m, os.path.join(snap_root, "own", str(rank)))
-    sn.snapshot()
-    sn.wait()
     try:
+        sn.snapshot()
+        sn.wait()
         sn.recover()
     except RuntimeError as e:
         out["unshared"] = str(e)
     sn.close()
     return out
+
+
+def _single_writer(rank, snap_root, name, shard_kw):
+    """A ``use_shard_map`` map whose rows every rank holds (D = 1),
+    snapshotted six times through ``maybe_snapshot(every_steps=1)`` and
+    recovered: the steps each ``wait()`` returned, what raised, the steps
+    whose files this rank's store wrote (a whole ``save`` or rows), the
+    step recovered through and a digest of the state."""
+    import hashlib
+    from repro_torch.core.engine import SetSpec
+    from repro_torch.core.shard import ShardedDurableMap
+    from repro_torch.store import checkpoint as CK
+    from repro_torch.store.snapshot import SnapshotPolicy
+    saves, cls = set(), CK.CheckpointManager
+    real = {n: getattr(cls, n) for n in ("save", "write_rows")
+            if hasattr(cls, n)}
+
+    def counted(f):
+        def call(self, step, *a, **k):
+            saves.add(step)
+            return f(self, step, *a, **k)
+        return call
+    out = {"waits": [], "raised": []}
+    for n, f in real.items():
+        setattr(cls, n, counted(f))
+    try:
+        m = ShardedDurableMap(SetSpec(capacity=CAP, backend="bucket"),
+                              use_shard_map=True, device="cpu", **shard_kw)
+        sn = Snapshotter(m, os.path.join(snap_root, "single", name),
+                         SnapshotPolicy(every_steps=1))
+        for _, ops, keys, vals in _batches(13, 6):
+            m.apply(ops, keys, vals)
+            try:
+                sn.maybe_snapshot()
+                out["waits"].append(sn.wait())
+            except Exception as e:
+                out["raised"].append(repr(e))
+        m.apply(*_batches(14, 1)[0][1:])
+        try:
+            sn.recover()
+        except Exception as e:
+            out["raised"].append(repr(e))
+        out["recovered"] = sn.store.latest_step()
+        out["digest"] = hashlib.sha1(b"".join(
+            t.numpy().tobytes() for t in m.state)).hexdigest()
+        sn.close()
+    finally:
+        for n, f in real.items():
+            setattr(cls, n, f)
+    out["saves"] = sorted(saves)
+    return out
+
+
+def _slow_rank(rank, snap_root):
+    """An 8-shard map on the mesh whose rank 2 builds each snapshot a
+    second late: a snapshot, four more batches each with a cadence check
+    (every step is due), ``wait()`` and recovery.  A hang ends the rank
+    after 120 s (``faulthandler``), which fails the spawn."""
+    from repro_torch.core.engine import SetSpec
+    from repro_torch.core.shard import ShardedDurableMap
+    from repro_torch.store.snapshot import SnapshotPolicy
+    faulthandler.dump_traceback_later(120, exit=True)
+    try:
+        m = ShardedDurableMap(SetSpec(capacity=CAP, backend="bucket"),
+                              n_shards=S, use_shard_map=True, device="cpu")
+        if rank == 2:
+            build = m.snapshot_build
+
+            def slow(cap):
+                time.sleep(1.0)
+                return build(cap)
+            m.snapshot_build = slow
+        sn = Snapshotter(m, os.path.join(snap_root, "slow"),
+                         SnapshotPolicy(every_steps=1))
+        batches = _batches(15, 5)
+        m.apply(*batches[0][1:])
+        futures = [sn.maybe_snapshot()]
+        polls = []
+        for _, ops, keys, vals in batches[1:]:
+            m.apply(ops, keys, vals)
+            f = sn.maybe_snapshot()
+            polls.append(f is not None)
+            futures += [f] if f is not None else []
+        waited = sn.wait()
+        got = [f.result() for f in futures]
+        sn.recover()
+        out = {"polls": polls, "waited": waited, "futures": got,
+               "recovered": sn.store.latest_step(),
+               "committed": list(sn.store.committed)}
+        sn.close()
+        return out
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
+SINGLE_WRITER = {"one_shard": dict(n_shards=1),
+                 "groups2": dict(n_shards=S, n_device_groups=2)}
 
 
 def torch_rank(rank, snap_root):
@@ -223,8 +418,11 @@ def torch_rank(rank, snap_root):
     out = {}
     for name in SCENARIOS:
         reg = MetricsRegistry()
-        rec, m = run_scenario(_TorchAPI, name, os.path.join(snap_root, name),
-                              metrics=reg)
+        with _watch_collectives() as watch:
+            rec, m = run_scenario(_TorchAPI, name,
+                                  os.path.join(snap_root, name), metrics=reg)
+        rec["off_main"] = list(watch["off_main"])
+        rec["snapshot_bytes"] = list(watch["bytes"])
         rec["collected"], rec["recoveries"] = _collected(
             reg, SCENARIOS[name][2])
         rec["rows"] = np.asarray([m.rows.start, m.rows.stop], np.int64)
@@ -241,6 +439,9 @@ def torch_rank(rank, snap_root):
     out["resize"] = (em.n_shards, len(em), em.map.rows,
                      bool(em.contains(keys).all()))
     out["edges"] = _mesh_edges(rank, snap_root)
+    out["single"] = {n: _single_writer(rank, snap_root, n, kw)
+                     for n, kw in SINGLE_WRITER.items()}
+    out["slow"] = _slow_rank(rank, snap_root)
     return out
 
 
@@ -290,7 +491,10 @@ def jax_main(out_dir, names):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("mesh")
+    # compiling is most of the JAX side's time: XLA's optimizations, which
+    # change no integer result, cost a third of it
     env = dict(os.environ, JAX_PLATFORMS="cpu",
+               JAX_DISABLE_MOST_OPTIMIZATIONS="1",
                PYTHONPATH=os.pathsep.join([SRC, HERE]),
                XLA_FLAGS=(os.environ.get("XLA_FLAGS", "") +
                           " --xla_force_host_platform_device_count="
@@ -339,7 +543,8 @@ def test_mesh_ranks_match_jax_shard_map(runs, name):
         keys = {k for k in want if not k.startswith("leaf_")}
         assert keys == {k for k in got if not k.startswith("leaf_")
                         and k not in ("rows", "device", "adversary",
-                                      "collected", "recoveries")}, rank
+                                      "collected", "recoveries",
+                                      "off_main", "snapshot_bytes")}, rank
         for k in keys:
             np.testing.assert_array_equal(got[k], want[k],
                                           err_msg=f"rank {rank} {k}")
@@ -360,7 +565,7 @@ def test_mesh_scenarios_drop_crash_and_snapshot(runs):
         [(0, 1), (1, 2), (0, 0), (0, 0)]
     assert [o["resize"] for o in ranks] == [
         (2 * S, 40, range(4 * r, 4 * r + 4), True) for r in range(RANKS)]
-    # rank 0 alone wrote, the files a one-device map writes
+    # every rank wrote its rows into the files a one-device map writes
     names = sorted(os.listdir(tmp / "torch" / "snapshot"))
     assert names == sorted(os.listdir(tmp / "jax" / "snap" / "snapshot"))
     step = [n for n in names if n.startswith("step_")]
@@ -385,18 +590,121 @@ def test_mesh_metrics_on_every_rank_match_jax(runs, name):
 
 
 def test_mesh_repr_capture_and_unshared_snapshot_directory(runs):
-    """``repr`` shows a rank's own rows with no collective; only rank 0
-    receives the whole capture; recovery through a snapshot directory
-    that the ranks do not share raises on every rank."""
+    """``repr`` shows a rank's own rows with no collective; a capture holds
+    exactly the rows the rank holds; a snapshot to a directory that the
+    ranks do not share raises on every rank."""
     _, ranks, _ = runs
     for rank, out in enumerate(ranks):
         edges = out["edges"]
         lo, hi = 2 * rank, 2 * rank + 2
         assert f"rank={rank}, rows={lo}:{hi}, local_size=" in \
             edges["repr"], edges["repr"]
-        assert edges["capture"] == [rank == 0] * 5, (rank, edges)
+        cap = edges[f"capture{S}"]
+        assert cap["rows"] == cap["held"] == (lo, hi), (rank, cap)
+        assert len(cap["equal"]) == 5, (rank, cap)
         assert "every rank of a mesh must snapshot to one directory" in \
             edges.get("unshared", ""), (rank, edges)
+
+
+def test_mesh_capture_and_build_hold_only_the_rank_rows(runs):
+    """Each rank captures and builds exactly its rows: 2 of 8 shards on
+    every rank; of a 2-shard map one row on ranks 0 and 1, none on ranks 2
+    and 3 (past D)."""
+    _, ranks, _ = runs
+    for rank, out in enumerate(ranks):
+        for s, per in ((S, S // RANKS), (2, 1)):
+            cap = out["edges"][f"capture{s}"]
+            want = ((rank * per, (rank + 1) * per) if rank * per < s
+                    else (0, 0))
+            k = want[1] - want[0]
+            assert cap["rows"] == cap["held"] == want, (rank, s, cap)
+            assert len(cap["equal"]) == 5, (rank, s, cap)
+            assert cap["built"] == ([k] if k else []), (rank, s, cap)
+            assert cap["meta_rows"] == k, (rank, s, cap)
+
+
+@pytest.mark.parametrize("name", list(SINGLE_WRITER))
+def test_mesh_map_with_every_row_on_every_rank_has_one_writer(runs, name):
+    """Where every rank holds every row (one shard; ``n_device_groups`` 2
+    on 4 ranks), rank 0 alone writes each step's files, every rank's
+    ``wait()`` returns it, no rank raises, and every rank recovers through
+    the same step to the same state."""
+    _, ranks, _ = runs
+    got = [out["single"][name] for out in ranks]
+    for rank, g in enumerate(got):
+        assert g["raised"] == [], (rank, g["raised"])
+        assert g["waits"] == list(range(1, 7)), (rank, g["waits"])
+        assert g["recovered"] == 6, (rank, g)
+        assert g["digest"] == got[0]["digest"], rank
+    assert [g["saves"] for g in got] == [list(range(1, 7))] + [[]] * 3
+
+
+def test_mesh_snapshot_runs_no_collective_off_the_main_thread(runs):
+    """Every ``torch.distributed`` call of every scenario, the snapshot's
+    included, ran on a rank's main thread."""
+    _, ranks, _ = runs
+    for rank, out in enumerate(ranks):
+        for name in SCENARIOS:
+            assert out[name]["off_main"] == [], (rank, name)
+
+
+def test_mesh_snapshot_collectives_carry_only_meta(runs):
+    """Each snapshot call's collectives (``maybe_snapshot`` with its
+    capture, ``wait`` with its commit) move at most the meta -- every
+    rank's status and its rows' watermark and (S/D, 5) histogram, sent and
+    received, in int32 -- and a few 8-byte control words, never a plane."""
+    _, ranks, _ = runs
+    per = S // RANKS
+    meta = 4 * 2 * RANKS * (3 + 6 * per)
+    plane = 4 * S * (CAP // S)              # one (S, N) int32 plane
+    assert meta + 8 * 8 < plane
+    for rank, out in enumerate(ranks):
+        # 2 x (maybe_snapshot, wait), then close's wait with nothing left
+        calls = out["snapshot"]["snapshot_bytes"]
+        assert len(calls) == 5 and calls[4] == 0, (rank, calls)
+        for i in (0, 2):
+            assert 0 < calls[i] + calls[i + 1] <= meta + 8 * 8, (rank, calls)
+
+
+def test_mesh_slow_rank_neither_hangs_nor_reports_an_uncommitted_step(runs):
+    """Rank 2 builds a second late: the cadence checks while it builds
+    commit nothing and start nothing, alike on every rank; every rank's
+    ``wait()``, futures and recovery agree on the step that was
+    committed."""
+    _, ranks, _ = runs
+    got = [out["slow"] for out in ranks]
+    for rank, g in enumerate(got):
+        assert g["polls"] == got[0]["polls"], (rank, g)
+        assert g["polls"][0] is False, (rank, g)
+        assert g["futures"] == got[0]["futures"], (rank, g)
+        assert g["futures"][-1] == g["waited"] == g["recovered"], (rank, g)
+        assert g["waited"] == got[0]["waited"], (rank, g)
+    assert got[0]["futures"] == list(range(1, 1 + len(got[0]["futures"])))
+    assert got[0]["waited"] in got[0]["committed"]
+
+
+def test_mesh_snapshot_files_equal_jax_byte_for_byte(runs):
+    """The snapshot scenario's stored ``.npy`` files, written by every
+    rank for its rows, are the JAX run's byte for byte, and the manifests
+    (leaves and ``extra``: the watermark and the stage histograms) are
+    equal."""
+    _, _, tmp = runs
+    mine, theirs = tmp / "torch" / "snapshot", tmp / "jax" / "snap" / \
+        "snapshot"
+    steps = sorted(n for n in os.listdir(theirs) if n.startswith("step_"))
+    assert steps == sorted(n for n in os.listdir(mine)
+                           if n.startswith("step_")) and steps
+    for step in steps:
+        files = sorted(os.listdir(theirs / step))
+        assert files == sorted(os.listdir(mine / step))
+        for fn in files:
+            a, b = (d / step / fn for d in (mine, theirs))
+            if fn == "manifest.json":
+                ma, mb = (json.loads(x.read_bytes()) for x in (a, b))
+                assert ma["leaves"] == mb["leaves"], step
+                assert ma["extra"] == mb["extra"], step
+            else:
+                assert a.read_bytes() == b.read_bytes(), (step, fn)
 
 
 def test_mesh_rank_device(monkeypatch):

@@ -261,6 +261,70 @@ def test_dirs_layout_partial_saves_never_selected(tmp_path):
     cm2.close()
 
 
+def _rows_tree(rng, s=8):
+    return {"keys": rng.integers(-5, 99, (s, 32)).astype(np.int32),
+            "bkeys": rng.integers(0, 9, (s, 4, 8)).astype(np.int32),
+            "overflow": rng.random(s) > 0.5,
+            "size": rng.integers(0, 32, s).astype(np.int32)}
+
+
+@pytest.mark.parametrize("order", ((0, 1, 2, 3), (3, 1, 0, 2)))
+def test_dirs_rows_from_several_writers_equal_one_save(tmp_path, order):
+    """A step created by one manager (``begin_rows``), whose rows four
+    managers of the same directory write in any order (``write_rows``),
+    and committed by the first (``commit_rows``): the files and the
+    manifest equal one ``save`` of the whole arrays byte for byte, the
+    bytes written add up to save's, and a mapped restore reads the rows."""
+    rng = np.random.default_rng(31)
+    tree, extra = _rows_tree(rng), {"kind": "sharded_map", "w": [1, 2]}
+    one = CheckpointManager(str(tmp_path / "one"), layout="dirs")
+    one.save(5, tree, extra=extra)
+    d = str(tmp_path / "rows")
+    lead = CheckpointManager(d, layout="dirs")
+    lead.begin_rows(5, {k: (v.dtype, v.shape) for k, v in tree.items()})
+    assert lead.latest_step() is None                # nothing committed
+    writers = [lead] + [CheckpointManager(d, layout="dirs")
+                        for _ in range(3)]
+    for r in order:
+        writers[r].write_rows(5, 2 * r, {k: v[2 * r:2 * r + 2]
+                                         for k, v in tree.items()})
+    assert CheckpointManager(d, layout="dirs").latest_step() is None
+    lead.commit_rows(5, extra=extra)
+    step = "step_000000000005"
+    files = sorted(os.listdir(os.path.join(one.dir, step)))
+    assert files == sorted(os.listdir(os.path.join(d, step)))
+    for fn in files:
+        with open(os.path.join(one.dir, step, fn), "rb") as a, \
+                open(os.path.join(d, step, fn), "rb") as b:
+            assert a.read() == b.read(), fn
+    assert one.bytes_written == sum(w.bytes_written for w in writers)
+    got = CheckpointManager(d, layout="dirs").restore(5, mmap=True)
+    for k, v in tree.items():
+        assert isinstance(got[k], np.memmap), k
+        np.testing.assert_array_equal(got[k][2:4], v[2:4], err_msg=k)
+
+
+def test_dirs_rows_refused_where_they_do_not_fit_or_the_step_is_unseen(
+        tmp_path):
+    """``write_rows`` raises ``FileNotFoundError`` in a directory that
+    never saw the step, and ``ValueError`` for rows of another dtype or
+    width or past the stored rows; an uncommitted step stays ignored
+    ``.tmp-*`` residue."""
+    rng = np.random.default_rng(32)
+    tree = _rows_tree(rng)
+    lead = CheckpointManager(str(tmp_path / "a"), layout="dirs")
+    lead.begin_rows(1, {k: (v.dtype, v.shape) for k, v in tree.items()})
+    other = CheckpointManager(str(tmp_path / "b"), layout="dirs")
+    with pytest.raises(FileNotFoundError):
+        other.write_rows(1, 0, {"keys": tree["keys"][:2]})
+    for rows, at in ((tree["keys"][:2].astype(np.int64), 0),
+                     (tree["keys"][:2, :16], 0), (tree["keys"][:2], 7)):
+        with pytest.raises(ValueError):
+            lead.write_rows(1, at, {"keys": rows})
+    assert CheckpointManager(lead.dir, layout="dirs").latest_step() is None
+    assert os.listdir(lead.dir) == [".tmp-step_000000000001"]
+
+
 def test_dirs_layout_gc_keeps_newest(tmp_path):
     d = str(tmp_path / "cm")
     cm = CheckpointManager(d, layout="dirs", keep=2)
