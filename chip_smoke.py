@@ -221,6 +221,25 @@ Phases, each of which exits non-zero on failure:
 5. Decode agrees with prefill at qwen3-32b's full width, 2 layers, f32:
    the logits of one decode step at position 511 equal the last-position
    logits of a prefill over 512 tokens.
+5b. Decode over a sequence-sharded KV cache (``run_mesh_decode_phase``):
+   4 ``gloo`` ranks sharing the card on (data, model) grids (1, 4) and
+   (2, 2), each rank holding its block of decode_32k's 32768-slot cache
+   (``make_shard_ctx``, ``init_cache(..., ctx=)``) and its rows of B 4,
+   with whole bf16 weights from the seed: qwen3-32b at full width, 2
+   layers, an 8180-token prompt and 16 greedy decode steps across slot
+   8192; h2o-danube-3-4b at full width, 2 layers, its 4096-slot window
+   ring wrapped by a 4090-token prompt and 16 steps.  The ranks decode
+   one process's greedy tokens; each step's logits against that
+   process's ``decode_step`` on the same seed (within 3e-2 of the
+   largest logit), each rank's greedy token the process's wherever the
+   process's top-2 margin exceeds twice the step's largest difference
+   (its bf16 logits hold exact ties), each rank's KV bytes the one
+   process's over the ranks sharing them, ``flash_prefill`` launched
+   once a layer in each rank's prefill and ``gqa_decode`` never in its
+   decode (the combine is plain PyTorch); ms a decode step by rank, the
+   part of it in ``gloo`` collectives, cache MiB by rank.  Then
+   ``compressed_psum`` over the 4 ranks on card tensors against CPU
+   tensors, 8 steps of error feedback, bit for bit.
 6. The serving path: ``repro_torch.launch.serve.run`` with qwen3-32b at
    full width and depth (64 layers, bf16, random weights from a seed), 8
    requests of 512 prompt tokens and 32 generated, then a crash of the
@@ -3532,6 +3551,261 @@ def check_decode_matches_prefill(dev, arch="qwen3-32b", s=511, b=2,
 
 
 # ---------------------------------------------------------------------------
+# 5b. decode over a sequence-sharded cache on 4 ranks sharing the card
+# ---------------------------------------------------------------------------
+
+MESH_DECODE_RANKS = 4
+# (arch, layers, prompt, decode steps): qwen3-32b's prompt ends 12 slots
+# before slot 8192, the first rank boundary on (1, 4); h2o-danube-3-4b's
+# 4090 tokens and 16 steps wrap its 4096-slot window ring
+MESH_DECODE = dict(grids=((1, 4), (2, 2)), batch=4, seq=32768,
+                   runs=(("qwen3-32b", 2, 8180, 16),
+                         ("h2o-danube-3-4b", 2, 4090, 16)))
+# logits: max |diff| over the reference's largest |logit| (gqa_decode's
+# bf16 tolerance, 3e-2, taken relative to the logits' scale).  The
+# logits are bf16 values (an ulp of 1/32 between 4 and 8), and one
+# process's greedy stream holds exact ties (a top-2 margin of 0): a
+# combine over 4 ranks, or over one rank in f32 where the kernel rounds
+# its probabilities to bf16, moves a logit by that ulp and may take the
+# other token of a tie.  So the ranks decode the reference's tokens, and
+# a rank's greedy token must be the reference's wherever the reference's
+# margin exceeds twice the step's largest difference (a token within
+# that of the reference's best elsewhere; the phase prints the
+# reference's margin where a token differs)
+MESH_DECODE_REL = 3e-2
+
+
+def mesh_decode_tokens(cfg, plan, prompt):
+    gen = torch.Generator().manual_seed(SEED + 5)
+    return torch.randint(0, cfg.vocab, (plan["batch"], prompt),
+                         generator=gen, dtype=torch.int32)
+
+
+def kv_bytes(cache) -> int:
+    return sum(a.numel() * a.element_size() for k, a in tree_leaves(cache)
+               if k.endswith(("/k", "/v")))
+
+
+def mesh_decode_run(cfg, params, plan, prompt, steps, dev, ctx=None,
+                    feed=None):
+    """A prefill and ``steps`` decode steps at ``plan``'s batch and cache
+    length (this rank's rows and cache block with an enabled ``ctx``,
+    under the current mesh), each step fed its greedy token, or the rows
+    of ``feed`` ((steps + 1, B, 1) tokens) where given: logits and greedy
+    tokens of each step on the host, the KV leaves' bytes, ms per decode
+    step (each synchronized), the ms and calls in ``gloo`` collectives
+    over the steps, and the attention kernels' launches in prefill and
+    decode."""
+    from repro_torch.launch.specs import local_rows
+    rows = local_rows(ctx, plan["batch"])
+    pre, dec = TS.make_serve_steps(cfg, ctx)
+    cache = M.init_cache(cfg, plan["batch"], plan["seq"], device=dev,
+                         ctx=ctx)
+    toks = mesh_decode_tokens(cfg, plan, prompt)[rows].to(dev)
+    flash_prefill_cuda.launches = gqa_decode_cuda.launches = 0
+    cache, logits = pre(params, {"tokens": toks}, cache)
+    nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    launches = {"prefill": (flash_prefill_cuda.launches,
+                            gqa_decode_cuda.launches)}
+    flash_prefill_cuda.launches = gqa_decode_cuda.launches = 0
+    out, ms = [(logits.float().cpu(), nxt.cpu())], []
+    with timed_collectives() as coll:
+        for i in range(steps):
+            if feed is not None:
+                nxt = feed[i][rows].to(dev)
+            sync(dev)
+            t = time.perf_counter()
+            cache, nxt, logits = dec(params, cache, nxt)
+            sync(dev)
+            ms.append(1e3 * (time.perf_counter() - t))
+            out.append((logits.float().cpu(), nxt.cpu()))
+    launches["decode"] = (flash_prefill_cuda.launches,
+                          gqa_decode_cuda.launches)
+    return dict(logits=torch.stack([o[0] for o in out]),
+                tokens=torch.stack([o[1] for o in out]),
+                kv_bytes=kv_bytes(cache), rows=rows,
+                ms=float(np.median(ms)), coll_ms=1e3 * coll["s"] / steps,
+                coll_calls=coll["n"] / steps, launches=launches)
+
+
+def mesh_decode_compress(rank, dev, steps=8):
+    """``compressed_psum`` over the group on the card's tensors and on the
+    CPU's, 8 steps of error feedback each: True where the means and the
+    residuals agree bit for bit at every step."""
+    from repro_torch.optim.compress import compressed_psum
+    gen = torch.Generator().manual_seed(SEED + 50 + rank)
+    grads = [{"w": torch.randn((1024, 64), generator=gen),
+              "b": torch.randn((4096,), generator=gen).to(torch.bfloat16)}
+             for _ in range(steps)]
+    outs = []
+    for where in (dev, torch.device("cpu")):
+        res = {k: torch.zeros(a.shape, device=where)
+               for k, a in grads[0].items()}
+        got = []
+        for g in grads:
+            mean, res = compressed_psum(
+                {k: a.to(where) for k, a in g.items()}, res)
+            got.append({k: (mean[k].cpu(), res[k].cpu()) for k in mean})
+        outs.append(got)
+    return all(torch.equal(a[k][i], b[k][i]) for a, b in zip(*outs)
+               for k in a for i in (0, 1))
+
+
+def collective_floor_ms(dev, shapes, reps=20) -> list:
+    """Median ms of one ``gloo`` all-reduce of a card tensor of each
+    shape over the whole group, every rank entering it together (a
+    synchronize and a barrier before each): the transport alone, without
+    the wait for the other ranks' device work."""
+    out = []
+    for shp in shapes:
+        t = torch.zeros(shp, device=dev)
+        ms = []
+        for _ in range(reps):
+            sync(dev)
+            mesh.dist.barrier()
+            t0 = time.perf_counter()
+            mesh.dist.all_reduce(t)
+            sync(dev)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        out.append(float(np.median(ms)))
+    return out
+
+
+def mesh_decode_rank(rank, ref_dir, device, plan):
+    """A rank of phase 5b: each run on each grid, held to the one-process
+    run saved in ``ref_dir``, then ``compressed_psum`` on the card."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.meshctx import mesh_context
+    from repro_torch.launch.specs import make_shard_ctx
+    dev = mesh.rank_device(rank, device)
+    out = {}
+    for arch, layers, prompt, steps in plan["runs"]:
+        cfg = get_config(arch).with_layers(layers)
+        params = M.init_params(cfg, seed=SEED, device=dev)
+        ref = torch.load(os.path.join(ref_dir, f"{arch}.pt"))
+        for grid in plan["grids"]:
+            mm = mesh.make_model_mesh(grid)
+            ctx = make_shard_ctx(cfg, ShapeConfig(
+                "decode_32k", plan["seq"], plan["batch"], "decode"), mm)
+            with mesh_context(mm):
+                r = mesh_decode_run(cfg, params, plan, prompt, steps, dev,
+                                    ctx, feed=ref["tokens"])
+            want = ref["logits"][:, r["rows"]]
+            diff = (r.pop("logits") - want).abs().amax(-1)    # (step, row)
+            r["err"], r["scale"] = float(diff.max()), float(want.abs().max())
+            tok = r.pop("tokens")[..., 0].long()
+            best = want.amax(-1)
+            r["tokens_equal"] = int((tok == ref["tokens"][:, r["rows"], 0]
+                                     ).sum())
+            r["tokens"] = tok.numel()
+            # a greedy token of the reference's logits within twice the
+            # step's largest difference: the reference's own where its
+            # margin is wider
+            at = want.gather(-1, tok[..., None])[..., 0]
+            r["tokens_ok"] = bool((at >= best - 2 * diff).all())
+            r["margins"] = [round(float(x), 5) for x in (best - at)[
+                tok != ref["tokens"][:, r["rows"], 0]]]
+            r["ctx"] = (ctx.seq_shard_cache, ctx.batch_shardable)
+            out[(arch, grid)] = r
+        del params
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    out["compress"] = mesh_decode_compress(rank, dev)
+    # the decode's two reductions at the first run's shapes on (1, 4): the
+    # row max (B, KV, G, 1) and the denominators with the weighted values
+    cfg = get_config(plan["runs"][0][0])
+    g = cfg.n_heads // cfg.n_kv_heads
+    out["floor_ms"] = collective_floor_ms(dev, [
+        (plan["batch"], cfg.n_kv_heads, g, 1),
+        (plan["batch"], cfg.n_kv_heads, g, cfg.head_dim + 1)])
+    return out
+
+
+def run_mesh_decode_phase(dev, smi, plan=None):
+    """Phase 5b.  Returns the per-rank launches of each run and grid."""
+    plan = plan or MESH_DECODE
+    t0 = time.perf_counter()
+    print(f"phase 5b: decode over a sequence-sharded KV cache on "
+          f"{MESH_DECODE_RANKS} gloo ranks sharing one card, grids "
+          f"{list(plan['grids'])} (data, model), B {plan['batch']}, "
+          f"{plan['seq']} cache slots")
+    one = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_decode_") as tmp:
+        for arch, layers, prompt, steps in plan["runs"]:
+            cfg = get_config(arch).with_layers(layers)
+            params = M.init_params(cfg, seed=SEED, device=dev)
+            r = mesh_decode_run(cfg, params, plan, prompt, steps, dev)
+            torch.save({"logits": r.pop("logits"),
+                        "tokens": r.pop("tokens")},
+                       os.path.join(tmp, f"{arch}.pt"))
+            one[arch] = r
+            del params
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        ranks = mesh.spawn(mesh_decode_rank, MESH_DECODE_RANKS, tmp,
+                           str(dev), plan)
+        spawn_s = time.perf_counter() - t1
+    launches = {}
+    for arch, layers, prompt, steps in plan["runs"]:
+        ref = one[arch]
+        expect(ref["launches"] == {"prefill": (layers, 0),
+                                   "decode": (0, layers * steps)},
+               f"one process {arch}: launches {ref['launches']}")
+        print(f"mesh decode {arch} ({layers} layers, {prompt}-token prompt, "
+              f"{steps} steps): one process {ref['ms']:.3f} ms a step "
+              f"(gqa_decode), KV cache {ref['kv_bytes'] / 2**20:.3f} MiB, "
+              f"launches {ref['launches']} ({smi})")
+        for grid in plan["grids"]:
+            got = [r[(arch, grid)] for r in ranks]
+            seq_split, batch_split = got[0]["ctx"]
+            split = (grid[1] if seq_split else 1) * \
+                (grid[0] if batch_split else 1)
+            for rank, g in enumerate(got):
+                what = f"mesh decode {arch} {grid} rank {rank}"
+                expect(g["tokens_ok"], f"{what}: a greedy token is not "
+                       "one process's where its margin is wider than the "
+                       "logits' difference")
+                expect(g["err"] <= MESH_DECODE_REL * max(g["scale"], 1.0),
+                       f"{what}: logits off by {g['err']} (largest "
+                       f"{g['scale']})")
+                expect(g["kv_bytes"] * split == ref["kv_bytes"],
+                       f"{what}: {g['kv_bytes']} KV bytes, one process "
+                       f"{ref['kv_bytes']} over {split}")
+                expect(g["launches"]["prefill"] == (layers, 0)
+                       and g["launches"]["decode"] == (0, 0),
+                       f"{what}: launches {g['launches']}; expected "
+                       f"flash_prefill {layers} in prefill, nothing else")
+            launches[(arch, grid)] = [g["launches"] for g in got]
+            print(f"mesh decode {arch} {grid}: sequence split {seq_split}, "
+                  f"rows split {batch_split}; greedy tokens equal to one "
+                  f"process's by rank {[g['tokens_equal'] for g in got]} of "
+                  f"{got[0]['tokens']}, the reference's margin where they "
+                  f"differ {[g['margins'] for g in got]}; max |logit diff| "
+                  f"by rank "
+                  f"{[round(g['err'], 5) for g in got]} (largest |logit| "
+                  f"{got[0]['scale']:.3f}, tolerance {MESH_DECODE_REL} of "
+                  f"it); ms a decode step by rank "
+                  f"{[round(g['ms'], 3) for g in got]}, of which in gloo "
+                  f"collectives {[round(g['coll_ms'], 3) for g in got]} in "
+                  f"{got[0]['coll_calls']:.1f} calls; KV cache MiB by rank "
+                  f"{[round(g['kv_bytes'] / 2**20, 3) for g in got]} "
+                  f"(1/{split} of one process's); launches by rank "
+                  f"{[g['launches'] for g in got]} ({smi})")
+    print(f"gloo all-reduce of card tensors over the {MESH_DECODE_RANKS} "
+          f"ranks entering together, the row max and the sums at "
+          f"{plan['runs'][0][0]}'s (1, 4) shapes: ms by rank "
+          f"{[[round(x, 3) for x in r['floor_ms']] for r in ranks]} ({smi})")
+    expect(all(r["compress"] for r in ranks),
+           "compressed_psum on the card differs from the CPU's")
+    print(f"compressed_psum: {MESH_DECODE_RANKS} ranks, 8 steps of error "
+          f"feedback, card tensors bit for bit equal to CPU tensors")
+    print(f"phase 5b: {time.perf_counter() - t0:.1f} s (the spawn and the "
+          f"ranks' runs {spawn_s:.1f} s)")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # 6. the serving path
 # ---------------------------------------------------------------------------
 
@@ -4812,6 +5086,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_decode_matches_prefill(dev)
     torch.cuda.empty_cache()
+    # 5b. decode over a sequence-sharded cache on 4 ranks
+    mesh_decoded = run_mesh_decode_phase(dev, smi)
+    torch.cuda.empty_cache()
     serving, params = run_serving(dev)
     for name in ("recovery_scan", "table_probe"):
         print(f"{name}: {serving[name]} launches on the serving path "
@@ -4917,7 +5194,11 @@ def main() -> int:
              AUDIO_ARCH: frontends[AUDIO_ARCH]["decode"]["gqa_decode"]},
          "frontend_shapes": {k: r for k, r in frontend_shapes.items()
                              if k.endswith("_decode")},
-         "launches_training": train_launches["gqa_decode"]},
+         "launches_training": train_launches["gqa_decode"],
+         # the sequence-sharded decode attends in PyTorch on every rank
+         "launches_mesh_decode": {
+             f"{a} {g}": [n["decode"][1] for n in v]
+             for (a, g), v in mesh_decoded.items()}},
         {"name": "flash_prefill", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
          "replaces": "src/repro/kernels/flash_prefill/kernel.py:81",
@@ -4937,7 +5218,10 @@ def main() -> int:
          "frontend_shapes": {k: r for k, r in frontend_shapes.items()
                              if not k.endswith("_decode")},
          "position_edge_shapes": position_edges,
-         "launches_training": train_launches["flash_prefill"]},
+         "launches_training": train_launches["flash_prefill"],
+         "launches_mesh_decode": {
+             f"{a} {g}": [n["prefill"][0] for n in v]
+             for (a, g), v in mesh_decoded.items()}},
     ]}
     print("training " + json.dumps({"arch": TRAIN_ARCH, "card": smi,
                                     **training}))

@@ -33,6 +33,14 @@ is a collective: every rank calls it, in the same order.  The map's facade
 keeps that order because every rank makes the same calls on the same
 batches.
 
+:class:`ModelMesh` is the model's mesh: the group's ranks laid out on a
+named grid, ``("data", "model")`` or ``("pod", "data", "model")``, as
+``compat_make_mesh`` lays out JAX's devices (row-major: rank r of a (2, 2)
+grid is JAX's device r).  Each line of each axis has a ``gloo`` group of
+its own, so a role's collective (the sequence-sharded decode's combine
+over ``model``) runs among the ranks that hold the other parts of the
+same rows.
+
 :func:`spawn` starts a group on one host (the tests run 4 ``gloo`` ranks on
 the CPU; on the card the ranks may share one GPU).  ``torchrun`` or any
 other launcher that initializes the default group works as well.
@@ -47,7 +55,7 @@ import shutil
 import tempfile
 import time
 import traceback
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +65,17 @@ _TIMEOUT = datetime.timedelta(minutes=10)   # a collective's wait, per call
 _SPAWN_TIMEOUT = 900.0                      # seconds for a spawned group
 
 _MESH = None          # (default group, ShardMesh): one gloo group per group
+
+
+def rank_device(rank: int, requested="cuda") -> torch.device:
+    """A rank's device: ``cuda:(rank % device_count)`` for a bare
+    ``"cuda"``, else what the caller asked for (``"cpu"``, or a card by
+    index)."""
+    dev = torch.device(requested)
+    n = torch.cuda.device_count()
+    if dev.type == "cuda" and dev.index is None and n:
+        return torch.device("cuda", rank % n)
+    return dev
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,11 +104,7 @@ class ShardMesh:
         """The rank's device: ``cuda:(rank % device_count)`` for a bare
         ``"cuda"``, else what the caller asked for (``"cpu"``, or a card
         by index)."""
-        dev = torch.device(requested)
-        n = torch.cuda.device_count()
-        if dev.type == "cuda" and dev.index is None and n:
-            return torch.device("cuda", self.rank % n)
-        return dev
+        return rank_device(self.rank, requested)
 
     def gather(self, parts: Optional[Sequence[np.ndarray]],
                shapes: Sequence[tuple], d: int) -> list:
@@ -168,6 +183,140 @@ class ShardMesh:
 
     def barrier(self) -> None:
         dist.barrier(group=self.group)
+
+
+Axes = Tuple[str, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelMesh:
+    """This rank's place on a named grid of the group's ranks.
+
+    ``axis_names`` and ``sizes`` are the grid (JAX's ``mesh.axis_names``
+    and ``mesh.shape``); ``groups`` maps a tuple of axis names to the
+    ``gloo`` group of this rank's line along those axes (the ranks whose
+    other coordinates equal this rank's).  An axis of size 1 has no group:
+    a reduction over it is the identity.  Made by :func:`make_model_mesh`
+    (a collective); a mesh made directly, with no groups, describes a grid
+    (``shape``, the specs of ``launch/specs.py``) and refuses a
+    collective."""
+    axis_names: Axes
+    sizes: Tuple[int, ...]
+    rank: int = 0
+    groups: Dict[Axes, object] = dataclasses.field(default_factory=dict,
+                                                   compare=False)
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.sizes) or \
+                len(set(self.axis_names)) != len(self.axis_names):
+            raise ValueError(f"mesh axes {self.axis_names} and sizes "
+                             f"{self.sizes} do not match")
+        if not 0 <= self.rank < self.world:
+            raise ValueError(f"rank {self.rank} outside a mesh of "
+                             f"{self.world}")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def world(self) -> int:
+        return int(np.prod(self.sizes, dtype=np.int64))
+
+    @property
+    def coords(self) -> Tuple[int, ...]:
+        """This rank's coordinate on each axis, row-major."""
+        return tuple(int(c) for c in np.unravel_index(self.rank, self.sizes))
+
+    @staticmethod
+    def _axes(axes) -> Axes:
+        return tuple(axes) if isinstance(axes, (tuple, list)) else (axes,)
+
+    def axis_size(self, axes) -> int:
+        """The ranks on a line of ``axes`` (a name or a tuple of names; 1
+        for None)."""
+        if axes is None:
+            return 1
+        shape = self.shape
+        return int(np.prod([shape[a] for a in self._axes(axes)],
+                           dtype=np.int64))
+
+    def coord(self, axes) -> int:
+        """This rank's index on its line of ``axes``: the block of a dim
+        split over them that it holds (row-major over a tuple, as
+        ``PartitionSpec(("pod", "data"))`` assigns blocks)."""
+        if axes is None:
+            return 0
+        at = dict(zip(self.axis_names, self.coords))
+        idx = 0
+        for a in self._axes(axes):
+            idx = idx * self.shape[a] + at[a]
+        return idx
+
+    def all_reduce(self, t: torch.Tensor, op, axes) -> torch.Tensor:
+        """``t`` reduced in place by ``op`` (a ``dist.ReduceOp``) over the
+        ranks of this rank's line of ``axes``; returns ``t``.  A collective
+        of that line: each of its ranks calls it, in the same order."""
+        key = self._axes(axes)
+        if self.axis_size(key) == 1:
+            return t
+        if key not in self.groups:
+            raise RuntimeError(f"the mesh has no process group over {key}: "
+                               "make it with make_model_mesh")
+        dist.all_reduce(t, op=op, group=self.groups[key])
+        return t
+
+
+def _lines(sizes: Tuple[int, ...], along: Tuple[int, ...]) -> list:
+    """The rank lists of every line of a row-major grid along the dims
+    ``along``, in a fixed order."""
+    ranks = np.arange(int(np.prod(sizes, dtype=np.int64))).reshape(sizes)
+    rest = [d for d in range(len(sizes)) if d not in along]
+    moved = np.transpose(ranks, rest + list(along))
+    return [[int(r) for r in line.reshape(-1)]
+            for line in moved.reshape(-1, int(np.prod(
+                [sizes[d] for d in along], dtype=np.int64)))]
+
+
+def make_model_mesh(sizes: Sequence[int],
+                    axis_names: Optional[Sequence[str]] = None) -> ModelMesh:
+    """The :class:`ModelMesh` of the initialized default group laid out on
+    ``sizes`` (2 sizes: ``("data", "model")``; 3: ``("pod", "data",
+    "model")``), with a ``gloo`` group for each line of each axis and, on
+    a grid with a pod axis, of ``("pod", "data")`` (the ``dp`` role).
+    Every rank makes every group, in one order: call it on every rank.
+    Without a group, a grid of one rank has no groups to make."""
+    sizes = tuple(int(n) for n in sizes)
+    if axis_names is None:
+        axis_names = {2: ("data", "model"),
+                      3: ("pod", "data", "model")}.get(len(sizes))
+        if axis_names is None:
+            raise ValueError(f"no default axis names for {len(sizes)} axes")
+    axis_names = tuple(axis_names)
+    world = int(np.prod(sizes, dtype=np.int64))
+    if not (dist.is_available() and dist.is_initialized()):
+        if world != 1:
+            raise RuntimeError(f"a mesh of {world} ranks needs an "
+                               "initialized torch.distributed group")
+        return ModelMesh(axis_names, sizes)
+    if dist.get_world_size() != world:
+        raise ValueError(f"a mesh of {sizes} ({world} ranks) in a group "
+                         f"of {dist.get_world_size()}")
+    rank = dist.get_rank()
+    keys = [(a,) for a in axis_names]
+    if "pod" in axis_names and "data" in axis_names:
+        keys.append(("pod", "data"))
+    groups = {}
+    for key in keys:
+        along = tuple(axis_names.index(a) for a in key)
+        for line in _lines(sizes, along):
+            if len(line) == 1:
+                continue
+            group = dist.new_group(ranks=line, backend="gloo",
+                                   timeout=_TIMEOUT)
+            if rank in line:
+                groups[key] = group
+    return ModelMesh(axis_names, sizes, rank, groups)
 
 
 def world_size() -> int:

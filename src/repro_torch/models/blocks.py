@@ -47,24 +47,27 @@ RECURRENT = {"mlstm": (SM.mlstm_seq, SM.mlstm_decode, SM.mlstm_cache),
 # Attention sub-block (standard GQA path)
 # ---------------------------------------------------------------------------
 
-def _attn_prefill(p, x, cfg, positions, window, cache, mask_pos=None):
+def _attn_prefill(p, x, cfg, positions, window, cache, mask_pos=None,
+                  ctx=None):
     q, k, v = L.qkv_project(p, x, cfg, positions)
     out = L.attention_prefill(q, k, v, window, mask_pos, mask_pos)
     pos0 = torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
-    L.cache_write(cache["k"], cache["v"], k, v, pos0)
+    L.cache_write(cache["k"], cache["v"], k, v, pos0,
+                  L.seq_slots(ctx, cache["k"].shape[1]))
     return out.reshape(x.shape[0], x.shape[1], -1) @ p["wo"].to(x.dtype)
 
 
-def _attn_decode(p, x, cfg, pos, cache):
+def _attn_decode(p, x, cfg, pos, cache, ctx=None):
     b = x.shape[0]
     positions = pos[:, None]                              # (B,1)
     if cfg.mrope:       # the cache counter in all three sections, as JAX
         positions = pos[None, :, None].expand(3, b, 1)
     q, k, v = L.qkv_project(p, x, cfg, positions)
-    w = cache["k"].shape[1]
-    ck, cv = L.cache_write(cache["k"], cache["v"], k, v, pos)
+    slots = L.seq_slots(ctx, cache["k"].shape[1])
+    w = cache["k"].shape[1] if slots is None else slots[1]
+    ck, cv = L.cache_write(cache["k"], cache["v"], k, v, pos, slots)
     valid = torch.clamp(pos + 1, max=w).to(torch.int32)
-    out = L.attention_decode(q, ck, cv, valid)
+    out = L.attention_decode(q, ck, cv, valid, ctx)
     return out.reshape(b, 1, -1) @ p["wo"].to(x.dtype)
 
 
@@ -291,7 +294,7 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_seq: int,
 
 def apply_block(kind: str, p: Dict[str, Any], x: torch.Tensor, *,
                 cfg: ModelConfig, mode: str, positions=None, cache=None,
-                pos=None, enc_out=None, mask_pos=None
+                pos=None, enc_out=None, mask_pos=None, ctx=None
                 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]],
                            Optional[torch.Tensor]]:
     """Returns (x, cache, aux), as the JAX version does.  In prefill and
@@ -302,7 +305,9 @@ def apply_block(kind: str, p: Dict[str, Any], x: torch.Tensor, *,
     (B,S) masks prefill attention by position; None masks by index.  In
     train mode ``positions`` masks attention (its (B,S) row).  ``enc_out``
     is the encoder's output, which a ``dec`` block projects into its cross
-    keys and values (into its cross cache in prefill)."""
+    keys and values (into its cross cache in prefill).  ``ctx`` (a
+    ``ShardCtx``) with ``seq_shard_cache`` makes the self-attention caches
+    this rank's block of slots (``layers.seq_slots``)."""
     _check_kind(kind)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
@@ -341,9 +346,9 @@ def apply_block(kind: str, p: Dict[str, Any], x: torch.Tensor, *,
         mix = _attn_train(p["attn"], h, cfg, positions, window)
     elif mode == "prefill":
         mix = _attn_prefill(p["attn"], h, cfg, positions, window, cache,
-                            mask_pos)
+                            mask_pos, ctx)
     else:
-        mix = _attn_decode(p["attn"], h, cfg, pos, cache)
+        mix = _attn_decode(p["attn"], h, cfg, pos, cache, ctx)
     x = x + mix
     if kind == "dec":   # whisper cross-attention
         hx = L.norm(p["lnx"], x, cfg)

@@ -41,6 +41,24 @@ def cache_from_jax(tree, device="cuda"):
     return tree_map(lambda a: tensor_from_numpy(a, device), tree)
 
 
+def cache_part_from_jax(tree, specs, mesh, device="cuda"):
+    """This rank's block of each leaf of a JAX global cache tree (leaves as
+    numpy arrays), cut by ``specs`` (``launch/specs.py::cache_specs`` of
+    the cache's batch and length: the layout ``init_cache(..., ctx=)``
+    allocates), as the port's cache tree on ``device``.  The weights go
+    across whole (``params_from_jax``)."""
+    from repro_torch.launch.specs import local_slices
+
+    def cut(leaf, spec):
+        if isinstance(leaf, dict):
+            return {key: cut(leaf[key], spec[key]) for key in leaf}
+        a = np.asarray(leaf)
+        return tensor_from_numpy(a[local_slices(a.shape, spec, mesh)],
+                                 device)
+
+    return cut(tree, specs)
+
+
 def train_state_from_jax(tree, device="cuda"):
     """A JAX ``TrainState`` (``repro.train.steps``), leaves as numpy arrays,
     as the port's ``TrainState`` on ``device``: the params, the AdamW

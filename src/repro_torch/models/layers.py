@@ -5,9 +5,16 @@ autograd), the KV cache ring, SwiGLU MLP.
 
 Params are dict subtrees produced by ``params.py``.  Compute dtype follows
 the config; norms, rotary and softmax run in f32.  Large matrix products
-stay ``torch.matmul``, as the JAX package leaves them to XLA.  The
-multi-device pieces (``constrain``, ``_sharded_flash_decode``) are not
-ported: the port runs on one card.
+stay ``torch.matmul``, as the JAX package leaves them to XLA.
+
+The multi-device pieces work on each rank's plain local tensors under the
+current ``ModelMesh`` (``launch/meshctx.py``): ``constrain_spec`` resolves
+roles into the spec JAX's ``constrain`` would impose (the port imposes
+none: with explicit collectives the layout is the caller's), and with a
+``ShardCtx`` whose ``seq_shard_cache`` is set each rank holds a block of
+every KV cache's slots, which ``cache_write`` fills and
+``_sharded_flash_decode`` attends over, combining the ranks of the
+``model`` axis by an online softmax (``all_reduce`` MAX, then SUM).
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
@@ -22,6 +30,44 @@ from repro_torch.kernels.flash_prefill.ops import flash_prefill
 from repro_torch.kernels.gqa_decode.ops import gqa_decode
 
 NEG_INF = -1e30
+
+
+def constrain_spec(ctx, shape, *roles) -> Optional[tuple]:
+    """The spec that the JAX package's ``constrain(ctx, x, *roles)`` hands
+    to ``with_sharding_constraint`` for an ``x`` of ``shape``: each role
+    ("dp", "tp", "sp") resolved into its axes, dropped where their ranks do
+    not divide the dim; one entry a role.  None where JAX imposes nothing
+    (a disabled ctx).  An enabled ctx needs the current mesh."""
+    if ctx is None or not ctx.enabled:
+        return None
+    from repro_torch.launch.meshctx import require_mesh
+    mesh = require_mesh(ctx)
+    axes = []
+    for dim, r in zip(shape, roles):
+        if r == "dp":
+            a = ctx.dp()
+        elif r == "tp":
+            a = ctx.tp()
+        elif r == "sp":
+            a = ctx.tp() if ctx.sp_activations else None
+        else:
+            a = None
+        if a is not None and dim % mesh.axis_size(a) != 0:
+            a = None
+        axes.append(a)
+    return tuple(axes)
+
+
+def seq_slots(ctx, wl: int) -> Optional[Tuple[int, int]]:
+    """(lo, W) of a KV cache part of ``wl`` slots when ``ctx`` splits the
+    caches on the sequence: this rank holds global ring slots [lo, lo +
+    wl) of W = wl x the ``model`` axis's ranks.  None for a whole cache."""
+    if ctx is None or not (ctx.enabled and ctx.seq_shard_cache):
+        return None
+    from repro_torch.launch.meshctx import require_mesh
+    mesh = require_mesh(ctx)
+    tp = ctx.tp()
+    return mesh.coord(tp) * wl, wl * mesh.axis_size(tp)
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -178,12 +224,47 @@ def attention_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_decode(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                     valid_len: torch.Tensor) -> torch.Tensor:
+                     valid_len: torch.Tensor, ctx=None) -> torch.Tensor:
     """Single-token decode over a (possibly ring) cache, through the port's
     ``gqa_decode`` op.
 
-    q (B,1,H,D); ck/cv (B,W,KV,D); valid_len (B,) number of live slots."""
+    q (B,1,H,D); ck/cv (B,W,KV,D); valid_len (B,) number of live slots.
+    When ``ctx.seq_shard_cache`` the cache is this rank's block of the
+    sequence (``seq_slots``) and attention runs as a flash decode with an
+    online-softmax combine across the ``model`` axis."""
+    if ctx is not None and ctx.enabled and ctx.seq_shard_cache:
+        return _sharded_flash_decode(ctx, q, ck, cv, valid_len)
     return gqa_decode(q[:, 0], ck, cv, valid_len)[:, None]
+
+
+def _sharded_flash_decode(ctx, q, ck, cv, valid_len):
+    """The JAX package's ``_sharded_flash_decode`` on this rank's slots:
+    q (B,1,H,D) and valid_len (B,) this rank's rows, ck/cv (B,W/n,KV,D)
+    its block of the ring.  Logits and softmax in f32; the row max is
+    reduced by MAX over the ``model`` axis, then the denominators and the
+    weighted values by SUM (one ``all_reduce`` of both).  A rank with no
+    live slot adds exp(NEG_INF - m) = 0; with no live slot anywhere every
+    slot weighs 1, the uniform mean over all W of ``gqa_decode_ref``.
+    Plain PyTorch: no kernel returns a rank's partials yet."""
+    from repro_torch.launch.meshctx import require_mesh
+    mesh = require_mesh(ctx)
+    tp = ctx.tp()
+    b, _, h, d = q.shape
+    wl, kv = ck.shape[1], ck.shape[2]
+    g = h // kv
+    qg = q[:, 0].reshape(b, kv, g, d).float()
+    logits = torch.einsum("bngd,bsnd->bngs", qg, ck.float()) / math.sqrt(d)
+    slot = mesh.coord(tp) * wl + torch.arange(wl, device=q.device)
+    mask = slot[None, :] < valid_len[:, None]
+    logits = torch.where(mask[:, None, None, :], logits, NEG_INF)
+    m_g = mesh.all_reduce(logits.amax(-1, keepdim=True), dist.ReduceOp.MAX,
+                          tp)
+    p = torch.exp(logits - m_g)
+    acc = torch.einsum("bngs,bsnd->bngd", p, cv.float())
+    la = mesh.all_reduce(torch.cat([acc, p.sum(-1, keepdim=True)], -1),
+                         dist.ReduceOp.SUM, tp)
+    out = la[..., :d] / torch.clamp(la[..., d:], min=1e-30)
+    return out.reshape(b, 1, h, d).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -220,24 +301,48 @@ def cache_window(cfg: ModelConfig, max_seq: int) -> int:
     return max_seq
 
 
-def cache_write(ck, cv, k, v, pos0):
+def cache_write(ck, cv, k, v, pos0, slots: Optional[Tuple[int, int]] = None):
     """Write S new entries at ring positions (pos0 + arange(S)) % W, in
     place (the JAX version returns new arrays).
 
     When S > W several positions share a slot and the last one wins, as XLA
     resolves the duplicate scatter on the CPU; ``index_put_`` on CUDA does
     not define which duplicate wins, so only the last W positions are
-    written."""
-    w = ck.shape[1]
+    written.
+
+    With ``slots`` = (lo, W) the cache holds only ring slots [lo, lo + wl)
+    of a ring of W (``seq_slots``), and only the positions landing there
+    are written, with no host read: a decode step (S = 1) scatters each
+    row's entry to its slot, or, where the slot is another rank's, writes
+    back the value of a slot of its own; a prefill writes every slot of
+    the block, from the position that lands on it or from itself."""
+    wl = ck.shape[1]
+    lo, w = slots if slots is not None else (0, wl)
     s = k.shape[1]
     if s > w:
         k, v = k[:, s - w:], v[:, s - w:]
         pos0 = pos0 + (s - w)
         s = w
-    idx = (pos0[:, None] + torch.arange(s, device=ck.device)[None, :]) % w
-    bidx = torch.arange(ck.shape[0], device=ck.device)[:, None]
-    ck[bidx, idx] = k.to(ck.dtype)
-    cv[bidx, idx] = v.to(cv.dtype)
+    dev = ck.device
+    bidx = torch.arange(ck.shape[0], device=dev)[:, None]
+    if slots is None:
+        idx = (pos0[:, None] + torch.arange(s, device=dev)[None, :]) % w
+        ck[bidx, idx] = k.to(ck.dtype)
+        cv[bidx, idx] = v.to(cv.dtype)
+    elif s == 1:
+        at = pos0[:, None] % w - lo                        # (B, 1)
+        keep = ((at >= 0) & (at < wl))[..., None, None]
+        at = torch.clamp(at, 0, wl - 1)
+        ck[bidx, at] = torch.where(keep, k.to(ck.dtype), ck[bidx, at])
+        cv[bidx, at] = torch.where(keep, v.to(cv.dtype), cv[bidx, at])
+    else:
+        # the offset from pos0 of the position landing on each slot
+        off = (lo + torch.arange(wl, device=dev)[None, :]
+               - pos0[:, None]) % w                        # (B, wl)
+        keep = (off < s)[..., None, None]
+        off = torch.clamp(off, max=s - 1)
+        ck.copy_(torch.where(keep, k[bidx, off].to(ck.dtype), ck))
+        cv.copy_(torch.where(keep, v[bidx, off].to(cv.dtype), cv))
     return ck, cv
 
 

@@ -26,6 +26,19 @@ for M-RoPE) go to rotary and to the attention mask (M-RoPE's temporal
 row), as in JAX: in serving through ``flash_prefill``'s positions
 operand, without them the mask is by sequence index.  Nothing reads them
 on the host.
+
+Serving on a mesh: ``init_cache``, ``prefill`` and ``decode_step`` take
+an optional ``ShardCtx`` (``launch/specs.py::make_shard_ctx``) under the
+current ``ModelMesh`` (``launch/meshctx.py``).  Each rank then holds its
+block of every cache leaf (``launch/specs.py::cache_specs``), is handed
+its rows of the tokens (``specs.local_rows``) and returns the logits of
+those rows; the weights are whole on every rank (TP-sharded weights come
+with ROADMAP item 12.5b).  With ``seq_shard_cache`` the attention caches
+are split on the sequence over the ``model`` axis: a prefill attends over
+the whole prompt as on one card and writes only the rank's slots, and a
+decode step combines the ranks' partial softmaxes (``layers.
+_sharded_flash_decode``).  With ``ctx=None`` every signature and result
+is the one-card one.
 """
 from __future__ import annotations
 
@@ -110,7 +123,7 @@ def _given_positions(given, cfg: ModelConfig, b: int, s: int, device):
 
 
 def _run_stacks(params, x, cfg: ModelConfig, mode: str, positions, caches,
-                pos=None, enc_out=None, mask_pos=None):
+                pos=None, enc_out=None, mask_pos=None, ctx=None):
     """Apply all decoder stacks, layer by layer, updating ``caches`` in
     place.  Returns x."""
     for si, (period, count) in enumerate(cfg.stacks()):
@@ -124,7 +137,7 @@ def _run_stacks(params, x, cfg: ModelConfig, mode: str, positions, caches,
                 x, _, _ = apply_block(kind, pi[key], x, cfg=cfg, mode=mode,
                                       positions=positions, cache=ci[key],
                                       pos=pos, enc_out=enc_out,
-                                      mask_pos=mask_pos)
+                                      mask_pos=mask_pos, ctx=ctx)
     return x
 
 
@@ -271,9 +284,29 @@ def loss_fn(params, batch, cfg: ModelConfig):
 # Serving: cache init / prefill / decode
 # ---------------------------------------------------------------------------
 
+def _check_ctx(cfg: ModelConfig, ctx) -> None:
+    """An enabled ``ctx`` needs the current mesh (``require_mesh`` raises
+    without one or with one of other axes or another group), and MLA and
+    the ``ssm`` family never take the sequence split (JAX's
+    ``make_shard_ctx`` never gives it them)."""
+    if ctx is None or not ctx.enabled:
+        return
+    from repro_torch.launch.meshctx import require_mesh
+    require_mesh(ctx)
+    if ctx.seq_shard_cache and (cfg.mla or cfg.family == "ssm"):
+        raise ValueError(f"{cfg.name}: a sequence-sharded cache is for "
+                         "standard attention; MLA and the ssm family keep "
+                         "whole caches")
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
-               device="cuda") -> Dict[str, Any]:
+               device="cuda", ctx=None) -> Dict[str, Any]:
+    """Zero caches for ``batch`` rows of ``max_seq`` tokens.  With an
+    enabled ``ctx`` the rank allocates only its block of each leaf, by
+    ``launch/specs.py::cache_specs`` on the current mesh."""
     dtype = dtype or getattr(torch, cfg.compute_dtype)
+    if ctx is not None and ctx.enabled:
+        return _init_cache_part(cfg, batch, max_seq, dtype, device, ctx)
     caches: Dict[str, Any] = {}
     for si, (period, count) in enumerate(cfg.stacks()):
         one = {f"b{bi}_{kind}": init_block_cache(kind, cfg, batch, max_seq,
@@ -286,12 +319,47 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
     return caches
 
 
-def prefill(params, batch, caches, cfg: ModelConfig):
+def _init_cache_part(cfg, batch, max_seq, dtype, device, ctx):
+    """This rank's block of every leaf of ``init_cache(cfg, batch,
+    max_seq)``.  Raises where the layout needs what this slice lacks: a
+    recurrent state split over its width (TP-sharded weights, ROADMAP item
+    12.5b), or a sequence split that the ``model`` axis cannot make (JAX's
+    ``shard_map`` refuses it)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.meshctx import require_mesh
+    from repro_torch.launch.specs import cache_specs, local_shape
+    _check_ctx(cfg, ctx)
+    mesh = require_mesh(ctx)
+    whole = init_cache(cfg, batch, max_seq, dtype, device="meta")
+    specs = cache_specs(cfg, ShapeConfig("cache", max_seq, batch, "decode"),
+                        ctx, mesh)
+    tp, n = ctx.tp(), mesh.axis_size(ctx.tp())
+
+    def part(leaf, spec, name):
+        if isinstance(leaf, dict):
+            return {key: part(leaf[key], spec[key], key) for key in leaf}
+        if n > 1 and name in ("k", "v") and ctx.seq_shard_cache \
+                and spec[2] != tp:
+            raise ValueError(f"{cfg.name}: a cache of {leaf.shape[2]} "
+                             f"slots does not split over {n} ranks")
+        if n > 1 and name not in ("k", "v") and tp in spec:
+            raise NotImplementedError(
+                f"{cfg.name}: the {name!r} state split over the model axis "
+                "needs TP-sharded weights (ROADMAP item 12.5b)")
+        return torch.zeros(local_shape(tuple(leaf.shape), spec, mesh),
+                           dtype=leaf.dtype, device=device)
+
+    return part(whole, specs, None)
+
+
+def prefill(params, batch, caches, cfg: ModelConfig, ctx=None):
     """Run the prompt through the model, filling caches in place.
     Returns (caches, logits of the last position (B, V) f32).  An audio
     batch holds ``embeds`` (the encoder's frames) and ``tokens``; a vlm
     batch ``embeds`` or ``tokens``; any batch may hold ``positions``, which
-    then mask attention by position (else by index)."""
+    then mask attention by position (else by index).  With an enabled
+    ``ctx``, the batch and the caches are this rank's parts."""
+    _check_ctx(cfg, ctx)
     x, b, s, enc_out = _decoder_input(params, batch, cfg, "prefill")
     given = batch.get("positions")
     if given is None:
@@ -300,21 +368,24 @@ def prefill(params, batch, caches, cfg: ModelConfig):
     else:
         positions, mask_pos = _given_positions(given, cfg, b, s, x.device)
     x = _run_stacks(params, x, cfg, "prefill", positions, caches,
-                    enc_out=enc_out, mask_pos=mask_pos)
+                    enc_out=enc_out, mask_pos=mask_pos, ctx=ctx)
     caches["pos"] = torch.full((b,), s, dtype=torch.int32, device=x.device)
     x = L.norm(params["final_norm"], x, cfg)
     logits = (x[:, -1] @ _unembed_w(params, cfg).to(x.dtype)).float()
     return caches, logits
 
 
-def decode_step(params, caches, tokens, cfg: ModelConfig):
+def decode_step(params, caches, tokens, cfg: ModelConfig, ctx=None):
     """One decode step.  tokens (B,1) i32.  Returns (caches, logits (B,V)),
-    the caches updated in place."""
+    the caches updated in place.  With an enabled ``ctx``, the tokens and
+    the caches are this rank's parts (a collective over the ``model`` axis
+    with ``seq_shard_cache``: every rank of it calls this together)."""
+    _check_ctx(cfg, ctx)
     pos = caches["pos"]
     x = _embed(params, tokens, cfg)
     if cfg.family == "audio":
         x = x + _pos_dec(params, pos).to(x.dtype)[:, None]
-    x = _run_stacks(params, x, cfg, "decode", None, caches, pos=pos)
+    x = _run_stacks(params, x, cfg, "decode", None, caches, pos=pos, ctx=ctx)
     caches["pos"] = pos + 1
     x = L.norm(params["final_norm"], x, cfg)
     logits = (x[:, 0] @ _unembed_w(params, cfg).to(x.dtype)).float()

@@ -88,12 +88,14 @@ def make_train_step(cfg: ModelConfig,
     return train_step
 
 
-def make_serve_steps(cfg: ModelConfig):
+def make_serve_steps(cfg: ModelConfig, ctx=None):
+    """(prefill_step, decode_step) of ``cfg``; with an enabled ``ctx``
+    (a ``ShardCtx``) each takes and returns this rank's parts."""
     def prefill_step(params, batch, caches):
-        return M.prefill(params, batch, caches, cfg)
+        return M.prefill(params, batch, caches, cfg, ctx)
 
     def decode_serve_step(params, caches, tokens):
-        caches, logits = M.decode_step(params, caches, tokens, cfg)
+        caches, logits = M.decode_step(params, caches, tokens, cfg, ctx)
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         return caches, next_tok, logits
 

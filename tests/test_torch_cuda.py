@@ -1475,3 +1475,93 @@ def _add(a, b):
     if isinstance(a, dict):
         return {k: _add(a[k], b[k]) for k in a}
     return a + b
+
+
+MESH_DECODE_RUNS = (("qwen3-32b-smoke", 32, 13, 8),
+                    ("h2o-danube-3-4b-smoke", 32, 21, 8))
+
+
+def mesh_decode_run(arch, seq, prompt, steps, ctx=None):
+    """A prefill and greedy decode steps of a smoke config (f32) on the
+    card, B 4, with this rank's rows and cache block under an enabled
+    ``ctx``: logits and tokens on the host, KV bytes, launches."""
+    from repro_torch.launch.specs import local_rows
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train import steps as TS
+    cfg = get_config(arch)
+    params = M.init_params(cfg, 0, "cuda")
+    rows = local_rows(ctx, 4)
+    tok = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab, (4, prompt)).astype(np.int32))[rows].cuda()
+    pre, dec = TS.make_serve_steps(cfg, ctx)
+    cache = M.init_cache(cfg, 4, seq, device="cuda", ctx=ctx)
+    flash_prefill_cuda.launches = gqa_decode_cuda.launches = 0
+    cache, logits = pre(params, {"tokens": tok}, cache)
+    nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    out = [(logits.cpu(), nxt.cpu())]
+    for _ in range(steps):
+        cache, nxt, logits = dec(params, cache, nxt)
+        out.append((logits.cpu(), nxt.cpu()))
+    # numpy, not tensors: a rank's result crosses processes after it exits
+    return {"logits": torch.stack([o[0] for o in out]).numpy(),
+            "tokens": torch.stack([o[1] for o in out]).numpy(),
+            "rows": rows,
+            "kv": sum(a.numel() * a.element_size()
+                      for k, a in tree_leaves(cache)
+                      if k.endswith(("/k", "/v"))),
+            "launches": (flash_prefill_cuda.launches,
+                         gqa_decode_cuda.launches)}
+
+
+def mesh_decode_rank(rank):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_model_mesh
+    from repro_torch.launch.meshctx import mesh_context
+    from repro_torch.launch.specs import make_shard_ctx
+    from repro_torch.optim.compress import compressed_psum
+    out = {}
+    for arch, seq, prompt, steps in MESH_DECODE_RUNS:
+        mm = make_model_mesh((1, 2))
+        ctx = make_shard_ctx(get_config(arch), ShapeConfig(
+            "d", seq, 4, "decode"), mm)
+        with mesh_context(mm):
+            out[arch] = mesh_decode_run(arch, seq, prompt, steps, ctx)
+    gen = torch.Generator().manual_seed(rank)
+    grads = [torch.randn((4096,), generator=gen) for _ in range(4)]
+    means = []
+    for dev in ("cuda", "cpu"):
+        r = torch.zeros(4096, device=dev)
+        got = []
+        for g in grads:
+            m, r = compressed_psum(g.to(dev), r)
+            got.append((m.cpu(), r.cpu()))
+        means.append(got)
+    out["compress"] = all(torch.equal(a[i], b[i])
+                          for a, b in zip(*means) for i in (0, 1))
+    return out
+
+
+def test_mesh_decode_of_two_ranks_on_the_card_matches_one_process(cuda):
+    """The sequence-sharded decode over 2 gloo ranks sharing the card, on a
+    (1, 2) grid: each step's logits within 1e-4 of one process's (whose
+    decode runs ``gqa_decode``; the ranks' combine is plain f32 PyTorch),
+    greedy tokens equal, each rank's KV bytes half of one process's,
+    ``flash_prefill`` once a layer in each rank's prefill and
+    ``gqa_decode`` never; ``compressed_psum`` of card tensors equal to the
+    CPU's bit for bit."""
+    from repro_torch.launch.mesh import spawn
+    one = {a[0]: mesh_decode_run(*a) for a in MESH_DECODE_RUNS}
+    ranks = spawn(mesh_decode_rank, 2)
+    for arch, seq, prompt, steps in MESH_DECODE_RUNS:
+        layers = get_config(arch).n_layers
+        assert one[arch]["launches"] == (layers, layers * steps)
+        for r, got in enumerate(x[arch] for x in ranks):
+            assert got["rows"] == slice(0, 4)
+            assert got["kv"] * 2 == one[arch]["kv"]
+            assert got["launches"] == (layers, 0), (arch, r)
+            np.testing.assert_allclose(got["logits"], one[arch]["logits"],
+                                       atol=1e-4, rtol=0)
+            np.testing.assert_array_equal(got["tokens"],
+                                          one[arch]["tokens"])
+    assert all(x["compress"] for x in ranks)
