@@ -355,6 +355,27 @@ Phases, each of which exits non-zero on failure:
    magnitude of an uninterrupted run's; then the card tests whose names
    hold "train" (``launches_training`` in the JSON record, the step's
    numbers on the ``training`` line before it).
+10b. The sharded train step (``run_mesh_train_phase``): phase 10's model
+   at full width, 2 of its 24 layers, the same 4 x 2048 batch (seeded),
+   2 steps.  One process runs them first, after step 1's gradients; then
+   4 ``gloo`` ranks sharing the card run the same on (data, model) grids
+   (2, 2) and (4, 1), each rank holding its blocks of the params, m and v
+   by ``param_pspecs`` (``shard_train_state``) and its rows of the batch
+   by ``batch_pspecs``.  Against one process's: each rank's losses and
+   grad norms (1e-3 relative), step 1's gradients gathered (each leaf
+   within 5e-2 of its largest magnitude), and its blocks gathered after
+   the steps (at most a tenth of the elements moved by more than lr / 10;
+   each element p within the sanity bound 2 x steps x lr x (1 + wd |p|)
+   plus steps x 2^-7 |p|, which any gradient passes); ``wq`` a different
+   1/4 of the leaf on each rank; ``flash_prefill`` and ``gqa_decode``
+   never launched; ms a step by rank and the ms of each step in the
+   mesh's ``gloo`` collectives, the collectives a step, peak device
+   memory and params + m + v bytes by rank against one process's.
+   ``python3 chip_smoke.py --mesh-train-control`` runs this phase alone
+   on (2, 2), clean and then with two planted faults (``planted``: the
+   gradients' sum over the batch's rows left out; the norms' gradients
+   summed over model), each of which must fail a check besides the
+   sanity bound on every rank.
 
 The last two lines are the per-kernel JSON record (``hash_probe``'s entry
 carries its probe-window route under ``probe_window``) and
@@ -421,7 +442,8 @@ from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.blocks import (attention_layers,  # noqa: E402
                                        decode_attention_layers)
 from repro_torch.models.moe import capacity as moe_capacity  # noqa: E402
-from repro_torch.models.params import param_count, tree_leaves  # noqa: E402
+from repro_torch.models.params import (param_count,  # noqa: E402
+                                       tree_leaves, tree_map)
 from repro_torch.obs import MetricsRegistry  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.store.checkpoint import CheckpointManager  # noqa: E402
@@ -1902,15 +1924,19 @@ MESH_GEOMETRY = dict(capacity=1 << 21, key_range=1 << 20, prefill=1 << 19,
                      lanes=1024)
 
 
-@contextlib.contextmanager
 def timed_collectives():
     """Seconds and calls spent in this process's host-side collectives of
     ``launch/mesh.py`` (``all_gather``, ``all_reduce``, ``broadcast``),
     each one's wait for the other ranks included, while the block runs."""
+    return timed_calls(mesh.dist, ("all_gather", "all_reduce", "broadcast"))
+
+
+@contextlib.contextmanager
+def timed_calls(owner, names):
+    """Seconds and calls spent in ``owner``'s functions ``names``, from any
+    thread, while the block runs."""
     spent = {"s": 0.0, "n": 0}
-    dist = mesh.dist
-    real = {n: getattr(dist, n)
-            for n in ("all_gather", "all_reduce", "broadcast")}
+    real = {n: getattr(owner, n) for n in names}
 
     def timed(f):
         def call(*a, **k):
@@ -1922,12 +1948,12 @@ def timed_collectives():
                 spent["n"] += 1
         return call
     for n, f in real.items():
-        setattr(dist, n, timed(f))
+        setattr(owner, n, timed(f))
     try:
         yield spent
     finally:
         for n, f in real.items():
-            setattr(dist, n, f)
+            setattr(owner, n, f)
 
 
 def mesh_run(backend, snap_dir, device="cuda", geo=None):
@@ -4962,6 +4988,331 @@ def run_training_phase(dev, smi):
     return res, launches
 
 
+# ---------------------------------------------------------------------------
+# 10b. the sharded train step on a (data, model) grid of ranks
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_RANKS = 4
+# phase 10's model and batch, depth cut to 2 of 24 layers; ``faults`` are
+# the planted faults run after the clean run (``--mesh-train-control``)
+MESH_TRAIN = dict(arch=TRAIN_ARCH, layers=2, batch=TRAIN_BATCH,
+                  seq=TRAIN_SEQ, steps=2, grids=((2, 2), (4, 1)),
+                  faults=(None,))
+# The ranks against one process, bf16 params and activations: the sums run
+# in other orders (a row-parallel product's partial sums rounded to bf16
+# before their sum over model, the gradients summed over data in bf16).
+# The loss within 1e-3 relative and the grad norm within 1e-3; step 1's
+# gradients, gathered, each leaf within MESH_TRAIN_GRAD_RTOL of its
+# largest magnitude (the check that sees a gradient's scale); after the
+# steps at most a tenth of the param elements moved by more than lr / 10.
+# Each param element within 2 x steps x lr x (1 + wd |p|) plus steps x
+# 2^-7 |p| is a sanity bound only: an AdamW update moves an element by at
+# most lr (1 + wd |p|) a step in the first steps (its m-hat / sqrt(v-hat)
+# is at most 1), so any gradient, even a wrong one, passes it.
+MESH_TRAIN_LOSS_RTOL = 1e-3
+MESH_TRAIN_GNORM_RTOL = 1e-3
+MESH_TRAIN_GRAD_RTOL = 5e-2
+MESH_TRAIN_MOVED_SHARE = 0.1
+
+
+def mesh_train_setup(plan):
+    cfg = get_config(plan["arch"]).with_layers(plan["layers"])
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup=1, total_steps=10,
+                                state_dtype=cfg.opt_dtype)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    tok = torch.randint(0, cfg.vocab, (plan["batch"], plan["seq"] + 1),
+                        generator=gen, dtype=torch.int32)
+    return cfg, opt_cfg, {"tokens": tok[:, :-1].contiguous(),
+                          "labels": tok[:, 1:].contiguous()}
+
+
+def mesh_train_steps(step, state, batch, steps, dev, coll=None):
+    """``steps`` train steps, each synchronized: (state, metrics on the
+    host, ms of each step, ms of each step spent in the calls that
+    ``coll`` (a ``timed_calls`` record) times, empty without one,
+    attention kernel launches in all)."""
+    sync(dev)
+    flash_prefill_cuda.launches = gqa_decode_cuda.launches = 0
+    metrics, ms, coll_ms = [], [], []
+    for _ in range(steps):
+        c = coll["s"] if coll is not None else 0.0
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        sync(dev)
+        ms.append(1e3 * (time.perf_counter() - t))
+        if coll is not None:
+            coll_ms.append(1e3 * (coll["s"] - c))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return state, metrics, ms, coll_ms, (flash_prefill_cuda.launches,
+                                         gqa_decode_cuda.launches)
+
+
+def _param_errors(got, ref, opt_cfg, steps):
+    """The gathered params against one process's: the largest |diff|, the
+    largest |diff| over its element's sanity bound (2 x steps x lr x (1 +
+    wd |ref|) + steps x 2^-7 |ref|), and the share of elements moved by
+    more than lr / 10."""
+    lr, wd = opt_cfg.lr, opt_cfg.weight_decay
+    worst = ratio = 0.0
+    moved = total = 0
+    for (key, a), (_, b) in zip(tree_leaves(got), tree_leaves(ref)):
+        a, b = a.float(), b.to(a.device).float()
+        d = (a - b).abs()
+        tol = 2 * steps * lr * (1 + wd * b.abs()) + \
+            steps * 2.0 ** -7 * b.abs()
+        worst = max(worst, float(d.max()))
+        ratio = max(ratio, float((d / tol).max()))
+        moved += int((d > lr / 10).sum())
+        total += d.numel()
+    return worst, ratio, moved / total
+
+
+def _grad_error(got, ref):
+    """(leaf, largest |diff| over the leaf's largest magnitude) of the
+    gathered gradients against one process's, for the leaf that is off
+    most."""
+    worst = ("", 0.0)
+    for (key, a), (_, b) in zip(tree_leaves(got), tree_leaves(ref)):
+        b = b.to(a.device).float()
+        err = float((a.float() - b).abs().max()) / \
+            max(float(b.abs().max()), 1e-30)
+        worst = max(worst, (key, err), key=lambda kv: kv[1])
+    return worst
+
+
+@contextlib.contextmanager
+def planted(fault):
+    """A fault planted in the sharded step's gradients while the block
+    runs (``--mesh-train-control``): "dp" leaves out their sum over the
+    batch's dp line (each rank keeps its own rows' gradient), "model"
+    sums every leaf whole on data over model (ln1, ln2 and final_norm
+    doubled); None plants nothing."""
+    from repro_torch.models import tp as TP
+    real_gatherer, real_layout = TP.Gatherer, TP.layout
+    if fault == "dp":
+        TP.Gatherer = lambda fsdp, dp, tp: real_gatherer(
+            fsdp, TP.Line(dp.mesh, None), tp)
+    elif fault == "model":
+        TP.layout = lambda specs, axis, partial: real_layout(
+            specs, axis, [True] * len(partial))
+    try:
+        yield
+    finally:
+        TP.Gatherer, TP.layout = real_gatherer, real_layout
+
+
+def mesh_train_rank(rank, ref_path, device, plan):
+    """A rank of phase 10b: on each grid and for each of ``plan["faults"]``,
+    the seed's state cut to this rank's blocks, step 1's gradients
+    gathered and held to one process's, then ``plan["steps"]`` sharded
+    train steps on its rows of the batch, then its blocks gathered and
+    held to one process's params (both saved at ``ref_path``)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.meshctx import mesh_context
+    from repro_torch.launch.specs import (batch_pspecs, gather,
+                                          make_shard_ctx, put)
+    from repro_torch.models.params import param_pspecs
+    dev = mesh.rank_device(rank, device)
+    cfg, opt_cfg, batch = mesh_train_setup(plan)
+    # on the host, so that the rank's peak device memory is its own
+    ref = torch.load(ref_path, map_location="cpu")
+    shape = ShapeConfig("train", plan["seq"], plan["batch"], "train")
+    out = {}
+    for grid in plan["grids"]:
+        mm = mesh.make_model_mesh(grid)
+        ctx = make_shard_ctx(cfg, shape, mm)
+        specs = param_pspecs(cfg, ctx, mesh=mm)
+        for fault in plan["faults"]:
+            state = TS.shard_train_state(
+                TS.init_train_state(cfg, SEED, opt_cfg, device=dev), cfg,
+                ctx, mm)
+            rows = put({k: v.to(dev) for k, v in batch.items()},
+                       batch_pspecs(cfg, shape, ctx), mm)
+            with mesh_context(mm), planted(fault):
+                grads = gather(TS.loss_and_grads(cfg, state.params, rows,
+                                                 ctx)[2], specs, mm)
+                grad_err = _grad_error(grads, ref["grads"])
+                del grads
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+            # the model mesh's collectives, the backward's (run on the
+            # autograd engine's thread) included
+            with mesh_context(mm), planted(fault), timed_calls(
+                    mesh.ModelMesh, ("all_reduce", "all_gather",
+                                     "reduce_scatter")) as coll:
+                state, metrics, ms, coll_ms, launches = mesh_train_steps(
+                    TS.make_train_step(cfg, opt_cfg, 1, ctx), state, rows,
+                    plan["steps"], dev, coll)
+            r = dict(metrics=metrics, ms=ms, launches=launches,
+                     coll_ms=coll_ms, grad_err=grad_err,
+                     coll_calls=coll["n"] / plan["steps"],
+                     peak=torch.cuda.max_memory_allocated(dev)
+                     if dev.type == "cuda" else 0,
+                     state_bytes=sum(_tree_bytes(t) for t in (
+                         state.params, state.opt.m, state.opt.v)))
+            wq = state.params["stack_0"]["b0_attn"]["attn"]["wq"]
+            r["wq"] = (wq.numel(), hashlib.sha1(
+                wq.float().cpu().numpy().tobytes()).hexdigest())
+            with mesh_context(mm):
+                whole = gather(state.params, specs, mm)
+                r["errors"] = _param_errors(whole, ref["params"], opt_cfg,
+                                            plan["steps"])
+                del whole
+            out[(grid, fault)] = r
+            del state, rows
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_train_failures(g, one):
+    """(check, what) of each check of phase 10b that one rank's run fails
+    against one process's ``one``."""
+    fails = []
+    for k, (m, w) in enumerate(zip(g["metrics"], one)):
+        for key, rtol in (("loss", MESH_TRAIN_LOSS_RTOL),
+                          ("grad_norm", MESH_TRAIN_GNORM_RTOL)):
+            if abs(m[key] - w[key]) > rtol * abs(w[key]):
+                fails.append((key, f"step {k} {key} {m[key]}, one process "
+                                   f"{w[key]}"))
+    leaf, err = g["grad_err"]
+    if err > MESH_TRAIN_GRAD_RTOL:
+        fails.append(("grads", f"step 1 gradient {leaf} off by {err:.4g} "
+                               "of its largest magnitude"))
+    worst, ratio, moved = g["errors"]
+    if moved > MESH_TRAIN_MOVED_SHARE:
+        fails.append(("moved", f"{moved:.4f} of the param elements moved "
+                               "by more than lr / 10"))
+    if ratio > 1.0:
+        fails.append(("params", f"params off by {worst} ({ratio:.3f} of "
+                                "the sanity bound)"))
+    return fails
+
+
+def run_mesh_train_phase(dev, smi, plan=None):
+    """Phase 10b.  Returns the ranks' attention kernel launches a step by
+    grid.  A run with a planted fault (``plan["faults"]``) must fail a
+    check besides the params' sanity bound."""
+    plan = plan or MESH_TRAIN
+    t0 = time.perf_counter()
+    cfg, opt_cfg, batch = mesh_train_setup(plan)
+    print(f"phase 10b: the sharded train step on {MESH_TRAIN_RANKS} gloo "
+          f"ranks sharing one card, grids {list(plan['grids'])} (data, "
+          f"model): {plan['arch']}, {plan['layers']} layers, "
+          f"{plan['batch']} x {plan['seq']} tokens, {plan['steps']} steps, "
+          f"remat {cfg.remat}")
+    state = TS.init_train_state(cfg, SEED, opt_cfg, device=dev)
+    state_bytes = sum(_tree_bytes(t) for t in (state.params, state.opt.m,
+                                              state.opt.v))
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    grads = tree_map(lambda a: a.cpu(), TS.loss_and_grads(
+        cfg, state.params, batch)[2])
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    state, one, one_ms, _, one_launches = mesh_train_steps(
+        TS.make_train_step(cfg, opt_cfg), state, batch, plan["steps"], dev)
+    one_peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else 0
+    expect(one_launches == (0, 0),
+           f"one process: attention kernels launched {one_launches}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        ref_path = os.path.join(tmp, "ref.pt")
+        torch.save({"params": tree_map(lambda a: a.cpu(), state.params),
+                    "grads": grads}, ref_path)
+        del state, grads
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        ranks = mesh.spawn(mesh_train_rank, MESH_TRAIN_RANKS, ref_path,
+                           str(dev), plan)
+        spawn_s = time.perf_counter() - t1
+    print(f"mesh train one process: ms a step {[round(x, 3) for x in one_ms]}"
+          f", losses {[round(m['loss'], 5) for m in one]}, grad norms "
+          f"{[round(m['grad_norm'], 5) for m in one]}, peak device memory "
+          f"{one_peak / 2**30:.3f} GiB, params + m + v "
+          f"{state_bytes / 2**30:.3f} GiB ({smi})")
+    launches = {}
+    for grid in plan["grids"]:
+        for fault in plan["faults"]:
+            got = [r[(grid, fault)] for r in ranks]
+            fails = [_mesh_train_failures(g, one) for g in got]
+            if fault is not None:
+                caught = [sorted({c for c, _ in f if c != "params"})
+                          for f in fails]
+                print(f"mesh train control {grid}, fault {fault!r} planted:"
+                      f" checks failed by rank {caught}; step 1 gradient "
+                      f"off by {[(g['grad_err'][0], round(g['grad_err'][1], 5)) for g in got]}"
+                      f" of its largest; grad norms by rank "
+                      f"{[[round(m['grad_norm'], 5) for m in g['metrics']] for g in got]}"
+                      f"; share moved by more than lr / 10 "
+                      f"{[round(g['errors'][2], 5) for g in got]}; params "
+                      f"{[round(g['errors'][1], 4) for g in got]} of the "
+                      f"sanity bound ({smi})")
+                expect(all(caught), f"mesh train {grid}: the planted fault "
+                       f"{fault!r} passed every check but the sanity bound "
+                       f"on a rank: {fails}")
+                continue
+            for rank, (g, f) in enumerate(zip(got, fails)):
+                what = f"mesh train {grid} rank {rank}"
+                expect(not f, f"{what}: {[w for _, w in f]}")
+                expect(g["launches"] == (0, 0),
+                       f"{what}: attention kernels launched {g['launches']}")
+            wq_whole = cfg.d_model * cfg.q_dim * cfg.n_layers
+            split = grid[0] * grid[1]
+            expect(all(g["wq"][0] * split == wq_whole for g in got)
+                   and len({g["wq"][1] for g in got}) == split,
+                   f"mesh train {grid}: wq blocks {[g['wq'] for g in got]} "
+                   f"are not 1/{split} of the leaf each, all different")
+            launches[grid] = [g["launches"] for g in got]
+            print(f"mesh train {grid}: ms a step by rank "
+                  f"{[[round(x, 3) for x in g['ms']] for g in got]}, of "
+                  f"which in gloo collectives "
+                  f"{[[round(x, 3) for x in g['coll_ms']] for g in got]} "
+                  f"({got[0]['coll_calls']:.1f} collectives a step; the "
+                  f"last step's share in gloo by rank "
+                  f"{[round(g['coll_ms'][-1] / g['ms'][-1], 4) for g in got]}"
+                  f"); losses "
+                  f"{[round(m['loss'], 5) for m in got[0]['metrics']]}, grad"
+                  f" norms "
+                  f"{[round(m['grad_norm'], 5) for m in got[0]['metrics']]}"
+                  f"; step 1 gradients against one process's: the leaf off "
+                  f"most by rank "
+                  f"{[(g['grad_err'][0], round(g['grad_err'][1], 5)) for g in got]}"
+                  f" of its largest; params against one process's: largest "
+                  f"|diff| by rank {[g['errors'][0] for g in got]} "
+                  f"({[round(g['errors'][1], 4) for g in got]} of the sanity"
+                  f" bound), share moved by more than lr / 10 "
+                  f"{[round(g['errors'][2], 5) for g in got]}; wq 1/{split} "
+                  f"of the leaf on each rank, {split} different blocks; peak"
+                  f" device memory GiB by rank "
+                  f"{[round(g['peak'] / 2**30, 3) for g in got]} against one"
+                  f" process's {one_peak / 2**30:.3f}; params + m + v GiB by"
+                  f" rank {[round(g['state_bytes'] / 2**30, 3) for g in got]}"
+                  f" against {state_bytes / 2**30:.3f}; flash_prefill and "
+                  f"gqa_decode launches a step by rank "
+                  f"{[tuple(x // plan['steps'] for x in g['launches']) for g in got]}"
+                  f" ({smi})")
+    print(f"phase 10b: {time.perf_counter() - t0:.1f} s (the spawn and the "
+          f"ranks' runs {spawn_s:.1f} s)")
+    return launches
+
+
+def mesh_train_control_main() -> int:
+    """``--mesh-train-control``: phase 10b on the (2, 2) grid alone, clean
+    and then with each planted fault (``planted``): the clean run passes
+    every check, and each fault fails one besides the params' sanity
+    bound on every rank."""
+    dev = torch.device("cuda")
+    smi = environment()
+    run_mesh_train_phase(dev, smi, dict(MESH_TRAIN, grids=((2, 2),),
+                                        faults=(None, "dp", "model")))
+    print(smi)
+    print(json.dumps({"mesh_train_control": "ok", "card": smi}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4971,6 +5322,8 @@ def main() -> int:
         return probe_window_main()
     if sys.argv[1:] == ["--bucket-scan"]:
         return bucket_scan_main()
+    if sys.argv[1:] == ["--mesh-train-control"]:
+        return mesh_train_control_main()
     dev = torch.device("cuda")
     smi = environment()
 
@@ -5115,6 +5468,10 @@ def main() -> int:
 
     # 10. training at h2o-danube-3-4b's full width and depth
     training, train_launches = run_training_phase(dev, smi)
+    torch.cuda.empty_cache()
+
+    # 10b. the sharded train step on 4 ranks sharing the card
+    run_mesh_train_phase(dev, smi)
 
     record = {"kernels": [
         {"name": "recovery_scan", "route": "cuda",

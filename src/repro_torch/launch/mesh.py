@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import itertools
 import os
 import queue as queue_mod
 import shutil
@@ -257,14 +258,54 @@ class ModelMesh:
         """``t`` reduced in place by ``op`` (a ``dist.ReduceOp``) over the
         ranks of this rank's line of ``axes``; returns ``t``.  A collective
         of that line: each of its ranks calls it, in the same order."""
-        key = self._axes(axes)
-        if self.axis_size(key) == 1:
+        if self.axis_size(axes) == 1:
             return t
+        dist.all_reduce(t, op=op, group=self._group(axes))
+        return t
+
+    def _group(self, axes):
+        named = set(self._axes(axes))
+        key = tuple(a for a in self.axis_names if a in named)
         if key not in self.groups:
             raise RuntimeError(f"the mesh has no process group over {key}: "
                                "make it with make_model_mesh")
-        dist.all_reduce(t, op=op, group=self.groups[key])
-        return t
+        return self.groups[key]
+
+    def all_gather(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """The flat ``t`` of each rank of this rank's line of ``axes``,
+        concatenated in their coordinate order (one ``all_gather`` into a
+        tensor); ``t`` itself on a line of one rank.  Trap: ``gloo`` on
+        card tensors.  PyTorch's backend table lists only ``broadcast``
+        and ``all_reduce`` for it, but with torch 2.11 on an H100 it took
+        this and ``reduce_scatter`` of card tensors, bf16 included, and
+        gathered a layer's blocks faster than an ``all_reduce`` of a
+        zero-filled whole (PERF.md gives both times)."""
+        if self.axis_size(axes) == 1:
+            return t
+        out = t.new_empty((self.axis_size(axes) * t.numel(),))
+        _ALL_GATHER(out, t.contiguous().view(-1), group=self._group(axes))
+        return out
+
+    def reduce_scatter(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """Chunk ``coord(axes)`` of the flat ``t`` summed over this rank's
+        line of ``axes`` (``t`` holds one equal chunk a rank, in
+        coordinate order; one ``reduce_scatter`` into a tensor); ``t``
+        itself on a line of one rank."""
+        n = self.axis_size(axes)
+        if n == 1:
+            return t
+        out = t.new_empty((t.numel() // n,))
+        _REDUCE_SCATTER(out, t.contiguous().view(-1), dist.ReduceOp.SUM,
+                        group=self._group(axes))
+        return out
+
+
+# the tensor forms of all_gather and reduce_scatter (renamed *_single in
+# later torch releases, the old names kept as deprecated aliases)
+_ALL_GATHER = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
 
 
 def _lines(sizes: Tuple[int, ...], along: Tuple[int, ...]) -> list:
@@ -282,8 +323,9 @@ def make_model_mesh(sizes: Sequence[int],
                     axis_names: Optional[Sequence[str]] = None) -> ModelMesh:
     """The :class:`ModelMesh` of the initialized default group laid out on
     ``sizes`` (2 sizes: ``("data", "model")``; 3: ``("pod", "data",
-    "model")``), with a ``gloo`` group for each line of each axis and, on
-    a grid with a pod axis, of ``("pod", "data")`` (the ``dp`` role).
+    "model")``), with a ``gloo`` group for each line of each set of axes
+    (``("pod", "data")`` is the ``dp`` role; the whole grid reduces the
+    train step's grad norm).
     Every rank makes every group, in one order: call it on every rank.
     Without a group, a grid of one rank has no groups to make."""
     sizes = tuple(int(n) for n in sizes)
@@ -303,9 +345,10 @@ def make_model_mesh(sizes: Sequence[int],
         raise ValueError(f"a mesh of {sizes} ({world} ranks) in a group "
                          f"of {dist.get_world_size()}")
     rank = dist.get_rank()
-    keys = [(a,) for a in axis_names]
-    if "pod" in axis_names and "data" in axis_names:
-        keys.append(("pod", "data"))
+    # every set of axes, in the grid's order: a role's axes (dp's ("pod",
+    # "data")) and the axes that split a leaf (launch/specs.py::gather)
+    keys = [key for n in range(1, len(axis_names) + 1)
+            for key in itertools.combinations(axis_names, n)]
     groups = {}
     for key in keys:
         along = tuple(axis_names.index(a) for a in key)

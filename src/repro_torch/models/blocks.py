@@ -76,11 +76,21 @@ def _pos2d(positions):
     return positions[0] if positions.dim() == 3 else positions
 
 
-def _attn_train(p, x, cfg, positions, window):
-    q, k, v = L.qkv_project(p, x, cfg, positions)
+def _attn_train(p, x, cfg, positions, window, tp=None):
+    """With ``tp`` (a ``models/tp.py::Line`` over ``model``), ``wq``,
+    ``wk``, ``wv`` and their biases hold this rank's heads' columns
+    (column-parallel; qk-norm and rotary run on those heads, and
+    ``attention_dense`` unchanged, the GQA groups being contiguous) and
+    ``wo`` their rows (row-parallel, its partial sums summed)."""
+    heads = None
+    if tp is not None:
+        x = tp.copy_to(x)
+        heads = (cfg.n_heads // tp.size, cfg.n_kv_heads // tp.size)
+    q, k, v = L.qkv_project(p, x, cfg, positions, heads)
     pos2 = _pos2d(positions)
     out = L.attention_dense(q, k, v, pos2, pos2, window)
-    return out.reshape(x.shape[0], x.shape[1], -1) @ p["wo"].to(x.dtype)
+    out = out.reshape(x.shape[0], x.shape[1], -1) @ p["wo"].to(x.dtype)
+    return out if tp is None else tp.reduce_from(out)
 
 
 # ---------------------------------------------------------------------------
@@ -307,11 +317,20 @@ def apply_block(kind: str, p: Dict[str, Any], x: torch.Tensor, *,
     is the encoder's output, which a ``dec`` block projects into its cross
     keys and values (into its cross cache in prefill).  ``ctx`` (a
     ``ShardCtx``) with ``seq_shard_cache`` makes the self-attention caches
-    this rank's block of slots (``layers.seq_slots``)."""
+    this rank's block of slots (``layers.seq_slots``).  In train mode an
+    enabled ``ctx`` makes ``p`` this rank's compute blocks of the sharded
+    train step: an ``attn`` block runs on its heads and MLP columns over
+    the ``model`` line (``models/model.py::_check_train_ctx`` refuses the
+    other kinds where that line has more than one rank), and a ``moe``
+    block's auxiliary loss covers the rows of the whole ``dp`` line."""
     _check_kind(kind)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
     train = mode == "train"
+    tp = dp = None
+    if train and ctx is not None and ctx.enabled:
+        from repro_torch.models.tp import line
+        tp, dp = line(ctx, "tp"), line(ctx, "dp")
     window = cfg.window if cfg.attn_kind == "swa" else None
     if kind == "attn" and cfg.family == "hybrid":
         window = cfg.window                               # local attention
@@ -330,7 +349,7 @@ def apply_block(kind: str, p: Dict[str, Any], x: torch.Tensor, *,
         if kind == "mlstm":
             return x, cache, None
         h2 = L.norm(p["ln2"], x, cfg)
-        return x + L.mlp(p["mlp"], h2), cache, None
+        return x + L.mlp(p["mlp"], h2, tp), cache, None
 
     if kind == "enc":
         mix = _enc_attn(p["attn"], h, cfg, positions, mode)
@@ -343,7 +362,7 @@ def apply_block(kind: str, p: Dict[str, Any], x: torch.Tensor, *,
         else:
             mix = _mla_decode(p["attn"], h, cfg, pos, cache)
     elif train:
-        mix = _attn_train(p["attn"], h, cfg, positions, window)
+        mix = _attn_train(p["attn"], h, cfg, positions, window, tp)
     elif mode == "prefill":
         mix = _attn_prefill(p["attn"], h, cfg, positions, window, cache,
                             mask_pos, ctx)
@@ -363,7 +382,7 @@ def apply_block(kind: str, p: Dict[str, Any], x: torch.Tensor, *,
     h2 = L.norm(p["ln2"], x, cfg)
     aux = None
     if kind == "moe":
-        ff, aux = moe_ffn(p["moe"], h2, cfg)
+        ff, aux = moe_ffn(p["moe"], h2, cfg, dp)
     else:
-        ff = L.mlp(p["mlp"], h2)
+        ff = L.mlp(p["mlp"], h2, tp)
     return x + ff, cache, aux

@@ -14,7 +14,10 @@ none: with explicit collectives the layout is the caller's), and with a
 ``ShardCtx`` whose ``seq_shard_cache`` is set each rank holds a block of
 every KV cache's slots, which ``cache_write`` fills and
 ``_sharded_flash_decode`` attends over, combining the ranks of the
-``model`` axis by an online softmax (``all_reduce`` MAX, then SUM).
+``model`` axis by an online softmax (``all_reduce`` MAX, then SUM).  In
+the sharded train step the projections and the MLP run on this rank's
+heads and columns (``qkv_project``'s ``heads``, ``mlp``'s ``tp``; the
+collectives in ``models/tp.py``).
 """
 from __future__ import annotations
 
@@ -271,7 +274,13 @@ def _sharded_flash_decode(ctx, q, ck, cv, valid_len):
 # QKV projection + cache plumbing for the standard (non-MLA) path
 # ---------------------------------------------------------------------------
 
-def qkv_project(p, x, cfg: ModelConfig, positions):
+def qkv_project(p, x, cfg: ModelConfig, positions,
+                heads: Optional[Tuple[int, int]] = None):
+    """q, k, v of x (rotary applied, qk-norm where configured).  ``heads``
+    (query heads, KV heads) are the ones ``p``'s columns hold: this rank's
+    under tensor parallelism (the GQA groups stay contiguous), else the
+    config's."""
+    h, kvh = heads or (cfg.n_heads, cfg.n_kv_heads)
     dt = x.dtype
     q = x @ p["wq"].to(dt)
     k = x @ p["wk"].to(dt)
@@ -281,9 +290,9 @@ def qkv_project(p, x, cfg: ModelConfig, positions):
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
     b, s = x.shape[0], x.shape[1]
-    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = q.reshape(b, s, h, cfg.head_dim)
+    k = k.reshape(b, s, kvh, cfg.head_dim)
+    v = v.reshape(b, s, kvh, cfg.head_dim)
     if cfg.qk_norm:
         q = head_rms(p["q_norm"], q, cfg.norm_eps)
         k = head_rms(p["k_norm"], k, cfg.norm_eps)
@@ -350,7 +359,14 @@ def cache_write(ck, cv, k, v, pos0, slots: Optional[Tuple[int, int]] = None):
 # SwiGLU MLP
 # ---------------------------------------------------------------------------
 
-def mlp(p, x):
+def mlp(p, x, tp=None):
+    """SwiGLU.  With ``tp`` (a ``models/tp.py::Line`` over ``model``),
+    ``wi``/``wg`` hold this rank's columns of the hidden width
+    (column-parallel) and ``wo`` its rows (row-parallel): the input's
+    gradient and the output's partial sums are summed over the line."""
     dt = x.dtype
+    if tp is not None:
+        x = tp.copy_to(x)
     h = F.silu(x @ p["wg"].to(dt)) * (x @ p["wi"].to(dt))
-    return h @ p["wo"].to(dt)
+    out = h @ p["wo"].to(dt)
+    return out if tp is None else tp.reduce_from(out)

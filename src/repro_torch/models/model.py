@@ -32,13 +32,19 @@ an optional ``ShardCtx`` (``launch/specs.py::make_shard_ctx``) under the
 current ``ModelMesh`` (``launch/meshctx.py``).  Each rank then holds its
 block of every cache leaf (``launch/specs.py::cache_specs``), is handed
 its rows of the tokens (``specs.local_rows``) and returns the logits of
-those rows; the weights are whole on every rank (TP-sharded weights come
-with ROADMAP item 12.5b).  With ``seq_shard_cache`` the attention caches
-are split on the sequence over the ``model`` axis: a prefill attends over
-the whole prompt as on one card and writes only the rank's slots, and a
-decode step combines the ranks' partial softmaxes (``layers.
-_sharded_flash_decode``).  With ``ctx=None`` every signature and result
-is the one-card one.
+those rows; the weights are whole on every rank.  With
+``seq_shard_cache`` the attention caches are split on the sequence over
+the ``model`` axis: a prefill attends over the whole prompt as on one
+card and writes only the rank's slots, and a decode step combines the
+ranks' partial softmaxes (``layers._sharded_flash_decode``).  With
+``ctx=None`` every signature and result is the one-card one.
+
+Training on a mesh: ``forward_train``, ``loss_fn`` and ``ce_loss_chunked``
+take the same optional ``ctx``.  Each rank then holds its blocks of every
+param by ``param_pspecs`` and its rows of the batch; a layer's ``data``
+blocks are gathered inside its remat body, an ``attn`` block runs on the
+rank's heads and MLP columns, and the embedding and the cross entropy are
+vocabulary-parallel (``models/tp.py`` has the collectives).
 """
 from __future__ import annotations
 
@@ -52,8 +58,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import apply_block, init_block_cache
 from repro_torch.models.params import (init_params,  # noqa: F401
-                                       param_count, tree_leaves, tree_map,
-                                       tree_unflatten)
+                                       param_count, param_pspecs,
+                                       tree_leaves, tree_map, tree_unflatten)
+from repro_torch.models import tp as TP
 
 __all__ = ["init_params", "param_count", "forward_train", "loss_fn",
            "ce_loss_chunked", "init_cache", "prefill", "decode_step"]
@@ -84,10 +91,22 @@ def _remat(fn, cfg: ModelConfig):
 
 
 
-def _embed(params, tokens, cfg: ModelConfig):
+def _embed(params, tokens, cfg: ModelConfig, ctx=None):
+    """The tokens' embeddings.  In the sharded train step (an enabled
+    ``ctx``) ``embed/w`` holds this rank's rows of the vocabulary: a token
+    outside them embeds to zeros and the ``model`` line sums the rows."""
     w = params["embed"]["w"]
     dt = getattr(torch, cfg.compute_dtype)
-    x = w[tokens.long()].to(dt)
+    tp = TP.line(ctx, "tp") if ctx is not None and ctx.enabled else None
+    if tp is None or tp.size == 1:
+        x = w[tokens.long()].to(dt)
+    else:
+        rows = w.shape[0]
+        local = tokens.long() - tp.coord * rows
+        hit = (local >= 0) & (local < rows)
+        x = torch.where(hit[..., None],
+                        w[torch.clamp(local, 0, rows - 1)].to(dt), 0)
+        x = tp.reduce_from(x)
     if cfg.family != "hybrid":
         return x
     # JAX rounds the weakly typed scale to the compute dtype before the
@@ -141,12 +160,25 @@ def _run_stacks(params, x, cfg: ModelConfig, mode: str, positions, caches,
     return x
 
 
+# the leaves replicated on ``model`` that an ``attn`` block applies to
+# this rank's heads: their gradients are partial sums over ``model``
+TP_PARTIAL = ("q_norm", "k_norm")
+
+
 def _train_stack(sp, period, x, aux, cfg: ModelConfig, positions,
-                 enc_out=None):
+                 enc_out=None, ctx=None, shard=None, key=None):
     """One layer stack in train mode, no caches: each layer's body under
     the remat policy, its param slices passed in as arguments.  ``aux``
     carries the sum of the MoE blocks' auxiliary losses (None while no
-    block has made one).  Returns (x, aux)."""
+    block has made one).  Returns (x, aux).
+
+    In the sharded train step (``shard`` = (``Gatherer``, the stack's
+    specs)) ``sp`` holds this rank's blocks, and the remat body gathers
+    one layer's ``data`` blocks first: the gathered weights are freed
+    after the layer and gathered again in the recomputation.  Trap:
+    collectives under remat.  The recomputed forward runs its collectives
+    again during the backward; every rank recomputes the same layers in
+    the same order, or the ranks hang."""
     # each stacked leaf taken apart once; layer i's slices in
     # tree_leaves order
     layers = zip(*(torch.unbind(a, 0) for _, a in tree_leaves(sp)))
@@ -156,27 +188,48 @@ def _train_stack(sp, period, x, aux, cfg: ModelConfig, positions,
         for bi, kind in enumerate(period):
             xc, _, a = apply_block(kind, pi[f"b{bi}_{kind}"], xc, cfg=cfg,
                                    mode="train", positions=positions,
-                                   enc_out=enc_out)
+                                   enc_out=enc_out, ctx=ctx)
             if a is not None:
                 auxc = a if auxc is None else auxc + a
         return xc, auxc
 
-    body = _remat(body, cfg)
-    for leaves in layers:
-        x, aux = body(x, aux, positions, enc_out, *leaves)
+    if shard is None:
+        body = _remat(body, cfg)
+        for leaves in layers:
+            x, aux = body(x, aux, positions, enc_out, *leaves)
+        return x, aux
+
+    gatherer, specs = shard
+    flat = list(tree_leaves(specs))
+    lay = TP.layout([spec[1:] for _, spec in flat], gatherer.fsdp.axes,
+                    [gatherer.tp.size > 1 and path.rsplit("/", 1)[-1] in
+                     TP_PARTIAL for path, _ in flat])
+
+    def sharded_body(i, xc, auxc, positions, enc_out, *blocks):
+        return body(xc, auxc, positions, enc_out,
+                    *gatherer.gather((key, i), blocks, lay))
+
+    sharded_body = _remat(sharded_body, cfg)
+    for i, blocks in enumerate(layers):
+        x, aux = sharded_body(i, x, aux, positions, enc_out, *blocks)
     return x, aux
 
 
-def _run_encoder(params, embeds, cfg: ModelConfig, mode: str = "prefill"):
+def _run_encoder(params, embeds, cfg: ModelConfig, mode: str = "prefill",
+                 ctx=None, shard=None):
     """Whisper encoder over precomputed frame embeddings (the front end is
-    a stub): learned positions, bidirectional blocks, final norm."""
+    a stub): learned positions, bidirectional blocks, final norm.  In the
+    sharded train step ``shard`` is (``Gatherer``, the param specs)."""
     b, s, _ = embeds.shape
     x = embeds.to(getattr(torch, cfg.compute_dtype))
     x = x + params["pos_enc"]["w"][:s].to(x.dtype)[None]
     positions = _default_positions(cfg, b, s, x.device)
     sp = params["enc_stack_0"]
     if mode == "train":
-        x, _ = _train_stack(sp, ("enc",), x, None, cfg, positions)
+        x, _ = _train_stack(sp, ("enc",), x, None, cfg, positions, ctx=ctx,
+                            shard=shard and (shard[0],
+                                             shard[1]["enc_stack_0"]),
+                            key="enc_stack_0")
     else:
         for i in range(cfg.enc_layers):
             pi = tree_map(lambda a: a[i], sp)
@@ -192,16 +245,19 @@ def _pos_dec(params, idx):
     return w[torch.clamp(idx, max=w.shape[0] - 1).long()]
 
 
-def _decoder_input(params, batch, cfg: ModelConfig, mode: str):
+def _decoder_input(params, batch, cfg: ModelConfig, mode: str, ctx=None,
+                   shard=None):
     """The first hidden state, its (B, S) and the encoder's output (audio
     only): decoder tokens plus learned positions and the encoder over the
-    frames (audio), given embeddings (vlm), else embedded tokens."""
+    frames (audio), given embeddings (vlm), else embedded tokens.  ``ctx``
+    and ``shard``: the sharded train step's (``_train_shard``)."""
     enc_out = None
     if cfg.family == "audio":
-        enc_out = _run_encoder(params, batch["embeds"], cfg, mode)
+        enc_out = _run_encoder(params, batch["embeds"], cfg, mode, ctx,
+                               shard)
         tokens = batch["tokens"]
         b, s = tokens.shape
-        x = _embed(params, tokens, cfg)
+        x = _embed(params, tokens, cfg, ctx)
         idx = torch.arange(s, device=x.device)
         x = x + _pos_dec(params, idx).to(x.dtype)[None]
     elif "embeds" in batch:
@@ -210,7 +266,7 @@ def _decoder_input(params, batch, cfg: ModelConfig, mode: str):
     else:
         tokens = batch["tokens"]
         b, s = tokens.shape
-        x = _embed(params, tokens, cfg)
+        x = _embed(params, tokens, cfg, ctx)
     return x, b, s, enc_out
 
 
@@ -218,11 +274,33 @@ def _decoder_input(params, batch, cfg: ModelConfig, mode: str):
 # Training forward + loss
 # ---------------------------------------------------------------------------
 
-def forward_train(params, batch: Dict[str, Any], cfg: ModelConfig):
-    """Returns (final hidden (B,S,d), aux_loss f32 scalar): the batch's
-    ``positions`` (or the default arange) drive rotary and the attention
-    masks; the MoE blocks' auxiliary losses are summed in f32."""
-    x, b, s, enc_out = _decoder_input(params, batch, cfg, "train")
+def _train_shard(params, cfg: ModelConfig, ctx):
+    """The sharded train step's pieces for an enabled ``ctx``: its checks
+    (``_check_ctx``, before any collective), the ``Gatherer`` of the
+    current mesh, the param specs, and ``params`` with the top-level
+    leaves (the embeddings, the final norms, whisper's positions) gathered
+    over ``data``; the stacks stay blocks, gathered a layer at a time.
+    (None, params) for ``ctx=None`` or a disabled ctx."""
+    if ctx is None or not ctx.enabled:
+        return None, params
+    _check_ctx(cfg, ctx, train=True)
+    g = TP.Gatherer(TP.line(ctx, "fsdp"), TP.line(ctx, "dp"),
+                    TP.line(ctx, "tp"))
+    specs = param_pspecs(cfg, ctx, mesh=g.fsdp.mesh)
+    top = {k: v for k, v in params.items() if "stack_" not in k}
+    flat = list(tree_leaves({k: specs[k] for k in top}))
+    got = g.gather("top", [a for _, a in tree_leaves(top)],
+                   TP.layout([spec for _, spec in flat], g.fsdp.axes,
+                             [False] * len(flat)))
+    return (g, specs), dict(params, **tree_unflatten(top, got))
+
+
+def _forward_train(params, batch, cfg: ModelConfig, ctx):
+    """``forward_train``'s (x, aux) and the params it computed with (the
+    top-level leaves gathered in the sharded train step)."""
+    shard, params = _train_shard(params, cfg, ctx)
+    x, b, s, enc_out = _decoder_input(params, batch, cfg, "train", ctx,
+                                      shard)
     given = batch.get("positions")
     if given is None:
         positions = _default_positions(cfg, b, s, x.device)
@@ -230,11 +308,30 @@ def forward_train(params, batch: Dict[str, Any], cfg: ModelConfig):
         positions, _ = _given_positions(given, cfg, b, s, x.device)
     aux = None
     for si, (period, _) in enumerate(cfg.stacks()):
-        x, aux = _train_stack(params[f"stack_{si}"], period, x, aux, cfg,
-                              positions, enc_out)
+        key = f"stack_{si}"
+        x, aux = _train_stack(params[key], period, x, aux, cfg, positions,
+                              enc_out, ctx, shard and (shard[0],
+                                                       shard[1][key]), key)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = L.norm(params["final_norm"], x, cfg)
+    return x, aux, params
+
+
+def forward_train(params, batch: Dict[str, Any], cfg: ModelConfig,
+                  ctx=None):
+    """Returns (final hidden (B,S,d), aux_loss f32 scalar): the batch's
+    ``positions`` (or the default arange) drive rotary and the attention
+    masks; the MoE blocks' auxiliary losses are summed in f32.
+
+    With an enabled ``ctx`` (``launch/specs.py::make_shard_ctx`` of a
+    train shape) under the current ``ModelMesh``: ``params`` are this
+    rank's blocks by ``param_pspecs(cfg, ctx, mesh=mesh)``, the batch is
+    its rows by ``batch_pspecs``, and the hidden state returned is those
+    rows' (whole on the ``model`` line: Megatron-SP's split of the
+    residual between blocks is not made, ROADMAP item 12.5c).  A
+    collective of the whole grid."""
+    x, aux, _ = _forward_train(params, batch, cfg, ctx)
     return x, aux
 
 
@@ -249,34 +346,79 @@ def _ce_chunk(xc, w_un, lc):
     return ((lse - gold) * valid).sum(), valid.sum()
 
 
-def ce_loss_chunked(x, w_un, labels, tokens_per_chunk: int = 65536):
+def _ce_chunk_tp(xc, w_un, lc, tp):
+    """``_ce_chunk`` with ``w_un`` this rank's columns of the vocabulary
+    (block ``tp.coord`` of the ``model`` line): the max over the line
+    (without gradient: the log-sum-exp does not depend on it), the sum of
+    exponentials and the gold logit (from the rank holding the label, 0
+    elsewhere) summed over it in one all-reduce."""
+    logits = (xc @ w_un.to(xc.dtype)).float()
+    cols = logits.shape[-1]
+    m = tp.max(logits.detach().amax(-1))
+    local = lc.long() - tp.coord * cols
+    hit = (local >= 0) & (local < cols)
+    gold = torch.gather(logits, -1,
+                        torch.clamp(local, 0, cols - 1)[..., None])[..., 0]
+    sums = tp.reduce_from(torch.stack(
+        [torch.exp(logits - m[..., None]).sum(-1),
+         torch.where(hit, gold, 0.0)], -1))
+    valid = (lc >= 0).float()
+    lse = torch.log(sums[..., 0]) + m
+    return ((lse - sums[..., 1]) * valid).sum(), valid.sum()
+
+
+def ce_loss_chunked(x, w_un, labels, tokens_per_chunk: int = 65536,
+                    ctx=None):
     """Mean cross entropy without materializing the full (B, S, V) logits.
 
     Chunks along the sequence, as JAX does: c = max(1, min(S, tokens //
     B)), decreased until it divides S.  With two or more chunks each is
     recomputed in backward (``torch.utils.checkpoint``) instead of saving
-    its (B, c, V) f32 logits."""
+    its (B, c, V) f32 logits.
+
+    With an enabled ``ctx``, ``x`` is this rank's rows (whole on the
+    ``model`` line), ``w_un`` this rank's columns of the vocabulary and
+    ``labels`` its rows: the logits are the rank's columns, the cross
+    entropy is vocabulary-parallel (``_ce_chunk_tp``), and the chunks are
+    cut by the rank's B (only the order of the sums changes).  Trap: the
+    mean of the loss.  It is the summed token loss over the GLOBAL count
+    of labelled tokens: the rank's sum and count are summed over the
+    ``dp`` line by an all-reduce whose backward is the identity, so each
+    rank differentiates its own sum over the global count (dividing by a
+    rank's own count and averaging differs wherever the ranks hold other
+    counts of labels)."""
     b, s, _ = x.shape
     c = max(1, min(s, tokens_per_chunk // b))
     while s % c:
         c -= 1
     nc = s // c
+    chunk, dp = _ce_chunk, None
+    if ctx is not None and ctx.enabled:
+        tp, dp = TP.line(ctx, "tp"), TP.line(ctx, "dp")
+        x = tp.copy_to(x)
+        chunk = functools.partial(_ce_chunk_tp, tp=tp)
     if nc == 1:
-        num, den = _ce_chunk(x, w_un, labels)
+        num, den = chunk(x, w_un, labels)
     else:
-        parts = [ckpt.checkpoint(_ce_chunk, x[:, i * c:(i + 1) * c], w_un,
+        parts = [ckpt.checkpoint(chunk, x[:, i * c:(i + 1) * c], w_un,
                                  labels[:, i * c:(i + 1) * c],
                                  use_reentrant=False)
                  for i in range(nc)]
         num = sum(p[0] for p in parts)
         den = sum(p[1] for p in parts)
+    if dp is not None:
+        num, den = dp.reduce_from(torch.stack([num, den]))
     return num / torch.clamp(den, min=1.0)
 
 
-def loss_fn(params, batch, cfg: ModelConfig):
-    """Returns (ce + aux, {"ce": ce, "aux": aux}), device tensors."""
-    x, aux = forward_train(params, batch, cfg)
-    loss = ce_loss_chunked(x, _unembed_w(params, cfg), batch["labels"])
+def loss_fn(params, batch, cfg: ModelConfig, ctx=None):
+    """Returns (ce + aux, {"ce": ce, "aux": aux}), device tensors.  With an
+    enabled ``ctx`` (``forward_train``'s) the values are the whole
+    batch's on every rank, and their gradient on a rank is its part: the
+    gradients its rows give its blocks (``models/tp.py`` sums them)."""
+    x, aux, params = _forward_train(params, batch, cfg, ctx)
+    loss = ce_loss_chunked(x, _unembed_w(params, cfg), batch["labels"],
+                           ctx=ctx)
     return loss + aux, {"ce": loss, "aux": aux}
 
 
@@ -284,19 +426,48 @@ def loss_fn(params, batch, cfg: ModelConfig):
 # Serving: cache init / prefill / decode
 # ---------------------------------------------------------------------------
 
-def _check_ctx(cfg: ModelConfig, ctx) -> None:
+def _check_ctx(cfg: ModelConfig, ctx, train: bool = False) -> None:
     """An enabled ``ctx`` needs the current mesh (``require_mesh`` raises
-    without one or with one of other axes or another group), and MLA and
-    the ``ssm`` family never take the sequence split (JAX's
-    ``make_shard_ctx`` never gives it them)."""
+    without one or with one of other axes or another group).  Serving:
+    MLA and the ``ssm`` family never take the sequence split (JAX's
+    ``make_shard_ctx`` never gives it them).  Training (``train``): the
+    sharded step has tensor-parallel compute for the ``attn`` block kind
+    alone, on heads, MLP width and vocabulary that the ``model`` line
+    divides (JAX drops the axis elsewhere; the port does not guess), and
+    no ``pod`` axis (ZeRO's optimizer blocks over it differ from the
+    params').  What it lacks raises ``NotImplementedError`` here, from the
+    config and the grid alone: before any collective, on every rank."""
     if ctx is None or not ctx.enabled:
         return
     from repro_torch.launch.meshctx import require_mesh
-    require_mesh(ctx)
-    if ctx.seq_shard_cache and (cfg.mla or cfg.family == "ssm"):
-        raise ValueError(f"{cfg.name}: a sequence-sharded cache is for "
-                         "standard attention; MLA and the ssm family keep "
-                         "whole caches")
+    mesh = require_mesh(ctx)
+    if not train:
+        if ctx.seq_shard_cache and (cfg.mla or cfg.family == "ssm"):
+            raise ValueError(f"{cfg.name}: a sequence-sharded cache is for "
+                             "standard attention; MLA and the ssm family "
+                             "keep whole caches")
+        return
+    missing = []
+    if ctx.pod_axis:
+        missing.append("a pod axis")
+    n = mesh.axis_size(ctx.tp())
+    if n > 1:
+        kinds = {k for period, _ in cfg.stacks() for k in period}
+        if cfg.family == "audio":
+            kinds.add("enc")
+        if kinds - {"attn"}:
+            missing.append(f"the {sorted(kinds - {'attn'})} block kinds")
+        if cfg.mla:
+            missing.append("MLA")
+        for what, dim in (("query heads", cfg.n_heads),
+                          ("KV heads", cfg.n_kv_heads),
+                          ("MLP width", cfg.d_ff), ("vocabulary", cfg.vocab)):
+            if dim % n:
+                missing.append(f"{dim} {what} over {n} model ranks")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: the sharded train step lacks tensor-parallel "
+            f"compute for {'; '.join(missing)} (ROADMAP item 12.5c)")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
@@ -322,9 +493,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
 def _init_cache_part(cfg, batch, max_seq, dtype, device, ctx):
     """This rank's block of every leaf of ``init_cache(cfg, batch,
     max_seq)``.  Raises where the layout needs what this slice lacks: a
-    recurrent state split over its width (TP-sharded weights, ROADMAP item
-    12.5b), or a sequence split that the ``model`` axis cannot make (JAX's
-    ``shard_map`` refuses it)."""
+    recurrent state split over its width (tensor-parallel recurrent
+    compute, ROADMAP item 12.5c), or a sequence split that the ``model``
+    axis cannot make (JAX's ``shard_map`` refuses it)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.meshctx import require_mesh
     from repro_torch.launch.specs import cache_specs, local_shape
@@ -345,7 +516,8 @@ def _init_cache_part(cfg, batch, max_seq, dtype, device, ctx):
         if n > 1 and name not in ("k", "v") and tp in spec:
             raise NotImplementedError(
                 f"{cfg.name}: the {name!r} state split over the model axis "
-                "needs TP-sharded weights (ROADMAP item 12.5b)")
+                "needs tensor-parallel recurrent compute (ROADMAP item "
+                "12.5c)")
         return torch.zeros(local_shape(tuple(leaf.shape), spec, mesh),
                            dtype=leaf.dtype, device=device)
 

@@ -30,9 +30,11 @@ def capacity(s: int, cfg: ModelConfig) -> int:
     return max(8, -(-cap // 8) * 8)
 
 
-def moe_ffn(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
+def moe_ffn(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, dp=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B,S,d) -> (out (B,S,d), aux_loss f32 scalar)."""
+    """x (B,S,d) -> (out (B,S,d), aux_loss f32 scalar).  With ``dp`` (a
+    ``models/tp.py::Line``: x is this rank's rows of the batch split over
+    it) the auxiliary loss is the whole batch's."""
     if x.shape[1] == 1 and x.shape[0] > 1:
         # decode: one token per row -- per-row groups would allocate a full
         # (B, E, C, d) buffer for B tokens; one group of B tokens keeps the
@@ -57,6 +59,16 @@ def moe_ffn(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
     ce = torch.zeros((e,), dtype=torch.float32, device=dev).index_add_(
         0, topi.reshape(-1),
         torch.full((b * t,), 1.0 / (b * t), dtype=torch.float32, device=dev))
+    if dp is not None:
+        # computed globally, as JAX's GSPMD computes it: the ranks hold
+        # equal numbers of rows, so the whole batch's means are the mean of
+        # the ranks' means over the dp line (one all-reduce, whose backward
+        # is the identity: each rank differentiates through its own rows),
+        # then the product.  A mean of the ranks' own aux losses would be
+        # another number.  On a line of one rank this is me and ce bit for
+        # bit
+        tot = dp.reduce_from(torch.cat([me, ce])) / dp.size
+        me, ce = tot[:e], tot[e:]
     aux = (me * ce).sum() * e * cfg.router_aux_coef
 
     # ---- group-local (per-row) sort + rank + capacity ----

@@ -2,11 +2,15 @@
 ``repro.models.params``: every block kind, the audio family's encoder
 stack and learned positions included).
 
-``param_defs(cfg)`` builds a tree of ``PD`` (shape, init); ``init_params``
-materializes it on a device.  Stacked layer params carry a leading 'stack'
-dim, as in the JAX package, so a JAX parameter tree converts by a plain
-copy (``repro_torch.models.convert``).  The sharding roles of the JAX
-``PD`` and ``param_pspecs`` are not ported: the port runs on one card.
+``param_defs(cfg)`` builds a tree of ``PD`` (shape, per-dim sharding
+roles, init); ``init_params`` materializes it on a device and
+``param_pspecs`` resolves the roles into a partition spec a leaf (a plain
+tuple with one entry a dim, ``models/sharding.py``) on a ``ShardCtx``.
+Stacked layer params carry a leading 'stack' dim, as in the JAX package,
+so a JAX parameter tree converts by a plain copy
+(``repro_torch.models.convert``).  On a (data, model) grid of ranks each
+rank holds its block of every leaf by those specs
+(``launch/specs.py::put``; ``train/steps.py::shard_train_state``).
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ from typing import Any, Dict, Iterator, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.sharding import ShardCtx, matrix_spec
 
 # ROADMAP queue A, item 12 (model stack): the block kinds whose
 # parameters, caches and mixers are not ported yet (none: every kind
@@ -30,77 +35,110 @@ def not_ported(what: str) -> NotImplementedError:
 
 class PD(NamedTuple):
     shape: Tuple[int, ...]
+    roles: Tuple[Optional[str], ...]   # 'fsdp' | 'tp' | 'ep' | None per dim
     init: str = "normal"               # normal | zeros | ones
     scale_dim: int = -2                # fan-in dim index for init scale
 
 
 def _attn_defs(cfg: ModelConfig, cross: bool = False) -> Dict[str, PD]:
     d, qd, kvd, hd = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.head_dim
+    defs: Dict[str, PD] = {}
     if cfg.mla and not cross:
-        r, rq, rd, h = cfg.kv_lora_rank, cfg.q_lora_rank, cfg.rope_dim, \
-            cfg.n_heads
-        defs = {"wq_a": PD((d, rq)), "wq_b": PD((rq, h * (hd + rd))),
-                "wkv_a": PD((d, r + rd)), "wk_b": PD((r, h * hd)),
-                "wv_b": PD((r, h * hd)), "wo": PD((h * hd, d))}
+        r, rq, rd = cfg.kv_lora_rank, cfg.q_lora_rank, cfg.rope_dim
+        defs["wq_a"] = PD((d, rq), ("fsdp", None))
+        defs["wq_b"] = PD((rq, cfg.n_heads * (hd + rd)), (None, "tp"))
+        defs["wkv_a"] = PD((d, r + rd), ("fsdp", None))
+        defs["wk_b"] = PD((r, cfg.n_heads * hd), (None, "tp"))
+        defs["wv_b"] = PD((r, cfg.n_heads * hd), (None, "tp"))
+        defs["wo"] = PD((cfg.n_heads * hd, d), ("tp", "fsdp"))
     else:
-        defs = {"wq": PD((d, qd)), "wk": PD((d, kvd)), "wv": PD((d, kvd)),
-                "wo": PD((qd, d))}
+        defs["wq"] = PD((d, qd), ("fsdp", "tp"))
+        defs["wk"] = PD((d, kvd), ("fsdp", "tp"))
+        defs["wv"] = PD((d, kvd), ("fsdp", "tp"))
+        defs["wo"] = PD((qd, d), ("tp", "fsdp"))
         if cfg.qkv_bias:
-            defs["bq"] = PD((qd,), "zeros")
-            defs["bk"] = PD((kvd,), "zeros")
-            defs["bv"] = PD((kvd,), "zeros")
+            defs["bq"] = PD((qd,), ("tp",), "zeros")
+            defs["bk"] = PD((kvd,), ("tp",), "zeros")
+            defs["bv"] = PD((kvd,), ("tp",), "zeros")
     if cfg.qk_norm:
-        defs["q_norm"] = PD((hd,), "ones")
-        defs["k_norm"] = PD((hd,), "ones")
+        defs["q_norm"] = PD((hd,), (None,), "ones")
+        defs["k_norm"] = PD((hd,), (None,), "ones")
     return defs
 
 
 def _mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None
               ) -> Dict[str, PD]:
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    return {"wi": PD((d, f)), "wg": PD((d, f)), "wo": PD((f, d))}
+    return {
+        "wi": PD((d, f), ("fsdp", "tp")),
+        "wg": PD((d, f), ("fsdp", "tp")),
+        "wo": PD((f, d), ("tp", "fsdp")),
+    }
 
 
 def _moe_defs(cfg: ModelConfig) -> Dict[str, Any]:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
-    defs: Dict[str, Any] = {"router": PD((d, e)), "wi": PD((e, d, f)),
-                            "wg": PD((e, d, f)), "wo": PD((e, f, d))}
+    ep = e % 16 == 0   # expert-parallel when the expert count shards cleanly
+    er = "ep" if ep else None
+    inner = "fsdp" if ep else "fsdp"
+    tpf = None if ep else "tp"
+    defs: Dict[str, Any] = {
+        "router": PD((d, e), ("fsdp", None)),
+        "wi": PD((e, d, f), (er, inner, tpf)),
+        "wg": PD((e, d, f), (er, inner, tpf)),
+        "wo": PD((e, f, d), (er, tpf, inner)),
+    }
     if cfg.moe_dense_ff:
         defs["dense"] = _mlp_defs(cfg, cfg.moe_dense_ff)
     return defs
 
 
 def _norm_def(cfg: ModelConfig) -> Dict[str, PD]:
-    out = {"scale": PD((cfg.d_model,), "ones")}
+    out = {"scale": PD((cfg.d_model,), (None,), "ones")}
     if cfg.norm == "layernorm":
-        out["bias"] = PD((cfg.d_model,), "zeros")
+        out["bias"] = PD((cfg.d_model,), (None,), "zeros")
     return out
 
 
 def _mlstm_defs(cfg: ModelConfig) -> Dict[str, PD]:
-    d, inner, h = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.n_heads
-    return {"w_up": PD((d, 2 * inner)), "wq": PD((inner, inner)),
-            "wk": PD((inner, inner)), "wv": PD((inner, inner)),
-            "w_if": PD((inner, 2 * h)),          # input / forget gates
-            "w_down": PD((inner, d)), "skip_scale": PD((inner,), "ones")}
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    inner = h * hd
+    return {
+        "w_up": PD((d, 2 * inner), ("fsdp", "tp")),
+        "wq": PD((inner, inner), ("fsdp", "tp")),
+        "wk": PD((inner, inner), ("fsdp", "tp")),
+        "wv": PD((inner, inner), ("fsdp", "tp")),
+        "w_if": PD((inner, 2 * h), ("fsdp", None)),   # input/forget gates
+        "w_down": PD((inner, d), ("tp", "fsdp")),
+        "skip_scale": PD((inner,), (None,), "ones"),
+    }
 
 
 def _slstm_defs(cfg: ModelConfig) -> Dict[str, PD]:
     d = cfg.d_model
     up = (4 * d) // 3
     # 4 gates (i, f, z, o) from the input and the recurrent hidden state
-    return {"w_x": PD((d, 4 * d)), "w_h": PD((d, 4 * d)),
-            "w_up": PD((d, up)), "w_gate": PD((d, up)),
-            "w_down": PD((up, d))}
+    return {
+        "w_x": PD((d, 4 * d), ("fsdp", "tp")),
+        "w_h": PD((d, 4 * d), ("fsdp", "tp")),
+        "w_up": PD((d, up), ("fsdp", "tp")),
+        "w_gate": PD((d, up), ("fsdp", "tp")),
+        "w_down": PD((up, d), ("tp", "fsdp")),
+    }
 
 
 def _rglru_defs(cfg: ModelConfig) -> Dict[str, PD]:
     d = cfg.d_model
     r = cfg.lru_dim or d
-    return {"w_x": PD((d, r)), "w_gate": PD((d, r)),
-            "conv_w": PD((cfg.conv_width, r)), "conv_b": PD((r,), "zeros"),
-            "a_param": PD((r,), "ones"),       # recurrence decay logits
-            "w_in_gate": PD((r, r)), "w_down": PD((r, d))}
+    return {
+        "w_x": PD((d, r), ("fsdp", "tp")),
+        "w_gate": PD((d, r), ("fsdp", "tp")),
+        "conv_w": PD((cfg.conv_width, r), (None, "tp")),
+        "conv_b": PD((r,), ("tp",), "zeros"),
+        "a_param": PD((r,), ("tp",), "ones"),    # recurrence decay logits
+        "w_in_gate": PD((r, r), ("fsdp", "tp")),
+        "w_down": PD((r, d), ("tp", "fsdp")),
+    }
 
 
 def block_defs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
@@ -131,16 +169,17 @@ def block_defs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
 
 def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
     defs: Dict[str, Any] = {
-        "embed": {"w": PD((cfg.vocab, cfg.d_model))},
+        "embed": {"w": PD((cfg.vocab, cfg.d_model), ("tp", "fsdp"))},
         "final_norm": _norm_def(cfg),
     }
     if not cfg.tie_embeddings:
-        defs["unembed"] = {"w": PD((cfg.d_model, cfg.vocab))}
+        defs["unembed"] = {"w": PD((cfg.d_model, cfg.vocab), ("fsdp", "tp"))}
     if cfg.family == "audio":
         # learned positional embeddings (whisper); the conv front end is a
         # stub: the caller passes frame embeddings
-        defs["pos_dec"] = {"w": PD((4096, cfg.d_model))}
-        defs["pos_enc"] = {"w": PD((cfg.enc_seq, cfg.d_model))}
+        defs["pos_dec"] = {"w": PD((4096, cfg.d_model), (None, "fsdp"))}
+        defs["pos_enc"] = {"w": PD((cfg.enc_seq, cfg.d_model),
+                                   (None, "fsdp"))}
         defs["enc_final_norm"] = _norm_def(cfg)
         defs["enc_stack_0"] = _stack(cfg, ("enc",), cfg.enc_layers)
     for si, (period, count) in enumerate(cfg.stacks()):
@@ -151,8 +190,8 @@ def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
 def _stack(cfg: ModelConfig, period: Tuple[str, ...], count: int):
     body = {f"b{i}_{kind}": block_defs(cfg, kind)
             for i, kind in enumerate(period)}
-    return tree_map(lambda pd: PD((count,) + pd.shape, pd.init, pd.scale_dim),
-                    body)
+    return tree_map(lambda pd: PD((count,) + pd.shape, (None,) + pd.roles,
+                                  pd.init, pd.scale_dim), body)
 
 
 # ---------------------------------------------------------------------------
@@ -224,6 +263,33 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
         return out
 
     return tree_map(mk, param_defs(cfg))
+
+
+def param_pspecs(cfg: ModelConfig, ctx: ShardCtx, opt: bool = False,
+                 mesh=None):
+    """A spec tree of ``param_defs(cfg)``'s structure; ``opt=True`` maps
+    fsdp -> fsdp_opt (ZeRO over the pod axis).  With ``mesh`` (a
+    ``ModelMesh``, or any object with a ``shape`` dict), an axis whose
+    ranks do not divide the dim is dropped, as JAX drops it (pjit rejects
+    uneven input shardings)."""
+    def size(axes) -> int:
+        if axes is None or mesh is None:
+            return 1
+        n = 1
+        for a in (axes if isinstance(axes, (tuple, list)) else (axes,)):
+            n *= mesh.shape[a]
+        return n
+
+    def spec(pd: PD) -> tuple:
+        roles = tuple("fsdp_opt" if (opt and r == "fsdp") else r
+                      for r in pd.roles)
+        raw = matrix_spec(ctx, roles)
+        if mesh is None:
+            return raw
+        return tuple(a if dim % size(a) == 0 else None
+                     for a, dim in zip(raw, pd.shape))
+
+    return tree_map(spec, param_defs(cfg))
 
 
 def param_count(cfg: ModelConfig) -> int:

@@ -16,9 +16,9 @@ tuple of axis names, or None (JAX's ``PartitionSpec``).  The port has no
 ``NamedSharding``: each rank of a ``torch.distributed`` group holds its
 block of every split tensor as a plain local tensor, and the code that
 needs another rank's part calls a collective on the axis's process group.
-In this slice the weights are whole on every rank; the roles that split
-them (``fsdp``, ``tp`` on a weight) are resolved here, and TP-sharded
-weights come with ``param_pspecs`` (ROADMAP item 12.5b).
+The train step holds every weight and its AdamW state in blocks by
+``models/params.py::param_pspecs`` (the ``fsdp`` and ``tp`` roles
+resolved here); serving keeps the weights whole on every rank.
 """
 from __future__ import annotations
 

@@ -22,6 +22,7 @@ import math
 from typing import Any, NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.params import tree_leaves, tree_map
 
@@ -67,21 +68,43 @@ def _slices(t: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     return torch.unbind(t, 0) if t.dim() >= 3 else (t,)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32, summed per slice
-    (no f32 copy of a whole stacked leaf)."""
+    (no f32 copy of a whole stacked leaf).
+
+    With ``specs`` and ``mesh`` (a ``ModelMesh``) the leaves are this
+    rank's blocks by ``specs`` and the norm is the whole tree's, a
+    collective of the grid.  Trap: the grad norm.  Each element counts
+    once: a block is held by every rank of the axes its spec does not
+    split (those whose size does not divide the dim included, the spec
+    having dropped them), so it is counted on the rank at coordinate 0 of
+    those axes, and the sum is summed over the whole grid."""
+    from repro_torch.launch.specs import split_axes
+    leaves = [leaf for _, leaf in tree_leaves(tree)]
+    keep = [True] * len(leaves)
+    if specs is not None:
+        keep = [all(mesh.coord(a) == 0 for a in mesh.axis_names
+                    if a not in split_axes(spec, mesh))
+                for _, spec in tree_leaves(specs)]
     parts = [torch.sum(torch.square(s.float()))
-             for _, leaf in tree_leaves(tree) for s in _slices(leaf)]
-    return torch.sqrt(torch.sum(torch.stack(parts)))
+             for leaf, k in zip(leaves, keep) if k for s in _slices(leaf)]
+    total = torch.sum(torch.stack(parts)) if parts else \
+        torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    if specs is not None:
+        mesh.all_reduce(total, dist.ReduceOp.SUM, mesh.axis_names)
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
-def update(grads, state: AdamWState, params,
-           cfg: AdamWConfig) -> Tuple[Any, AdamWState, torch.Tensor]:
+def update(grads, state: AdamWState, params, cfg: AdamWConfig,
+           specs=None, mesh=None) -> Tuple[Any, AdamWState, torch.Tensor]:
     """One AdamW step.  Returns (params, state, grad norm before clipping):
     ``params``, ``state.m`` and ``state.v`` updated in place, a new
-    ``step``."""
-    gnorm = global_norm(grads)
+    ``step``.  With ``specs`` and ``mesh`` every tree holds this rank's
+    blocks by ``specs`` (m and v by the same: ``param_pspecs``' ``opt``
+    specs equal the params' on a grid with no pod axis) and only the grad
+    norm is a collective; the rest stays elementwise on the blocks."""
+    gnorm = global_norm(grads, specs, mesh)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     step = state.step + 1

@@ -1565,3 +1565,108 @@ def test_mesh_decode_of_two_ranks_on_the_card_matches_one_process(cuda):
             np.testing.assert_array_equal(got["tokens"],
                                           one[arch]["tokens"])
     assert all(x["compress"] for x in ranks)
+
+
+MESH_TRAIN_GRID = (2, 2)
+
+
+def mesh_train_rank(rank):
+    """qwen3-32b-smoke's (f32) sharded train step on this rank of a (2, 2)
+    grid on the card, from the seed's state and batch: the metrics, the
+    gathered gradients it applies, the gathered state before and after,
+    this rank's ``wq`` block and the attention kernels' launches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_model_mesh
+    from repro_torch.launch.meshctx import mesh_context
+    from repro_torch.launch.specs import (batch_pspecs, gather,
+                                          make_shard_ctx, put)
+    from repro_torch.models.params import param_pspecs, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as TS
+    cfg = get_config("qwen3-32b-smoke")
+    opt = adamw.AdamWConfig(lr=TRAIN_LR, warmup=1, total_steps=10,
+                            state_dtype=cfg.opt_dtype)
+    mesh = make_model_mesh(MESH_TRAIN_GRID)
+    shape = ShapeConfig("t", 16, 4, "train")
+    ctx = make_shard_ctx(cfg, shape, mesh)
+    specs = param_pspecs(cfg, ctx, mesh=mesh)
+    # the CPU's seeded state (a card generator draws other numbers), its
+    # blocks moved to the card
+    state = TS.shard_train_state(
+        TS.init_train_state(cfg, 0, opt, device="cpu"), cfg, ctx, mesh)
+
+    def card(tree):
+        return tree_map(lambda a: a.cuda(), tree)
+
+    state = TS.TrainState(card(state.params), adamw.AdamWState(
+        state.opt.step.cuda(), card(state.opt.m), card(state.opt.v)))
+    rows = put({k: v.cuda() for k, v in _train_batch(cfg, 4).items()},
+               batch_pspecs(cfg, shape, ctx), mesh)
+
+    def host(tree):
+        return tree_map(lambda a: a.cpu().numpy(), tree)
+
+    with mesh_context(mesh):
+        before = host(gather(state.params, specs, mesh))
+        grads = host(gather(TS.loss_and_grads(cfg, state.params, rows,
+                                              ctx)[2], specs, mesh))
+        flash_prefill_cuda.launches = gqa_decode_cuda.launches = 0
+        state, m = TS.make_train_step(cfg, opt, 1, ctx)(state, rows)
+        launches = (flash_prefill_cuda.launches, gqa_decode_cuda.launches)
+        after = {"params": host(gather(state.params, specs, mesh)),
+                 "m": host(gather(state.opt.m, specs, mesh)),
+                 "v": host(gather(state.opt.v, specs, mesh))}
+    wq = state.params["stack_0"]["b0_attn"]["attn"]["wq"]
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "before": before, "grads": grads, "after": after,
+            "wq": wq.cpu().numpy().tobytes(), "wq_numel": wq.numel(),
+            "launches": launches}
+
+
+def test_mesh_train_of_four_ranks_on_the_card_matches_the_cpu(cuda):
+    """The sharded train step over 4 gloo ranks sharing the card on a (2,
+    2) grid against one process on the CPU, from the same seed's state
+    and batch: the loss and grad norm within 1e-5 relative, the
+    gradients within 1e-4 of each leaf's largest magnitude, m and v
+    within lr x 1e-3 of the CPU's, the params within lr x 1e-3 of the
+    CPU's AdamW update of the card's gradients (the rule of the train
+    card test above), ``wq`` a different quarter on each rank, neither
+    attention kernel launched."""
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as TS
+    cfg = get_config("qwen3-32b-smoke")
+    opt = adamw.AdamWConfig(lr=TRAIN_LR, warmup=1, total_steps=10,
+                            state_dtype=cfg.opt_dtype)
+    cpu = torch.device("cpu")
+    batch = _train_batch(cfg, 4)
+    state = TS.init_train_state(cfg, 0, opt, device=cpu)
+    _, _, g_cpu = TS.loss_and_grads(cfg, state.params, batch)
+    host, m_cpu = TS.make_train_step(cfg, opt)(
+        TS.init_train_state(cfg, 0, opt, device=cpu), batch)
+    ranks = spawn(mesh_train_rank, 4)
+    whole = state.params["stack_0"]["b0_attn"]["attn"]["wq"].numel()
+    assert len({r["wq"] for r in ranks}) == 4
+    for r in ranks:
+        assert r["wq_numel"] * 4 == whole and r["launches"] == (0, 0)
+        for key in ("loss", "grad_norm"):
+            assert abs(r["metrics"][key] - float(m_cpu[key])) <= \
+                1e-5 * abs(float(m_cpu[key])), key
+        for (key, a), (_, b) in zip(tree_leaves(r["before"]),
+                                    tree_leaves(state.params)):
+            assert np.array_equal(a, b.numpy()), key
+        for (key, a), (_, b) in zip(tree_leaves(r["grads"]),
+                                    tree_leaves(g_cpu)):
+            assert float(np.abs(a - b.numpy()).max()) <= \
+                1e-4 * float(b.abs().max()), key
+        want, _, _ = adamw.update(
+            tree_map(torch.from_numpy, r["grads"]),
+            TS.init_train_state(cfg, 0, opt, device=cpu).opt,
+            TS.init_train_state(cfg, 0, opt, device=cpu).params, opt)
+        for got, ref in ((r["after"]["params"], want),
+                         (r["after"]["m"], host.opt.m),
+                         (r["after"]["v"], host.opt.v)):
+            for (key, a), (_, b) in zip(tree_leaves(got), tree_leaves(ref)):
+                assert float(np.abs(a - b.numpy()).max()) <= \
+                    TRAIN_LR * 1e-3, key
