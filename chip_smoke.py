@@ -84,7 +84,7 @@ Phases, each of which exits non-zero on failure:
    (``launches_hybrid`` in the JSON record).
 3c. The sharded map, ``ShardedDurableMap`` with 8 shards at the hash-1M
    geometry (2^21 slots in all, 2^18 per shard; key range 2^20, 2^19 keys
-   prefilled in batches of 8192, 200 mixed batches of 1024 lanes, a crash
+   prefilled in batches of 8192, 50 mixed batches of 1024 lanes, a crash
    under a seeded per-shard adversary, recovery, 20 more batches), on the
    bucket backend (snapshotted through ``Snapshotter`` after the prefill
    and recovered through it, every leaf held against the full recovery of
@@ -96,12 +96,12 @@ Phases, each of which exits non-zero on failure:
    against their plain versions at one shard's shapes (N = 2^18; NB 2^16,
    W 8; T 2^20; B 256, the lane budget a 1024-lane batch routes to each
    shard), timed (``shard_shape`` in the JSON record).  Then the same
-   traffic at equal total capacity (30 batches) on the flat bucket map,
+   traffic at equal total capacity (15 batches) on the flat bucket map,
    one shard and 8 shards: ops/s, device operations per batch and busy
    share (profiled), host syncs per batch by site, the v2 router's
    stage-1 host ms per batch, recovery ms.
    Then a capped v2 router (``max_lane_budget`` 64, strided, 2 groups) and
-   the v1 router over 20 batches each: drop masks equal to the host rule,
+   the v1 router over 10 batches each: drop masks equal to the host rule,
    psyncs equal to the successful updates.  Then the serve CLI with
    ``--shards 8 --crash``, and again with ``--backend bucket
    --snapshot-every 1``; then the card tests of
@@ -151,13 +151,13 @@ Phases, each of which exits non-zero on failure:
    the JSON record).
 3e. Online resize (``ElasticShardedMap``) at the hash-1M geometry: 4
    bucket shards of 2^18 slots (SOFT, router v2), 2^19 keys prefilled in
-   batches of 8192 (fill 0.5), ``migrate_chunk`` 4096.  20 mixed batches
+   batches of 8192 (fill 0.5), ``migrate_chunk`` 4096.  10 mixed batches
    of 1024 lanes (90/5/5, key range 2^20), then an online split to 8
    shards (phase 3c's 2^21 slots) with one ``step()`` per batch: 4 units
    of 64 chunks and a commit, 260 batches, every result, the size and the
    counters against the host reference, hot psyncs equal to the
    successful updates, migration psyncs exactly 1 + 4*64 + 4*2 + 1 = 266,
-   each commit's moved nodes equal to its parent's live keys; 20 batches
+   each commit's moved nodes equal to its parent's live keys; 10 batches
    after; ops/s before, during and after.  The 8-shard map snapshotted
    through ``Snapshotter`` and loaded by ``load_resharded`` at 4 and 16
    shards: every leaf equal to a full recovery at 8 resharded offline
@@ -372,10 +372,41 @@ Phases, each of which exits non-zero on failure:
    mesh's ``gloo`` collectives, the collectives a step, peak device
    memory and params + m + v bytes by rank against one process's.
    ``python3 chip_smoke.py --mesh-train-control`` runs this phase alone
-   on (2, 2), clean and then with two planted faults (``planted``: the
-   gradients' sum over the batch's rows left out; the norms' gradients
-   summed over model), each of which must fail a check besides the
-   sanity bound on every rank.
+   on (2, 2) (then phase 10c's mixtral), clean and then with two planted
+   faults (``planted``: the gradients' sum over the batch's rows left
+   out; the norms' gradients summed over model), each of which must fail
+   a check besides the sanity bound on every rank.
+10c. The sharded train step of the moe kind and MLA
+   (``run_mesh_tp_phase``): mixtral-8x22b at published width, 1 of 56
+   layers (its 8 experts split on their width over model), and
+   minicpm3-4b, 2 of 62 layers (MLA's heads over model), phase 10b's 4 x
+   2048 batch, 2 steps, on 4 ``gloo`` ranks sharing the card as (2, 2),
+   against one process.  The param figures first, from the defs
+   (``reckoning``: the params a layer and the rest, params + m + v whole
+   and a rank's, a layer gathered whole on data).  One process runs the
+   2 steps, its gradients of step 1 watched at ``adamw.update``
+   (``step_grads``) and its routing tapped (``routed``); the ranks map
+   its params and gradients (CUDA IPC through the spawn) and read their
+   blocks there.  Each rank: its blocks of the seed's params (m and v
+   zeros), the routing of step 1's forward counted against one
+   process's (assignments and kept lanes differing), then one process's
+   routing fed to every call (a flip from the bf16 rounding of the
+   row-parallel sums changes a token's whole expert output), 2 steps:
+   step 1's gradients, its blocks, within 5e-2 of each leaf's largest;
+   step 1's loss and grad norm within 1e-3 of one process's; step 2's
+   within 1e-3 of one process's rerun from the params the ranks copy out
+   after step 1 (``rerun_steps``; AdamW's first steps turn the ranks'
+   rounding into moves of up to lr); the params after the steps at most
+   a tenth of the elements moved by more than lr / 10 (and the sanity
+   bound); every leaf of params, m and v the rank's block by
+   ``param_pspecs``, ``moe/wi`` (``attn/wq_b``) a different block on
+   every rank that splits it; ``flash_prefill`` and ``gqa_decode`` never
+   launched.  Printed: ms a step by rank and its part in ``gloo``, the
+   collectives a step, each step's gradient norm by leaf against one
+   process's, peak device memory and params + m + v by rank, the phase's
+   seconds by part.  ``--mesh-train-control`` also runs mixtral alone
+   with the MoE router's gradient summed over model (planted "router"),
+   which must fail a check besides the sanity bound on every rank.
 
 The last two lines are the per-kernel JSON record (``hash_probe``'s entry
 carries its probe-window route under ``probe_window``) and
@@ -388,6 +419,7 @@ import contextlib
 import hashlib
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -443,7 +475,8 @@ from repro_torch.models.blocks import (attention_layers,  # noqa: E402
                                        decode_attention_layers)
 from repro_torch.models.moe import capacity as moe_capacity  # noqa: E402
 from repro_torch.models.params import (param_count,  # noqa: E402
-                                       tree_leaves, tree_map)
+                                       tree_leaves, tree_map,
+                                       tree_unflatten)
 from repro_torch.obs import MetricsRegistry  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.store.checkpoint import CheckpointManager  # noqa: E402
@@ -1886,11 +1919,13 @@ def run_sharded_phase(dev):
     print(f"phase 3c: ShardedDurableMap, {N_SHARDS} shards of "
           f"{cap // N_SHARDS} slots (hash-1M geometry), key range 2^20")
     shapes = check_shard_kernels(dev, cap, kr, 1024)
-    _, bucket = run_sharded(dev, "bucket", cap, kr, 1 << 19, 200, 20, 1024,
+    # 50 + 20 batches a backend and 15 compared: the depth cut to leave
+    # room in the script's time
+    _, bucket = run_sharded(dev, "bucket", cap, kr, 1 << 19, 50, 20, 1024,
                             snapshot=True, label="sharded bucket")
-    _, probe = run_sharded(dev, "probe", cap, kr, 1 << 19, 200, 20, 1024,
+    _, probe = run_sharded(dev, "probe", cap, kr, 1 << 19, 50, 20, 1024,
                            label="sharded probe")
-    rows = compare_sharding(dev, cap, kr, 1 << 19, 30, 1024, 10)
+    rows = compare_sharding(dev, cap, kr, 1 << 19, 15, 1024, 10)
     flat, s8 = rows["flat"], rows[f"s{N_SHARDS}"]
     print(f"sharding at equal total capacity (bucket, SOFT): ops/s flat "
           f"{flat['ops_s']:.1f}, s1 {rows['s1']['ops_s']:.1f}, s{N_SHARDS} "
@@ -1900,10 +1935,10 @@ def run_sharded_phase(dev):
           f"per batch {flat['syncs']:.2f} / {rows['s1']['syncs']:.2f} / "
           f"{s8['syncs']:.2f}; recovery ms {flat['recovery_ms']:.3f} / "
           f"{rows['s1']['recovery_ms']:.3f} / {s8['recovery_ms']:.3f}")
-    run_routed(dev, cap, kr, 20, 1024, "capped v2 (max_lane_budget 64, "
+    run_routed(dev, cap, kr, 10, 1024, "capped v2 (max_lane_budget 64, "
                "strided, 2 groups)", max_lane_budget=64,
                placement="strided", n_device_groups=2)
-    run_routed(dev, cap, kr, 20, 1024, "v1 router", router="v1",
+    run_routed(dev, cap, kr, 10, 1024, "v1 router", router="v1",
                lane_factor=1)
     check_serve_shards(dev)
     run_card_tests("sharded card tests", "sharded")
@@ -2861,7 +2896,9 @@ def run_resize_phase(dev, per=1 << 18, kr=1 << 20, b=1024):
     rng = np.random.default_rng([SEED, 40])
     ref = Reference(kr, "soft")
     m = elastic_map(dev, "bucket", per, kr, rng, ref, "resize bucket")
-    before = drive(m, ref, dev, *traffic(rng, 20, b, kr),
+    # 10 batches before and after the split: the depth cut to leave room
+    # in the script's time
+    before = drive(m, ref, dev, *traffic(rng, 10, b, kr),
                    "resize before the split")
     scan_cuda.launches = probe_cuda.launches = 0
     during = live_split(m, ref, dev, rng, kr, b, "resize live split")
@@ -2872,7 +2909,7 @@ def run_resize_phase(dev, per=1 << 18, kr=1 << 20, b=1024):
            and live["hash_probe"] > 0,
            "resize live split: recovery_scan not once per child, or no "
            "lookup launched")
-    after = drive(m, ref, dev, *traffic(rng, 20, b, kr),
+    after = drive(m, ref, dev, *traffic(rng, 10, b, kr),
                   "resize after the split")
     check_membership(m, ref, dev, MEMBER_CHUNK, "resize after the split")
     print(f"resize ops/s (bucket, SOFT, {b} lanes): before the split "
@@ -5086,19 +5123,29 @@ def planted(fault):
     runs (``--mesh-train-control``): "dp" leaves out their sum over the
     batch's dp line (each rank keeps its own rows' gradient), "model"
     sums every leaf whole on data over model (ln1, ln2 and final_norm
-    doubled); None plants nothing."""
+    doubled), "router" sums the MoE router's gradient over model (a copy
+    onto the model line in front of it: counted twice on (2, 2)); None
+    plants nothing."""
+    from repro_torch.models import blocks as B
     from repro_torch.models import tp as TP
-    real_gatherer, real_layout = TP.Gatherer, TP.layout
+    real_gatherer, real_layout, real_moe = TP.Gatherer, TP.layout, B.moe_ffn
     if fault == "dp":
         TP.Gatherer = lambda fsdp, dp, tp: real_gatherer(
             fsdp, TP.Line(dp.mesh, None), tp)
     elif fault == "model":
         TP.layout = lambda specs, axis, partial: real_layout(
             specs, axis, [True] * len(partial))
+    elif fault == "router":
+        def moe_ffn(p, x, cfg, dp=None, tp=None):
+            if tp is not None:
+                p = dict(p, router=tp.copy_to(p["router"]))
+            return real_moe(p, x, cfg, dp, tp)
+        B.moe_ffn = moe_ffn
     try:
         yield
     finally:
-        TP.Gatherer, TP.layout = real_gatherer, real_layout
+        TP.Gatherer, TP.layout, B.moe_ffn = real_gatherer, real_layout, \
+            real_moe
 
 
 def mesh_train_rank(rank, ref_path, device, plan):
@@ -5299,6 +5346,526 @@ def run_mesh_train_phase(dev, smi, plan=None):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 10c. the sharded train step of the moe kind and MLA on (2, 2)
+# ---------------------------------------------------------------------------
+
+# mixtral-8x22b (8 experts: each expert's width split over model) and
+# minicpm3-4b (MLA's heads split over model) at their published widths,
+# depth cut to 1 of 56 and 2 of 62 layers; phase 10b's batch, steps and
+# tolerances, grad_accum 1 (mixtral's registered 2 would leave a rank one
+# row a microbatch).  ``faults`` maps an arch to the planted faults run
+# after its clean run (``--mesh-train-control``)
+MESH_TP = dict(runs=(("mixtral-8x22b", 1), ("minicpm3-4b", 2)),
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=2, grid=(2, 2),
+               faults={})
+# the leaf of each arch whose blocks must differ on every rank that splits
+# it (an expert leaf on the width route: a quarter on each rank of (2, 2))
+MESH_TP_LEAF = {"mixtral-8x22b": "stack_0/b0_moe/moe/wi",
+                "minicpm3-4b": "stack_0/b0_attn/attn/wq_b"}
+
+
+@contextlib.contextmanager
+def routed(ref=None, rows=None):
+    """``moe.route`` watched while the block runs.  Without ``ref``: each
+    call's top-k experts kept (on the host), in call order (a layer's
+    forward, then its recomputation under remat).  With ``ref`` (those of
+    one process) and this rank's ``rows``: call i's experts counted
+    against ``ref[i]``'s rows, then replaced by them, with the gates at
+    them renormalized as ``route`` does (the same bits where they agree).
+    Trap: routing is discrete.  The ranks' bf16 residual differs from one
+    process's by the rounding of the row-parallel sums, a near tie of two
+    gates flips, and a flipped token's whole expert output changes: its
+    gradient is another number, not a rounding of it.  So the phase
+    counts the flips, then feeds the ranks one process's routing, and
+    holds everything else to the tolerances of phase 10b."""
+    from repro_torch.models import moe as MOE
+    real = MOE.route
+    rec = {"topi": [], "diff": [], "keep": None}
+
+    def route(x, router, cfg):
+        gates, topv, topi = real(x, router, cfg)
+        if ref is None:
+            rec["topi"].append(topi.detach().cpu())
+            return gates, topv, topi
+        want = ref[len(rec["diff"])][rows].to(topi.device)
+        rec["diff"].append((int((topi != want).sum()), topi.numel()))
+        if rec["keep"] is None:      # the first call's kept lanes
+            with torch.no_grad():    # nothing saved: remat recomputes
+                mine = MOE.plan(topi, topv, cfg).keep
+                kept = MOE.plan(want, topv, cfg).keep
+            rec["keep"] = (int((mine != kept).sum()), mine.numel())
+        topv = torch.gather(gates, -1, want)
+        return gates, topv / topv.sum(-1, keepdim=True), want
+    MOE.route = route
+    try:
+        yield rec
+    finally:
+        MOE.route = real
+
+
+@contextlib.contextmanager
+def step_grads(check, replicas):
+    """The gradients each train step of the block applies, watched at
+    ``adamw.update`` before it runs: ``check(grads)`` on the first step's,
+    and every step's sum of squares by leaf, each divided by
+    ``replicas[leaf]`` (the ranks holding the same block: summed over the
+    ranks, the whole leaf's).  The seconds each step spent here are kept,
+    to take out of its time."""
+    real = adamw.update
+    rec = {"s": [], "out": None, "sumsq": []}
+
+    def update(grads, *a, **k):
+        t = time.perf_counter()
+        if not rec["sumsq"]:
+            rec["out"] = check(grads)
+        rec["sumsq"].append({key: float(g.float().square().sum())
+                             / replicas.get(key, 1)
+                             for key, g in tree_leaves(grads)})
+        rec["s"].append(time.perf_counter() - t)
+        return real(grads, *a, **k)
+    adamw.update = update
+    try:
+        yield rec
+    finally:
+        adamw.update = real
+
+
+def reckoning(cfg, specs, grid) -> dict:
+    """The param figures of ``cfg`` from its defs: the whole count, the
+    stacked layers' and the rest's, params + m + v bytes whole and on a
+    rank of ``grid`` by ``specs``, and a layer's leaves whole on data and
+    still split on model (what a rank's gather makes) in bytes."""
+    from repro_torch.launch.specs import local_shape
+    from repro_torch.models.params import param_defs
+    pbytes = torch.finfo(getattr(torch, cfg.param_dtype)).bits // 8
+    obytes = torch.finfo(getattr(torch, cfg.opt_dtype)).bits // 8
+    flat = dict(tree_leaves(specs))
+    per_rank = [0] * (grid[0] * grid[1])
+    total = stacked = layer_gather = 0
+    for key, pd in tree_leaves(param_defs(cfg)):
+        n = int(np.prod(pd.shape, dtype=np.int64))
+        total += n
+        if key.startswith("stack_"):
+            stacked += n
+            model = "model" in flat[key]
+            layer_gather += n // pd.shape[0] // (grid[1] if model else 1)
+        for r in range(len(per_rank)):
+            blk = local_shape(pd.shape, flat[key],
+                              mesh.ModelMesh(("data", "model"), grid, r))
+            per_rank[r] += int(np.prod(blk, dtype=np.int64))
+    return dict(params=total, stacked=stacked, other=total - stacked,
+                state=total * (pbytes + 2 * obytes),
+                rank_state=[n * (pbytes + 2 * obytes) for n in per_rank],
+                layer_gather=layer_gather * pbytes)
+
+
+def _block_errors(got, ref, specs, mm, gmax=None, opt_cfg=None,
+                  steps=None):
+    """This rank's blocks against the same blocks of one process's whole
+    leaves ``ref``.  With ``gmax`` (each leaf's largest |gradient|):
+    (leaf, largest |diff| over it) of the three leaves off most, the worst
+    first.  Else the params' figures of ``_param_errors``: the largest
+    |diff|, over the sanity bound, and the (count moved by more than lr /
+    10, count)."""
+    from repro_torch.launch.specs import local_slices
+    flat = dict(tree_leaves(specs))
+    worst, diff, ratio, moved, total = [], 0.0, 0.0, 0, 0
+    for key, a in tree_leaves(got):
+        b = ref[key]
+        b = b[local_slices(tuple(b.shape), flat[key], mm)].to(a.device)
+        d = (a.float() - b.float()).abs()
+        if gmax is not None:
+            worst.append((key, float(d.max()) / max(gmax[key], 1e-30)))
+            continue
+        lr, wd = opt_cfg.lr, opt_cfg.weight_decay
+        b = b.float().abs()
+        tol = 2 * steps * lr * (1 + wd * b) + steps * 2.0 ** -7 * b
+        diff = max(diff, float(d.max()))
+        ratio = max(ratio, float((d / tol).max()))
+        moved += int((d > lr / 10).sum())
+        total += d.numel()
+    if gmax is not None:
+        return sorted(worst, key=lambda kv: -kv[1])[:3]
+    return diff, ratio, (moved, total)
+
+
+def _norm_diffs(got, one) -> list:
+    """Per step, the three leaves whose gradient norm (the ranks' blocks
+    summed) differs most from one process's (its rerun from the ranks'
+    params after step 1), relative, with the sign."""
+    out = []
+    for k, ref in enumerate(one["sumsq"][:1] +
+                            [n["sumsq"] for n in one["next"]]):
+        rel = [(key, round(math.sqrt(sum(g["sumsq"][k][key] for g in got)
+                                     / max(w, 1e-60)) - 1.0, 5))
+               for key, w in ref.items()]
+        out.append(sorted(rel, key=lambda kv: -abs(kv[1]))[:3])
+    return out
+
+
+def _copy_out(params, whole, specs, mm) -> None:
+    """This rank's blocks of ``params`` written into ``whole`` (each leaf
+    whole, one process's tensors mapped here) where ``specs`` places
+    them; the ranks holding one block write the same bits."""
+    from repro_torch.launch.specs import local_slices
+    flat = dict(tree_leaves(specs))
+    for key, a in tree_leaves(params):
+        w = whole[key]
+        w[local_slices(tuple(w.shape), flat[key], mm)] = a.to(w.device)
+
+
+def mesh_tp_rank(rank, device, plan, refs):
+    """A rank of phase 10c: for each run and each of its faults, the
+    seed's params cut to this rank's blocks (the whole made once on the
+    device and freed; m and v zeros of the blocks' shapes), then
+    ``plan["steps"]`` sharded train steps on one process's routing
+    (``routed``), the gradients the first applies held to one process's
+    (``refs``: its leaves on the card, mapped here, this rank's blocks
+    read from them), then the blocks held to one process's params.  After
+    each step but the last the clean run copies its blocks out into
+    ``refs[arch]["after"]``, from which one process reruns the next step's
+    loss and gradients."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.meshctx import mesh_context
+    from repro_torch.launch.specs import (batch_pspecs, local_rows,
+                                          local_shape, make_shard_ctx, put,
+                                          split_axes)
+    from repro_torch.models.params import param_defs, param_pspecs
+    dev = mesh.rank_device(rank, device)
+    mm = mesh.make_model_mesh(plan["grid"])
+    out = {}
+    for arch, layers in plan["runs"]:
+        cfg, opt_cfg, batch = mesh_train_setup(dict(plan, arch=arch,
+                                                    layers=layers))
+        shape = ShapeConfig("train", plan["seq"], plan["batch"], "train")
+        ctx = make_shard_ctx(cfg, shape, mm)
+        specs = param_pspecs(cfg, ctx, mesh=mm)
+        ref = refs[arch]
+        with mesh_context(mm):
+            rows_of = local_rows(ctx, plan["batch"])
+        replicas = {k: mm.world // int(np.prod(
+            [mm.shape[a] for a in split_axes(spec, mm)]))
+            for k, spec in tree_leaves(specs)}
+        # the clean run last: it copies its params out into the buffer of
+        # step 1's gradients, which the planted runs read
+        for fault in tuple(plan["faults"].get(arch, ())) + (None,):
+            t0 = time.perf_counter()
+            params = put(M.init_params(cfg, SEED, dev), specs, mm)
+            state = TS.TrainState(params, adamw.init(params, opt_cfg))
+            del params
+            rows = put({k: v.to(dev) for k, v in batch.items()},
+                       batch_pspecs(cfg, shape, ctx), mm)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+            t1 = time.perf_counter()
+            # the model mesh's collectives, the backward's (run on the
+            # autograd engine's thread) included
+            with mesh_context(mm), planted(fault), \
+                    routed(ref["routing"], rows_of) as rt, \
+                    step_grads(lambda g: _block_errors(
+                        g, ref["grads"], specs, mm, gmax=ref["gmax"]),
+                        replicas) as sg, \
+                    timed_calls(mesh.ModelMesh, (
+                        "all_reduce", "all_gather",
+                        "reduce_scatter")) as coll:
+                step = TS.make_train_step(cfg, opt_cfg, 1, ctx)
+                metrics, ms, coll_ms, launches = [], [], [], (0, 0)
+                for k in range(plan["steps"]):
+                    state, m1, ms1, coll1, l1 = mesh_train_steps(
+                        step, state, rows, 1, dev, coll)
+                    metrics += m1
+                    ms += ms1
+                    coll_ms += coll1
+                    launches = tuple(a + b for a, b in zip(launches, l1))
+                    if fault is None and k < plan["steps"] - 1:
+                        _copy_out(state.params, ref["after"][k], specs, mm)
+            ms = [x - 1e3 * t for x, t in zip(ms, sg["s"])]
+            r = dict(metrics=metrics, ms=ms, launches=launches,
+                     coll_ms=coll_ms, grad_err=sg["out"],
+                     sumsq=sg["sumsq"],
+                     routing=((rt["diff"] or [(0, 0)])[0],
+                              rt["keep"] or (0, 0),
+                              [d for d, _ in rt["diff"]]),
+                     coll_calls=coll["n"] / plan["steps"],
+                     peak=torch.cuda.max_memory_allocated(dev)
+                     if dev.type == "cuda" else 0,
+                     state_bytes=sum(_tree_bytes(t) for t in (
+                         state.params, state.opt.m, state.opt.v)))
+            r["errors"] = _block_errors(state.params, ref["params"], specs,
+                                        mm, opt_cfg=opt_cfg,
+                                        steps=plan["steps"])
+            whole = dict(tree_leaves(param_defs(cfg)))
+            flat = dict(tree_leaves(specs))
+            r["held"] = all(
+                tuple(a.shape) == local_shape(whole[k].shape, flat[k], mm)
+                for part in (state.params, state.opt.m, state.opt.v)
+                for k, a in tree_leaves(part))
+            key = MESH_TP_LEAF[arch.removesuffix("-smoke")]
+            leaf = dict(tree_leaves(state.params))[key]
+            r["leaf"] = (key, leaf.numel(), int(np.prod(
+                whole[key].shape, dtype=np.int64)), int(np.prod(
+                    [mm.shape[a] for a in split_axes(flat[key], mm)])),
+                hashlib.sha1(leaf.view(torch.int16).cpu().numpy()
+                             .tobytes()).hexdigest())
+            r["parts"] = (t1 - t0, sum(ms) / 1e3,
+                          time.perf_counter() - t1 - sum(ms) / 1e3)
+            out[(arch, fault)] = r
+            del state, rows
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    return out
+
+
+def rerun_steps(dev, plan, ref) -> list:
+    """Each later step's metrics and gradient sums of squares by leaf, one
+    process's, from the params the ranks copied out after the step before
+    (``ref["after"]``) on the routing the ranks were fed.  Trap: AdamW's
+    first steps divide each gradient by its own magnitude, so the ranks'
+    rounding moves some elements by up to lr and step 2 starts from other
+    params than one process's step 2: its loss and grad norm are held to
+    one process's at the ranks' own params."""
+    from repro_torch.models.params import param_defs
+    cfg, _, batch = mesh_train_setup(plan)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    per = len(ref["routing"]) // plan["steps"]
+    out = []
+    for k, after in enumerate(ref["after"], 1):
+        defs = param_defs(cfg)
+        params = tree_unflatten(defs, [after[key].to(dev)
+                                       for key, _ in tree_leaves(defs)])
+        with routed(ref["routing"][k * per:(k + 1) * per], slice(None)):
+            loss, met, grads = TS.loss_and_grads(cfg, params, batch)
+        out.append(dict(metrics=dict(
+            {n: float(v) for n, v in met.items()}, loss=float(loss),
+            grad_norm=float(adamw.global_norm(grads))), sumsq={
+                key: float(g.float().square().sum())
+                for key, g in tree_leaves(grads)}))
+        del params, grads
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def run_mesh_tp_phase(dev, smi, plan=None):
+    """Phase 10c: the sharded train step of the moe kind (width route)
+    and MLA on (2, 2), at published width, against one process.  A run
+    with a planted fault must fail a check besides the params' sanity
+    bound on every rank.  Returns the ranks' attention kernel launches by
+    arch."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.specs import make_shard_ctx
+    from repro_torch.models.params import param_defs, param_pspecs
+    plan = plan or MESH_TP
+    t0 = time.perf_counter()
+    grid = plan["grid"]
+    print(f"phase 10c: the sharded train step of the moe kind and MLA on "
+          f"{grid[0] * grid[1]} gloo ranks sharing one card, grid {grid} "
+          f"(data, model): "
+          + ", ".join(f"{a} ({n} layer{'s' if n > 1 else ''})"
+                      for a, n in plan["runs"])
+          + f" at published width, {plan['batch']} x {plan['seq']} tokens, "
+          f"{plan['steps']} steps")
+    refs, one, held = {}, {}, 0
+    for arch, layers in plan["runs"]:
+        t1 = time.perf_counter()
+        cfg, opt_cfg, batch = mesh_train_setup(dict(plan, arch=arch,
+                                                    layers=layers))
+        shape = ShapeConfig("train", plan["seq"], plan["batch"], "train")
+        grid_mesh = mesh.ModelMesh(("data", "model"), grid)
+        rk = reckoning(cfg, param_pspecs(cfg, make_shard_ctx(
+            cfg, shape, grid_mesh), mesh=grid_mesh), grid)
+        print(f"mesh tp {arch}: {rk['params'] / 1e9:.4f}B params "
+              f"({rk['stacked'] / 1e9 / layers:.4f}B a layer x {layers}, "
+              f"{rk['other'] / 1e9:.4f}B embedding, unembedding and final "
+              f"norm), {cfg.param_dtype} params and {cfg.opt_dtype} m and "
+              f"v: params + m + v {rk['state'] / 2**30:.3f} GiB, a rank's "
+              f"blocks {[round(b / 2**30, 3) for b in rk['rank_state']]} "
+              f"GiB; a layer gathered whole on data and split on model "
+              f"{rk['layer_gather'] / 2**30:.3f} GiB a rank; remat "
+              f"{cfg.remat}")
+        # The reference stays on the card: the spawn hands each rank a
+        # handle to these tensors (CUDA IPC), whose blocks it reads there.
+        # Made first, on an emptied allocator, so that each has segments
+        # of its own: a tensor kept in a segment that the steps' freed
+        # activations share would keep the whole segment reserved.  The
+        # gradients' buffer then takes the params the ranks copy out
+        # after step 1 (they have all read step 1's gradients by then:
+        # each rank's check runs before the step's grad norm, a
+        # collective of the grid)
+        defs = [(k, pd.shape) for k, pd in tree_leaves(param_defs(cfg))]
+        pdt = getattr(torch, cfg.param_dtype)
+        ref = {part: {k: torch.empty(shp, dtype=pdt, device=dev)
+                      for k, shp in defs} for part in ("params", "grads")}
+        held += 2 * _tree_bytes(ref["params"])
+        state = TS.init_train_state(cfg, SEED, opt_cfg, device=dev)
+        state_bytes = sum(_tree_bytes(t) for t in (
+            state.params, state.opt.m, state.opt.v))
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        sync(dev)
+        t2 = time.perf_counter()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+
+        def keep(grads):
+            for k, g in tree_leaves(grads):
+                ref["grads"][k].copy_(g)
+            return {k: float(a.abs().max()) for k, a in tree_leaves(grads)}
+        with routed() as rt, step_grads(keep, {}) as sg:
+            state, metrics, ms, _, launches = mesh_train_steps(
+                TS.make_train_step(cfg, opt_cfg), state, batch,
+                plan["steps"], dev)
+        t3 = time.perf_counter()
+        ms = [x - 1e3 * t for x, t in zip(ms, sg["s"])]
+        # the step's own peak: the references held on the card taken out
+        peak = torch.cuda.max_memory_allocated(dev) - held \
+            if dev.type == "cuda" else 0
+        expect(launches == (0, 0), f"mesh tp {arch} one process: attention "
+               f"kernels launched {launches}")
+        for k, a in tree_leaves(state.params):
+            ref["params"][k].copy_(a)
+        after = ([ref["grads"]] + [
+            {k: torch.empty_like(a) for k, a in ref["params"].items()}
+            for _ in range(plan["steps"] - 2)])[:plan["steps"] - 1]
+        refs[arch] = dict(params=ref["params"], grads=ref["grads"],
+                          gmax=sg["out"], routing=rt["topi"], after=after)
+        t4 = time.perf_counter()
+        one[arch] = dict(metrics=metrics, ms=ms, peak=peak,
+                         state_bytes=state_bytes, sumsq=sg["sumsq"],
+                         s=t4 - t1, parts=(t2 - t1, t3 - t2 - sum(sg["s"]),
+                                           t4 - t3 + sum(sg["s"])))
+        del state, batch, sg, ref
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    # the ranks' allocators grow by extending their segments: 4 ranks'
+    # fragments beside the reference (one process's params and gradients:
+    # 10.8 GiB for mixtral) would not fit the card
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = mesh.spawn(mesh_tp_rank, grid[0] * grid[1], str(dev), plan,
+                           refs)
+    finally:
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    spawn_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    for arch, layers in plan["runs"]:
+        one[arch]["next"] = rerun_steps(dev, dict(plan, arch=arch,
+                                                  layers=layers), refs[arch])
+    rerun_s = time.perf_counter() - t1
+    del refs
+    launches = {}
+    for arch, _ in plan["runs"]:
+        o = one[arch]
+        print(f"mesh tp {arch} one process: ms a step "
+              f"{[round(x, 3) for x in o['ms']]}, losses "
+              f"{[round(m['loss'], 5) for m in o['metrics']]}, grad norms "
+              f"{[round(m['grad_norm'], 5) for m in o['metrics']]}, peak "
+              f"device memory {o['peak'] / 2**30:.3f} GiB, params + m + v "
+              f"{o['state_bytes'] / 2**30:.3f} GiB ({smi})")
+        for fault in (None,) + tuple(plan["faults"].get(arch, ())):
+            got = [r[(arch, fault)] for r in ranks]
+            # step 1 against one process's; each later step against one
+            # process's rerun from the ranks' params (``rerun_steps``)
+            held = o["metrics"][:1] + [n["metrics"] for n in o["next"]]
+            fails = [_mesh_train_failures(
+                dict(g, grad_err=g["grad_err"][0],
+                     errors=(g["errors"][0], g["errors"][1],
+                             g["errors"][2][0] / g["errors"][2][1])),
+                held) for g in got]
+            grad_err = [[(k, round(e, 5)) for k, e in g["grad_err"]]
+                        for g in got]
+            if fault is not None:
+                caught = [sorted({c for c, _ in f if c != "params"})
+                          for f in fails]
+                print(f"mesh train control {arch} {grid}, fault {fault!r} "
+                      f"planted: checks failed by rank {caught}; step 1 "
+                      f"gradients off most by rank {grad_err} of their "
+                      f"largest; grad norms by rank "
+                      f"{[[round(m['grad_norm'], 5) for m in g['metrics']] for g in got]}"
+                      f" ({smi})")
+                expect(all(caught), f"mesh tp {arch}: the planted fault "
+                       f"{fault!r} passed every check but the sanity bound "
+                       f"on a rank: {fails}")
+                continue
+            launches[arch] = [g["launches"] for g in got]
+            key, _, whole, split, _ = got[0]["leaf"]
+            print(f"mesh tp {arch} {grid}: ms a step by rank "
+                  f"{[[round(x, 3) for x in g['ms']] for g in got]}, of "
+                  f"which in gloo collectives "
+                  f"{[[round(x, 3) for x in g['coll_ms']] for g in got]} "
+                  f"({got[0]['coll_calls']:.1f} collectives a step; the "
+                  f"last step's share in gloo by rank "
+                  f"{[round(g['coll_ms'][-1] / g['ms'][-1], 4) for g in got]}"
+                  f"); routing of step 1's forward against one process's "
+                  f"(top-k assignments differing, of; kept lanes "
+                  f"differing, of) by rank "
+                  f"{[g['routing'][0] + g['routing'][1] for g in got]}, "
+                  f"assignments differing in each route call by rank "
+                  f"{[g['routing'][2] for g in got]}, then one process's "
+                  f"routing fed to the ranks; losses "
+                  f"{[round(m['loss'], 5) for m in got[0]['metrics']]}, grad"
+                  f" norms "
+                  f"{[round(m['grad_norm'], 5) for m in got[0]['metrics']]}"
+                  f" (one process "
+                  f"{[round(m['loss'], 5) for m in o['metrics']]}, "
+                  f"{[round(m['grad_norm'], 5) for m in o['metrics']]}; "
+                  f"one process's from the ranks' params after each step "
+                  f"before the last "
+                  f"{[round(n['metrics']['loss'], 5) for n in o['next']]}, "
+                  f"{[round(n['metrics']['grad_norm'], 5) for n in o['next']]}"
+                  f"); "
+                  f"step 1 gradients against one process's, each rank's "
+                  f"blocks: the leaves off most by rank {grad_err} of their "
+                  f"largest; params against one process's: largest |diff| "
+                  f"by rank {[g['errors'][0] for g in got]} "
+                  f"({[round(g['errors'][1], 4) for g in got]} of the sanity"
+                  f" bound), share moved by more than lr / 10 "
+                  f"{[round(g['errors'][2][0] / g['errors'][2][1], 5) for g in got]}"
+                  f"; each step's gradient norm by leaf against one "
+                  f"process's, the three leaves off most (relative) "
+                  f"{_norm_diffs(got, o)}"
+                  f"; every leaf of params, m and v the rank's block, {key} "
+                  f"1/{split} of the leaf on each rank, {split} different "
+                  f"blocks; peak device memory GiB by rank "
+                  f"{[round(g['peak'] / 2**30, 3) for g in got]} against one"
+                  f" process's {o['peak'] / 2**30:.3f}; params + m + v GiB "
+                  f"by rank "
+                  f"{[round(g['state_bytes'] / 2**30, 3) for g in got]} "
+                  f"against {o['state_bytes'] / 2**30:.3f}; flash_prefill "
+                  f"and gqa_decode launches a step by rank "
+                  f"{[tuple(x // plan['steps'] for x in g['launches']) for g in got]}"
+                  f" ({smi})")
+            for rank, (g, f) in enumerate(zip(got, fails)):
+                what = f"mesh tp {arch} {grid} rank {rank}"
+                expect(not f, f"{what}: {[w for _, w in f]}")
+                expect(g["launches"] == (0, 0),
+                       f"{what}: attention kernels launched {g['launches']}")
+                expect(g["held"], f"{what}: a leaf of params, m or v is not "
+                       "the rank's block by param_pspecs")
+            expect(all(g["leaf"][1] * split == whole for g in got)
+                   and len({g["leaf"][4] for g in got}) == split,
+                   f"mesh tp {arch}: {key} blocks "
+                   f"{[g['leaf'][1] for g in got]} are not 1/{split} of "
+                   f"the leaf each, {split} different")
+    print(f"phase 10c: {time.perf_counter() - t0:.1f} s (one process "
+          + ", ".join(f"{a} {one[a]['s']:.1f} s (set-up {one[a]['parts'][0]:.1f}"
+                      f", steps {one[a]["parts"][1]:.1f}, the reference "
+                      f"kept {one[a]['parts'][2]:.1f})"
+                      for a, _ in plan["runs"])
+          + f"; the spawn and the ranks' runs {spawn_s:.1f} s, rank 0's "
+          f"set-up, steps and checks by run "
+          + ", ".join(f"{a} {[round(x, 1) for x in ranks[0][(a, None)]['parts']]}"
+                      for a, _ in plan["runs"])
+          + f"; the reruns {rerun_s:.1f} s)")
+    return launches
+
+
 def mesh_train_control_main() -> int:
     """``--mesh-train-control``: phase 10b on the (2, 2) grid alone, clean
     and then with each planted fault (``planted``): the clean run passes
@@ -5308,6 +5875,8 @@ def mesh_train_control_main() -> int:
     smi = environment()
     run_mesh_train_phase(dev, smi, dict(MESH_TRAIN, grids=((2, 2),),
                                         faults=(None, "dp", "model")))
+    run_mesh_tp_phase(dev, smi, dict(MESH_TP, runs=MESH_TP["runs"][:1],
+                                     faults={"mixtral-8x22b": ("router",)}))
     print(smi)
     print(json.dumps({"mesh_train_control": "ok", "card": smi}))
     return 0
@@ -5472,6 +6041,10 @@ def main() -> int:
 
     # 10b. the sharded train step on 4 ranks sharing the card
     run_mesh_train_phase(dev, smi)
+    torch.cuda.empty_cache()
+
+    # 10c. the same for the moe kind and MLA at published width
+    run_mesh_tp_phase(dev, smi)
 
     record = {"kernels": [
         {"name": "recovery_scan", "route": "cuda",

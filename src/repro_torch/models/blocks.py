@@ -97,18 +97,35 @@ def _attn_train(p, x, cfg, positions, window, tp=None):
 # MLA attention (minicpm3)
 # ---------------------------------------------------------------------------
 
-def _mla_project_q(p, x, cfg):
+def _mla_project_q(p, x, cfg, tp=None):
+    """The per-head query parts (nope, rope) of x; with ``tp`` (the
+    ``model`` line) of this rank's heads, ``wq_b`` holding their
+    columns."""
     b, s = x.shape[0], x.shape[1]
     dt = x.dtype
-    q = (x @ p["wq_a"].to(dt)) @ p["wq_b"].to(dt)
-    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim + cfg.rope_dim)
+    h = cfg.n_heads
+    q = x @ p["wq_a"].to(dt)
+    if tp is not None:
+        # Trap: which gradients come out whole.  wq_a is split on data and
+        # replicated on model: the gathers never sum its gradient over
+        # model, so the copy sits on its output, where the rank's columns
+        # begin, and not on x (whose copy would leave wq_a's gradient the
+        # rank's part)
+        q = tp.copy_to(q)
+        h //= tp.size
+    q = (q @ p["wq_b"].to(dt)).reshape(b, s, h, cfg.head_dim + cfg.rope_dim)
     return q[..., :cfg.head_dim], q[..., cfg.head_dim:]   # nope, rope parts
 
 
-def _mla_latent(p, x, cfg, positions):
-    """The latent (B,S,r) and the shared rotary key (B,S,rope_dim)."""
+def _mla_latent(p, x, cfg, positions, tp=None):
+    """The latent (B,S,r) and the shared rotary key (B,S,rope_dim); with
+    ``tp``, copied onto the line (wkv_a's trap is wq_a's: the latent feeds
+    the rank's heads' ``wk_b`` and ``wv_b`` columns and the rotary key is
+    broadcast to its heads alone, so both gradients are partial sums)."""
     r = cfg.kv_lora_rank
     lat_full = x @ p["wkv_a"].to(x.dtype)                 # (B,S,r+rd)
+    if tp is not None:
+        lat_full = tp.copy_to(lat_full)
     k_rope = L.apply_rope(lat_full[:, :, None, r:], positions,
                           cfg.rope_theta)[:, :, 0]
     return lat_full[..., :r], k_rope
@@ -121,16 +138,21 @@ def _mla_cache_write(cache, lat, k_rope, pos0):
                   lat[..., None, :], k_rope[..., None, :], pos0)
 
 
-def _mla_qkv(p, x, cfg, positions):
+def _mla_qkv(p, x, cfg, positions, tp=None):
     """Per-head q, k (nope and the shared rotary part, broadcast over the
     heads) and v (at its own width hd) from the latent, with the latent
-    and the rotary key."""
+    and the rotary key.  With ``tp`` the heads are this rank's: ``wq_b``,
+    ``wk_b`` and ``wv_b`` hold their columns, whole heads (a contiguous
+    block of h*(hd+rd) or h*hd columns, head-major as the reshape
+    reads)."""
     b, s = x.shape[0], x.shape[1]
     dt = x.dtype
     rd, h, hd = cfg.rope_dim, cfg.n_heads, cfg.head_dim
-    q_nope, q_rope = _mla_project_q(p, x, cfg)
+    if tp is not None:
+        h //= tp.size
+    q_nope, q_rope = _mla_project_q(p, x, cfg, tp)
     q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
-    lat, k_rope = _mla_latent(p, x, cfg, positions)
+    lat, k_rope = _mla_latent(p, x, cfg, positions, tp)
     k_nope = (lat @ p["wk_b"].to(dt)).reshape(b, s, h, hd)
     v = (lat @ p["wv_b"].to(dt)).reshape(b, s, h, hd)
     q = torch.cat([q_nope, q_rope], -1)
@@ -138,12 +160,15 @@ def _mla_qkv(p, x, cfg, positions):
     return q, k, v, lat, k_rope
 
 
-def _mla_train(p, x, cfg, positions, window):
+def _mla_train(p, x, cfg, positions, window, tp=None):
+    """With ``tp`` on this rank's heads (``_mla_qkv``), ``wo`` holding
+    their rows (row-parallel, its partial sums summed)."""
     b, s = x.shape[0], x.shape[1]
-    q, k, v, _, _ = _mla_qkv(p, x, cfg, positions)
+    q, k, v, _, _ = _mla_qkv(p, x, cfg, positions, tp)
     pos2 = _pos2d(positions)
     out = L.attention_dense(q, k, v, pos2, pos2, window)  # (B,S,H,hd)
-    return out.reshape(b, s, -1) @ p["wo"].to(x.dtype)
+    out = out.reshape(b, s, -1) @ p["wo"].to(x.dtype)
+    return out if tp is None else tp.reduce_from(out)
 
 
 def _mla_prefill(p, x, cfg, positions, window, cache, mask_pos=None):
@@ -319,10 +344,12 @@ def apply_block(kind: str, p: Dict[str, Any], x: torch.Tensor, *,
     ``ShardCtx``) with ``seq_shard_cache`` makes the self-attention caches
     this rank's block of slots (``layers.seq_slots``).  In train mode an
     enabled ``ctx`` makes ``p`` this rank's compute blocks of the sharded
-    train step: an ``attn`` block runs on its heads and MLP columns over
-    the ``model`` line (``models/model.py::_check_train_ctx`` refuses the
-    other kinds where that line has more than one rank), and a ``moe``
-    block's auxiliary loss covers the rows of the whole ``dp`` line."""
+    train step: an ``attn`` block runs on its heads (MLA's too) and MLP
+    columns over the ``model`` line, a ``moe`` block on its columns of the
+    experts' width or its whole experts (``models/moe.py``), its auxiliary
+    loss covering the rows of the whole ``dp`` line
+    (``models/model.py::_check_ctx`` refuses the other kinds where that
+    line has more than one rank)."""
     _check_kind(kind)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
@@ -355,7 +382,7 @@ def apply_block(kind: str, p: Dict[str, Any], x: torch.Tensor, *,
         mix = _enc_attn(p["attn"], h, cfg, positions, mode)
     elif cfg.mla and kind != "dec":
         if train:
-            mix = _mla_train(p["attn"], h, cfg, positions, window)
+            mix = _mla_train(p["attn"], h, cfg, positions, window, tp)
         elif mode == "prefill":
             mix = _mla_prefill(p["attn"], h, cfg, positions, window, cache,
                                mask_pos)
@@ -382,7 +409,7 @@ def apply_block(kind: str, p: Dict[str, Any], x: torch.Tensor, *,
     h2 = L.norm(p["ln2"], x, cfg)
     aux = None
     if kind == "moe":
-        ff, aux = moe_ffn(p["moe"], h2, cfg, dp)
+        ff, aux = moe_ffn(p["moe"], h2, cfg, dp, tp)
     else:
         ff = L.mlp(p["mlp"], h2, tp)
     return x + ff, cache, aux

@@ -43,8 +43,10 @@ Training on a mesh: ``forward_train``, ``loss_fn`` and ``ce_loss_chunked``
 take the same optional ``ctx``.  Each rank then holds its blocks of every
 param by ``param_pspecs`` and its rows of the batch; a layer's ``data``
 blocks are gathered inside its remat body, an ``attn`` block runs on the
-rank's heads and MLP columns, and the embedding and the cross entropy are
-vocabulary-parallel (``models/tp.py`` has the collectives).
+rank's heads (MLA's too) and MLP columns, a ``moe`` block on its columns
+of the experts' width or its whole experts, and the embedding and the
+cross entropy are vocabulary-parallel (``models/tp.py`` has the
+collectives).
 """
 from __future__ import annotations
 
@@ -57,7 +59,8 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import apply_block, init_block_cache
-from repro_torch.models.params import (init_params,  # noqa: F401
+from repro_torch.models.params import (expert_parallel,
+                                       init_params,  # noqa: F401
                                        param_count, param_pspecs,
                                        tree_leaves, tree_map, tree_unflatten)
 from repro_torch.models import tp as TP
@@ -160,8 +163,14 @@ def _run_stacks(params, x, cfg: ModelConfig, mode: str, positions, caches,
     return x
 
 
-# the leaves replicated on ``model`` that an ``attn`` block applies to
-# this rank's heads: their gradients are partial sums over ``model``
+# the leaves replicated on ``model`` (and whole on ``data``) that an
+# ``attn`` block applies to this rank's heads: their gradients are partial
+# sums over ``model``, summed by the gathers' backward.  Not among them:
+# the norms applied to the replicated residual (whole on every rank), and
+# the leaves split on ``data`` and replicated on ``model`` -- the MoE
+# router, MLA's wq_a and wkv_a -- which the gathers never sum over
+# ``model``: ``moe.py`` and ``blocks.py`` place their ``copy_to`` so that
+# those gradients come out whole on every rank
 TP_PARTIAL = ("q_norm", "k_norm")
 
 
@@ -329,7 +338,7 @@ def forward_train(params, batch: Dict[str, Any], cfg: ModelConfig,
     rank's blocks by ``param_pspecs(cfg, ctx, mesh=mesh)``, the batch is
     its rows by ``batch_pspecs``, and the hidden state returned is those
     rows' (whole on the ``model`` line: Megatron-SP's split of the
-    residual between blocks is not made, ROADMAP item 12.5c).  A
+    residual between blocks is not made, ROADMAP item 12.5d).  A
     collective of the whole grid."""
     x, aux, _ = _forward_train(params, batch, cfg, ctx)
     return x, aux
@@ -431,12 +440,14 @@ def _check_ctx(cfg: ModelConfig, ctx, train: bool = False) -> None:
     without one or with one of other axes or another group).  Serving:
     MLA and the ``ssm`` family never take the sequence split (JAX's
     ``make_shard_ctx`` never gives it them).  Training (``train``): the
-    sharded step has tensor-parallel compute for the ``attn`` block kind
-    alone, on heads, MLP width and vocabulary that the ``model`` line
-    divides (JAX drops the axis elsewhere; the port does not guess), and
-    no ``pod`` axis (ZeRO's optimizer blocks over it differ from the
-    params').  What it lacks raises ``NotImplementedError`` here, from the
-    config and the grid alone: before any collective, on every rank."""
+    sharded step has tensor-parallel compute for the ``attn`` and ``moe``
+    block kinds, MLA included, on heads, MLP width, expert width (or the
+    experts, where ``expert_parallel`` splits them), the dense residual's
+    width and vocabulary that the ``model`` line divides (JAX drops the
+    axis elsewhere; the port does not guess), and no ``pod`` axis (ZeRO's
+    optimizer blocks over it differ from the params').  What it lacks
+    raises ``NotImplementedError`` here, from the config and the grid
+    alone: before any collective, on every rank."""
     if ctx is None or not ctx.enabled:
         return
     from repro_torch.launch.meshctx import require_mesh
@@ -455,19 +466,25 @@ def _check_ctx(cfg: ModelConfig, ctx, train: bool = False) -> None:
         kinds = {k for period, _ in cfg.stacks() for k in period}
         if cfg.family == "audio":
             kinds.add("enc")
-        if kinds - {"attn"}:
-            missing.append(f"the {sorted(kinds - {'attn'})} block kinds")
-        if cfg.mla:
-            missing.append("MLA")
-        for what, dim in (("query heads", cfg.n_heads),
-                          ("KV heads", cfg.n_kv_heads),
-                          ("MLP width", cfg.d_ff), ("vocabulary", cfg.vocab)):
+        if kinds - {"attn", "moe"}:
+            missing.append(f"the {sorted(kinds - {'attn', 'moe'})} block "
+                           "kinds")
+        dims = [("query heads", cfg.n_heads), ("KV heads", cfg.n_kv_heads),
+                ("vocabulary", cfg.vocab)]
+        if "attn" in kinds:
+            dims.append(("MLP width", cfg.d_ff))
+        if "moe" in kinds:
+            dims.append(("experts", cfg.n_experts) if expert_parallel(cfg)
+                        else ("expert width", cfg.d_ff))
+            if cfg.moe_dense_ff:
+                dims.append(("dense residual width", cfg.moe_dense_ff))
+        for what, dim in dims:
             if dim % n:
                 missing.append(f"{dim} {what} over {n} model ranks")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: the sharded train step lacks tensor-parallel "
-            f"compute for {'; '.join(missing)} (ROADMAP item 12.5c)")
+            f"compute for {'; '.join(missing)} (ROADMAP item 12.5d)")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
@@ -494,7 +511,7 @@ def _init_cache_part(cfg, batch, max_seq, dtype, device, ctx):
     """This rank's block of every leaf of ``init_cache(cfg, batch,
     max_seq)``.  Raises where the layout needs what this slice lacks: a
     recurrent state split over its width (tensor-parallel recurrent
-    compute, ROADMAP item 12.5c), or a sequence split that the ``model``
+    compute, ROADMAP item 12.5d), or a sequence split that the ``model``
     axis cannot make (JAX's ``shard_map`` refuses it)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.meshctx import require_mesh
@@ -517,7 +534,7 @@ def _init_cache_part(cfg, batch, max_seq, dtype, device, ctx):
             raise NotImplementedError(
                 f"{cfg.name}: the {name!r} state split over the model axis "
                 "needs tensor-parallel recurrent compute (ROADMAP item "
-                "12.5c)")
+                "12.5d)")
         return torch.zeros(local_shape(tuple(leaf.shape), spec, mesh),
                            dtype=leaf.dtype, device=device)
 

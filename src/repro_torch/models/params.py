@@ -76,9 +76,15 @@ def _mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None
     }
 
 
+def expert_parallel(cfg: ModelConfig) -> bool:
+    """Whether the experts split over ``model`` (the ``ep`` role: each rank
+    holds whole experts) rather than their width (``tp``)."""
+    return cfg.n_experts % 16 == 0
+
+
 def _moe_defs(cfg: ModelConfig) -> Dict[str, Any]:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
-    ep = e % 16 == 0   # expert-parallel when the expert count shards cleanly
+    ep = expert_parallel(cfg)  # when the expert count shards cleanly
     er = "ep" if ep else None
     inner = "fsdp" if ep else "fsdp"
     tpf = None if ep else "tp"

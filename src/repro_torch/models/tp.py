@@ -4,23 +4,39 @@ inserts them from the specs.
 
 On the grid every param leaf and its AdamW state are held in blocks by
 ``models/params.py::param_pspecs``: the ``fsdp`` role splits a dim over
-``data``, the ``tp`` role over ``model``.  Each rank computes on its rows
-of the batch (``dp``) and, in an ``attn`` block, on its heads and its
-columns of the MLP's hidden width; the vocabulary is split over ``model``
-(Megatron-style tensor parallelism).
+``data``, the ``tp`` and ``ep`` roles over ``model``.  Each rank computes
+on its rows of the batch (``dp``) and, over ``model`` (Megatron-style
+tensor parallelism), on its heads (``attn`` and MLA blocks), its columns
+of an MLP's hidden width, its columns of every expert's width (a ``moe``
+block whose experts do not split: ``expert_parallel`` false) or its whole
+experts (``expert_parallel`` true), and its rows of the vocabulary.
 
-  copy_to      identity forward, SUM over the line backward (the residual
+  copy_to      identity forward, SUM over the line backward (an input
                entering a column-parallel product: each rank's partial
                gradient of it summed)
   reduce_from  SUM over the line forward, identity backward (a
                row-parallel product's partial sums, a vocabulary-parallel
                embedding, the cross entropy's sums)
+  all_gather   the ranks' blocks concatenated along a dim forward, this
+               rank's block of the gradient backward (the experts'
+               outputs on the expert-parallel route)
   gather       a layer's ``data`` blocks gathered into the leaves the
                layer computes with (whole on ``data``, still split on
                ``model``); backward sums the gradients over the batch's
                ``dp`` axis and keeps this rank's blocks (reduce-scatter),
                and sums the gradient of a leaf replicated on ``model`` but
                applied to this rank's heads over ``model`` as well
+
+Which gradients sum over ``model``: only those of leaves whole on
+``data`` flagged in ``Layout.partial`` (``models/model.py::TP_PARTIAL``:
+qk-norm's scales).  A leaf split on ``data`` and replicated on ``model``
+is never summed over ``model``, so its gradient must come out whole on
+every model rank by itself: the MoE router and MLA's ``wq_a`` and
+``wkv_a`` (roles ``(fsdp, None)``) are such leaves.  Their products run on
+the replicated residual, and the ``copy_to`` that sums the partial
+gradients of the rank's columns or experts sits after them (on MLA's
+``x @ wq_a`` and ``x @ wkv_a``, on MoE's dispatched tokens), so that no
+partial gradient reaches them.
 
 Each is an autograd function over the lines of a ``ModelMesh``
 (``launch/mesh.py``), a no-op on a line of one rank.  A layer's leaves
@@ -61,6 +77,13 @@ class Line(NamedTuple):
     def reduce_from(self, x: torch.Tensor) -> torch.Tensor:
         return x if self.size == 1 else _ReduceFrom.apply(x, self)
 
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The line's blocks of ``x`` concatenated along ``dim`` in their
+        coordinate order; backward keeps this rank's block of the gradient
+        (the gradient of the whole is the same on every rank: what follows
+        runs replicated)."""
+        return x if self.size == 1 else _AllGather.apply(x, self, dim)
+
     def max(self, x: torch.Tensor) -> torch.Tensor:
         """The elementwise MAX of a tensor without gradient over the line
         (a copy; ``x`` itself on a line of one rank)."""
@@ -99,6 +122,22 @@ class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln, dim):
+        ctx.ln, ctx.dim, ctx.k = ln, dim, x.shape[dim]
+        n = ln.size
+        part = x.movedim(dim, 0)
+        whole = ln.mesh.all_gather(part, ln.axes).view((n,) + part.shape)
+        return whole.reshape((n * part.shape[0],) + part.shape[1:]) \
+            .movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        at = ctx.ln.coord * ctx.k
+        return g.narrow(ctx.dim, at, ctx.k).contiguous(), None, None
 
 
 # ---------------------------------------------------------------------------

@@ -1568,75 +1568,103 @@ def test_mesh_decode_of_two_ranks_on_the_card_matches_one_process(cuda):
 
 
 MESH_TRAIN_GRID = (2, 2)
+# the sharded train step on the card: qwen3-32b-smoke (attention), then
+# the moe kind on the width route (mixtral), on the EP route with the dense
+# residual (arctic with 16 experts, "+16") and MLA (minicpm3); each with
+# the leaf whose four blocks must differ
+MESH_TRAIN_ARCHS = {"qwen3-32b-smoke": "stack_0/b0_attn/attn/wq",
+                    "mixtral-8x22b-smoke": "stack_0/b0_moe/moe/wi",
+                    "arctic-480b-smoke+16": "stack_0/b0_moe/moe/wi",
+                    "minicpm3-4b-smoke": "stack_0/b0_attn/attn/wo"}
+
+
+def _mesh_train_cfg(name):
+    arch, _, experts = name.partition("+")
+    cfg = get_config(arch)
+    return cfg.replace(n_experts=int(experts)) if experts else cfg
 
 
 def mesh_train_rank(rank):
-    """qwen3-32b-smoke's (f32) sharded train step on this rank of a (2, 2)
-    grid on the card, from the seed's state and batch: the metrics, the
-    gathered gradients it applies, the gathered state before and after,
-    this rank's ``wq`` block and the attention kernels' launches."""
+    """Each ``MESH_TRAIN_ARCHS`` config's (f32) sharded train step on this
+    rank of a (2, 2) grid on the card, from the seed's state and batch:
+    the metrics, the gathered gradients it applies, the gathered state
+    before and after, this rank's block of the config's leaf and the
+    attention kernels' launches."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.mesh import make_model_mesh
     from repro_torch.launch.meshctx import mesh_context
     from repro_torch.launch.specs import (batch_pspecs, gather,
                                           make_shard_ctx, put)
-    from repro_torch.models.params import param_pspecs, tree_map
+    from repro_torch.models.params import param_pspecs, tree_leaves, tree_map
     from repro_torch.optim import adamw
     from repro_torch.train import steps as TS
-    cfg = get_config("qwen3-32b-smoke")
-    opt = adamw.AdamWConfig(lr=TRAIN_LR, warmup=1, total_steps=10,
-                            state_dtype=cfg.opt_dtype)
     mesh = make_model_mesh(MESH_TRAIN_GRID)
     shape = ShapeConfig("t", 16, 4, "train")
-    ctx = make_shard_ctx(cfg, shape, mesh)
-    specs = param_pspecs(cfg, ctx, mesh=mesh)
-    # the CPU's seeded state (a card generator draws other numbers), its
-    # blocks moved to the card
-    state = TS.shard_train_state(
-        TS.init_train_state(cfg, 0, opt, device="cpu"), cfg, ctx, mesh)
+    out = {}
+    for name, leaf in MESH_TRAIN_ARCHS.items():
+        cfg = _mesh_train_cfg(name)
+        opt = adamw.AdamWConfig(lr=TRAIN_LR, warmup=1, total_steps=10,
+                                state_dtype=cfg.opt_dtype)
+        ctx = make_shard_ctx(cfg, shape, mesh)
+        specs = param_pspecs(cfg, ctx, mesh=mesh)
+        # the CPU's seeded state (a card generator draws other numbers),
+        # its blocks moved to the card
+        state = TS.shard_train_state(
+            TS.init_train_state(cfg, 0, opt, device="cpu"), cfg, ctx, mesh)
 
-    def card(tree):
-        return tree_map(lambda a: a.cuda(), tree)
+        def card(tree):
+            return tree_map(lambda a: a.cuda(), tree)
 
-    state = TS.TrainState(card(state.params), adamw.AdamWState(
-        state.opt.step.cuda(), card(state.opt.m), card(state.opt.v)))
-    rows = put({k: v.cuda() for k, v in _train_batch(cfg, 4).items()},
-               batch_pspecs(cfg, shape, ctx), mesh)
+        state = TS.TrainState(card(state.params), adamw.AdamWState(
+            state.opt.step.cuda(), card(state.opt.m), card(state.opt.v)))
+        rows = put({k: v.cuda() for k, v in _train_batch(cfg, 4).items()},
+                   batch_pspecs(cfg, shape, ctx), mesh)
 
-    def host(tree):
-        return tree_map(lambda a: a.cpu().numpy(), tree)
+        def host(tree):
+            return tree_map(lambda a: a.cpu().numpy(), tree)
 
-    with mesh_context(mesh):
-        before = host(gather(state.params, specs, mesh))
-        grads = host(gather(TS.loss_and_grads(cfg, state.params, rows,
-                                              ctx)[2], specs, mesh))
-        flash_prefill_cuda.launches = gqa_decode_cuda.launches = 0
-        state, m = TS.make_train_step(cfg, opt, 1, ctx)(state, rows)
-        launches = (flash_prefill_cuda.launches, gqa_decode_cuda.launches)
-        after = {"params": host(gather(state.params, specs, mesh)),
-                 "m": host(gather(state.opt.m, specs, mesh)),
-                 "v": host(gather(state.opt.v, specs, mesh))}
-    wq = state.params["stack_0"]["b0_attn"]["attn"]["wq"]
-    return {"metrics": {k: float(v) for k, v in m.items()},
-            "before": before, "grads": grads, "after": after,
-            "wq": wq.cpu().numpy().tobytes(), "wq_numel": wq.numel(),
-            "launches": launches}
+        with mesh_context(mesh):
+            before = host(gather(state.params, specs, mesh))
+            grads = host(gather(TS.loss_and_grads(cfg, state.params, rows,
+                                                  ctx)[2], specs, mesh))
+            flash_prefill_cuda.launches = gqa_decode_cuda.launches = 0
+            state, m = TS.make_train_step(cfg, opt, 1, ctx)(state, rows)
+            launches = (flash_prefill_cuda.launches,
+                        gqa_decode_cuda.launches)
+            after = {"params": host(gather(state.params, specs, mesh)),
+                     "m": host(gather(state.opt.m, specs, mesh)),
+                     "v": host(gather(state.opt.v, specs, mesh))}
+        block = dict(tree_leaves(state.params))[leaf]
+        out[name] = {"metrics": {k: float(v) for k, v in m.items()},
+                     "before": before, "grads": grads, "after": after,
+                     "block": block.cpu().numpy().tobytes(),
+                     "block_numel": block.numel(), "launches": launches}
+    return out
 
 
-def test_mesh_train_of_four_ranks_on_the_card_matches_the_cpu(cuda):
-    """The sharded train step over 4 gloo ranks sharing the card on a (2,
-    2) grid against one process on the CPU, from the same seed's state
-    and batch: the loss and grad norm within 1e-5 relative, the
-    gradients within 1e-4 of each leaf's largest magnitude, m and v
-    within lr x 1e-3 of the CPU's, the params within lr x 1e-3 of the
-    CPU's AdamW update of the card's gradients (the rule of the train
-    card test above), ``wq`` a different quarter on each rank, neither
-    attention kernel launched."""
+@pytest.fixture(scope="module")
+def mesh_train_ranks():
+    """One spawn of 4 gloo ranks sharing the card for every config of
+    ``MESH_TRAIN_ARCHS``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is "
+                    "False)")
     from repro_torch.launch.mesh import spawn
+    return spawn(mesh_train_rank, 4)
+
+
+def _check_mesh_train(name, ranks):
+    """The ranks' run of ``name`` against one process on the CPU, from the
+    same seed's state and batch: the loss and grad norm within 1e-5
+    relative, the gradients within 1e-4 of each leaf's largest magnitude,
+    m and v within lr x 1e-3 of the CPU's, the params within lr x 1e-3 of
+    the CPU's AdamW update of the card's gradients (the rule of the train
+    card test above), the leaf a different quarter on each rank, neither
+    attention kernel launched."""
     from repro_torch.models.params import tree_leaves, tree_map
     from repro_torch.optim import adamw
     from repro_torch.train import steps as TS
-    cfg = get_config("qwen3-32b-smoke")
+    cfg = _mesh_train_cfg(name)
     opt = adamw.AdamWConfig(lr=TRAIN_LR, warmup=1, total_steps=10,
                             state_dtype=cfg.opt_dtype)
     cpu = torch.device("cpu")
@@ -1645,11 +1673,11 @@ def test_mesh_train_of_four_ranks_on_the_card_matches_the_cpu(cuda):
     _, _, g_cpu = TS.loss_and_grads(cfg, state.params, batch)
     host, m_cpu = TS.make_train_step(cfg, opt)(
         TS.init_train_state(cfg, 0, opt, device=cpu), batch)
-    ranks = spawn(mesh_train_rank, 4)
-    whole = state.params["stack_0"]["b0_attn"]["attn"]["wq"].numel()
-    assert len({r["wq"] for r in ranks}) == 4
-    for r in ranks:
-        assert r["wq_numel"] * 4 == whole and r["launches"] == (0, 0)
+    got = [r[name] for r in ranks]
+    whole = dict(tree_leaves(state.params))[MESH_TRAIN_ARCHS[name]].numel()
+    assert len({r["block"] for r in got}) == 4
+    for r in got:
+        assert r["block_numel"] * 4 == whole and r["launches"] == (0, 0)
         for key in ("loss", "grad_norm"):
             assert abs(r["metrics"][key] - float(m_cpu[key])) <= \
                 1e-5 * abs(float(m_cpu[key])), key
@@ -1664,9 +1692,30 @@ def test_mesh_train_of_four_ranks_on_the_card_matches_the_cpu(cuda):
             tree_map(torch.from_numpy, r["grads"]),
             TS.init_train_state(cfg, 0, opt, device=cpu).opt,
             TS.init_train_state(cfg, 0, opt, device=cpu).params, opt)
-        for got, ref in ((r["after"]["params"], want),
-                         (r["after"]["m"], host.opt.m),
-                         (r["after"]["v"], host.opt.v)):
-            for (key, a), (_, b) in zip(tree_leaves(got), tree_leaves(ref)):
+        for got_t, ref in ((r["after"]["params"], want),
+                           (r["after"]["m"], host.opt.m),
+                           (r["after"]["v"], host.opt.v)):
+            for (key, a), (_, b) in zip(tree_leaves(got_t),
+                                        tree_leaves(ref)):
                 assert float(np.abs(a - b.numpy()).max()) <= \
                     TRAIN_LR * 1e-3, key
+
+
+def test_mesh_train_of_four_ranks_on_the_card_matches_the_cpu(
+        cuda, mesh_train_ranks):
+    """The sharded train step over 4 gloo ranks sharing the card on a (2,
+    2) grid against one process on the CPU (``_check_mesh_train``):
+    qwen3-32b-smoke, ``wq`` a different quarter on each rank."""
+    _check_mesh_train("qwen3-32b-smoke", mesh_train_ranks)
+
+
+@pytest.mark.parametrize("name", [n for n in MESH_TRAIN_ARCHS
+                                  if not n.startswith("qwen3")])
+def test_mesh_train_of_moe_and_mla_on_the_card_matches_the_cpu(
+        cuda, mesh_train_ranks, name):
+    """The moe kind and MLA in the sharded train step on the card against
+    the CPU (``_check_mesh_train``): mixtral's experts split on their
+    width, arctic's 16 on E (the EP route: its all-gather of card
+    tensors) beside its dense residual, minicpm3's MLA heads; each
+    expert's ``wi`` (MLA's ``wo``) a different quarter on each rank."""
+    _check_mesh_train(name, mesh_train_ranks)

@@ -770,5 +770,5 @@ def test_refusals_on_the_ranks(runs):
         assert got["pod_ctx"][0] == "ValueError", got
         assert got["mla_seq"][0] == "ValueError", got
         assert got["rglru_width"][0] == "NotImplementedError", got
-        assert "12.5c" in got["rglru_width"][1]
+        assert "12.5d" in got["rglru_width"][1]
         assert got["window_6"][0] == "ValueError", got

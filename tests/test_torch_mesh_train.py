@@ -29,6 +29,7 @@ the runs held to one process.  The sums run in other orders (XLA's
 collectives and dots against ``gloo`` and torch's), so agreement is to
 rounding, not bit for bit; the specs are compared exactly.
 """
+import contextlib
 import dataclasses
 import functools
 import os
@@ -76,14 +77,28 @@ SPEC_GRIDS = ((2, 2), (4, 2), (1, 4))
 # with tied embeddings (no registered config ties them: the unembedding is
 # the transpose of the rank's vocabulary rows); B 8, S 16
 SELF_ARCHS = ("h2o-danube-3-4b-smoke", "qwen1.5-110b-smoke",
-              "qwen2-vl-2b-smoke", "qwen3-32b-smoke+tied")
+              "qwen2-vl-2b-smoke", "qwen3-32b-smoke+tied",
+              "arctic-480b-smoke")
+# MLA's 4 heads over 4 model ranks, one a rank, against one process
+MLA_GRID = (1, 4)
 SELF_SHAPE = (8, 16)
 FSDP_GRID = (4, 1)
-# where the model line lacks tensor-parallel compute (ROADMAP 12.5c):
+# the moe kind and MLA on (2, 2) against JAX's step: (name, arch, config
+# fields replaced in both packages).  mixtral's 4 experts split their width
+# over model; arctic with 16 experts takes JAX's EP route (params.py's
+# ``n_experts % 16 == 0``: whole experts over model), its dense residual
+# column- and row-parallel; minicpm3's MLA splits its 4 heads
+TP_RUNS = (("mixtral", "mixtral-8x22b-smoke", {}),
+           ("arctic16", "arctic-480b-smoke", {"n_experts": 16}),
+           ("minicpm", "minicpm3-4b-smoke", {}))
+TP_NAMES = [r[0] for r in TP_RUNS]
+# the leaf of each whose blocks differ on every rank (a quarter each)
+TP_LEAF = {"mixtral": "stack_0/b0_moe/moe/wi",
+           "arctic16": "stack_0/b0_moe/moe/wi",
+           "minicpm": "stack_0/b0_attn/attn/wo"}
+# where the model line lacks tensor-parallel compute (ROADMAP 12.5d):
 # (name, arch, grid)
-REFUSALS = (("moe", "mixtral-8x22b-smoke", GRID),
-            ("mla", "minicpm3-4b-smoke", GRID),
-            ("xlstm", "xlstm-350m-smoke", GRID),
+REFUSALS = (("xlstm", "xlstm-350m-smoke", GRID),
             ("rglru", "recurrentgemma-2b-smoke", GRID),
             ("whisper", "whisper-base-smoke", GRID),
             ("kv_heads", ARCH, (1, 4)),
@@ -99,6 +114,12 @@ def _cfg(name):
     arch, _, tied = name.partition("+")
     cfg = get_config(arch)
     return cfg.replace(tie_embeddings=True) if tied else cfg
+
+
+def _tp_cfg(name):
+    """The port's config of a ``TP_RUNS`` entry."""
+    _, arch, kw = next(r for r in TP_RUNS if r[0] == name)
+    return get_config(arch).replace(**kw)
 
 
 def _batch(cfg, b, s, seed=37):
@@ -194,7 +215,96 @@ def jax_main(out_dir):
         st, m = acc(state, jax.device_put(batch, bsh))
         for name in ("loss", "grad_norm", "ce", "aux"):
             rec[f"accum_{name}"] = np.asarray(m[name])
+    for name, arch, kw in TP_RUNS:
+        rec.update(_jax_tp_run(name, jget(arch).replace(**kw), mesh, opt_cfg))
     np.savez(os.path.join(out_dir, "jax.npz"), **rec)
+
+
+def _jax_tap_routing(taps):
+    """``repro.models.moe``'s ``lax.top_k`` and its one ``jnp.where`` (the
+    kept mask choosing each lane's slot) through stand-ins that hand their
+    top-k experts and kept mask to the host while a program runs (the
+    JAX package itself unchanged); returns the undo."""
+    import jax
+    from repro.models import moe as JMOE
+    real_lax, real_jnp = JMOE.lax, JMOE.jnp
+
+    def record(kind):
+        return lambda a: taps[kind].append(np.asarray(a))
+
+    class Lax:
+        def __getattr__(self, name):
+            return getattr(real_lax, name)
+
+        @staticmethod
+        def top_k(x, k):
+            v, i = real_lax.top_k(x, k)
+            jax.debug.callback(record("topi"), i)
+            return v, i
+
+    class Jnp:
+        def __getattr__(self, name):
+            return getattr(real_jnp, name)
+
+        @staticmethod
+        def where(keep, *a):
+            jax.debug.callback(record("keep"), keep)
+            return real_jnp.where(keep, *a)
+
+    JMOE.lax, JMOE.jnp = Lax(), Jnp()
+
+    def undo():
+        JMOE.lax, JMOE.jnp = real_lax, real_jnp
+    return undo
+
+
+def _jax_tp_run(name, cfg, mesh, opt_cfg):
+    """One ``TP_RUNS`` config on the 2 x 2 mesh: the loss, metrics and
+    gradients of step 1 with each MoE layer's top-k experts and kept mask
+    (the forward's, in layer order), then two train steps' metrics."""
+    import jax
+    from repro.launch.meshctx import mesh_context as jmesh_context
+    from repro.launch.specs import batch_pspecs as jbatch_pspecs
+    from repro.launch.specs import make_shard_ctx as jmake_ctx
+    from repro.launch.specs import to_shardings
+    from repro.models import model as JM
+    from repro.models.params import param_pspecs as jparam_pspecs
+    from repro.configs.base import ShapeConfig as JShape
+    from repro.train import steps as JTS
+    shape = JShape(*SHAPE)
+    ctx = jmake_ctx(cfg, shape, mesh)
+    state = JTS.init_train_state(cfg, jax.random.PRNGKey(0), opt_cfg)
+    psh = to_shardings(mesh, jparam_pspecs(cfg, ctx, mesh=mesh))
+    state = JTS.TrainState(
+        params=jax.device_put(state.params, psh),
+        opt=state.opt._replace(m=jax.device_put(state.opt.m, psh),
+                               v=jax.device_put(state.opt.v, psh)))
+    bsh = to_shardings(mesh, jbatch_pspecs(cfg, shape, ctx))
+    batch = jax.device_put(_batch(_tp_cfg(name), SHAPE[2], SHAPE[1]), bsh)
+    rec, taps = {}, {"topi": [], "keep": []}
+    with jmesh_context(mesh):
+        undo = _jax_tap_routing(taps)
+        try:
+            grad = jax.jit(jax.value_and_grad(
+                lambda p, b: JM.loss_fn(p, b, cfg, ctx), has_aux=True))
+            (loss, met), grads = grad(state.params, batch)
+            jax.effects_barrier()
+        finally:
+            undo()
+        rec.update(loss0=np.asarray(loss), ce0=np.asarray(met["ce"]),
+                   aux0=np.asarray(met["aux"]), **_jnp_tree(grads, "grad0"))
+        layers = cfg.n_layers if cfg.n_experts else 0
+        for kind in ("topi", "keep"):
+            assert len(taps[kind]) >= layers, (name, kind, len(taps[kind]))
+            for i, a in enumerate(taps[kind][:layers]):
+                rec[f"{kind}/{i}"] = a
+        step = jax.jit(JTS.make_train_step(cfg, ctx, opt_cfg))
+        st = state
+        for k in range(2):
+            st, m = step(st, batch)
+            for key in ("loss", "grad_norm", "ce", "aux"):
+                rec[f"{key}_{k}"] = np.asarray(m[key])
+    return {f"{name}/{k}": v for k, v in rec.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -313,7 +423,42 @@ def _refusal(arch, mesh):
             setattr(mesh_mod.ModelMesh, n, f)
 
 
-def torch_rank(rank, jstate):
+@contextlib.contextmanager
+def _port_routing():
+    """Each MoE layer's (top-k experts, kept mask) as ``moe.plan`` gets
+    them while the block runs (this rank's rows), in call order."""
+    from repro_torch.models import moe as MOE
+    real, taps = MOE.plan, []
+
+    def plan(topi, topv, cfg):
+        pl = real(topi, topv, cfg)
+        taps.append((topi.numpy().copy(), pl.keep.numpy().copy()))
+        return pl
+    MOE.plan = plan
+    try:
+        yield taps
+    finally:
+        MOE.plan = real
+
+
+def _tp_run(name, mesh, jstate):
+    """A ``TP_RUNS`` config's two sharded steps on (2, 2) from JAX's state
+    cut to this rank's blocks (``train_state_from_jax``), with the first
+    forward's routing and this rank's initial block of its ``TP_LEAF``."""
+    cfg = _tp_cfg(name)
+    ctx = make_shard_ctx(cfg, ShapeConfig(*SHAPE), mesh)
+    state = train_state_from_jax(jstate, "cpu",
+                                 param_pspecs(cfg, ctx, mesh=mesh), mesh)
+    leaf = dict(tree_leaves(state.params))[TP_LEAF[name]].numpy().copy()
+    with _port_routing() as taps:
+        rec = _sharded_run(cfg, mesh, state,
+                           _batch(cfg, SHAPE[2], SHAPE[1]), 2)
+    rec["routing"] = taps[:cfg.n_layers if cfg.n_experts else 0]
+    rec["leaf"] = leaf
+    return rec
+
+
+def torch_rank(rank, jstate, tp_states):
     meshes = {grid: make_model_mesh(grid) for grid in
               (GRID, FSDP_GRID, (1, 4), (2, 1, 2))}
     mesh = meshes[GRID]
@@ -334,9 +479,13 @@ def torch_rank(rank, jstate):
     out["grad0"] = {"metrics": {k: float(v) for k, v in met.items()},
                     "grads": _np(gather(g, specs, mesh))}
     out["remat"] = _remat_bits(cfg, mesh, jax_state(), batch)
+    for name in TP_NAMES:
+        out[("tp", name)] = _tp_run(name, mesh, tp_states[name])
     runs = [("self", a, GRID, 2, 1) for a in SELF_ARCHS] + \
         [("fsdp", a + "-smoke", FSDP_GRID, 1, 1) for a in ASSIGNED] + \
-        [("fsdp_accum", "mixtral-8x22b-smoke", FSDP_GRID, 1, ACCUM)]
+        [("fsdp_accum", "mixtral-8x22b-smoke", FSDP_GRID, 1, ACCUM),
+         ("tp_accum", "mixtral-8x22b-smoke", GRID, 1, ACCUM),
+         ("mla", "minicpm3-4b-smoke", MLA_GRID, 2, 1)]
     for kind, arch, grid, steps, accum in runs:
         c = _cfg(arch)
         out[(kind, arch)] = _sharded_run(
@@ -367,9 +516,13 @@ def runs(tmp_path_factory):
         env=env, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True)
     try:
-        jstate = jax.tree.map(np.asarray, JTS.init_train_state(
-            jget(ARCH), jax.random.PRNGKey(0), jadamw.AdamWConfig(**OPT)))
-        ranks = spawn(torch_rank, RANKS, jstate)
+        def init(cfg):
+            return jax.tree.map(np.asarray, JTS.init_train_state(
+                cfg, jax.random.PRNGKey(0), jadamw.AdamWConfig(**OPT)))
+        jstate = init(jget(ARCH))
+        tp_states = {name: init(jget(arch).replace(**kw))
+                     for name, arch, kw in TP_RUNS}
+        ranks = spawn(torch_rank, RANKS, jstate, tp_states)
     except BaseException:
         proc.kill()
         proc.communicate()
@@ -377,7 +530,7 @@ def runs(tmp_path_factory):
     log, _ = proc.communicate(timeout=900)
     assert proc.returncode == 0, log[-4000:]
     return dict(jax=dict(np.load(os.path.join(jax_dir, "jax.npz"))),
-                jstate=jstate, ranks=ranks)
+                jstate=jstate, tp_states=tp_states, ranks=ranks)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -679,6 +832,119 @@ def test_remat_full_and_dots_change_no_number_on_the_grid(runs):
 
 
 # ---------------------------------------------------------------------------
+# (b2) the moe kind and MLA on (2, 2) against JAX's make_train_step on 2 x 2
+# ---------------------------------------------------------------------------
+
+
+def _jax_of(runs, name):
+    """JAX's record of a ``TP_RUNS`` config, its prefix taken off."""
+    return {k[len(name) + 1:]: v for k, v in runs["jax"].items()
+            if k.startswith(name + "/")}
+
+
+@pytest.mark.parametrize("name", TP_NAMES)
+def test_moe_and_mla_step_one_loss_and_gradients_match_jax(runs, name):
+    """Step 1's loss, ce and aux and the gradients of every leaf, gathered
+    on each rank, against JAX's on the same state and batch: the width
+    route (mixtral), the EP route with arctic's dense residual (16
+    experts), MLA's heads (minicpm3)."""
+    want = _jax_of(runs, name)
+    wg = {k[len("grad0/"):]: v for k, v in want.items()
+          if k.startswith("grad0/")}
+    for rank, out in enumerate(runs["ranks"]):
+        got = out[("tp", name)]["steps"][0]
+        _close_rel(got["metrics"]["ce"], want["ce0"], LOSS_RTOL,
+                   f"{name} rank {rank} ce")
+        _close_rel(got["metrics"]["loss"], want["loss0"], LOSS_RTOL,
+                   f"{name} rank {rank} loss")
+        np.testing.assert_allclose(got["metrics"]["aux"], want["aux0"],
+                                   rtol=LOSS_RTOL, atol=0,
+                                   err_msg=f"{name} rank {rank} aux")
+        _check_grads(got["grads"], wg, f"{name} rank {rank}")
+    if _tp_cfg(name).n_experts:
+        assert float(want["aux0"]) > 0
+
+
+@pytest.mark.parametrize("k", (0, 1))
+@pytest.mark.parametrize("name", TP_NAMES)
+def test_moe_and_mla_two_sharded_steps_match_jax(runs, name, k):
+    """Each step's loss, ce, aux and grad norm against JAX's step; the
+    state after it against JAX's update of the port's gathered gradients;
+    step 0 starts from JAX's own state."""
+    want = _jax_of(runs, name)
+    got = _same_on_ranks(runs["ranks"], ("tp", name))[0]
+    g = got["steps"][k]
+    for key, rtol in (("loss", LOSS_RTOL), ("ce", LOSS_RTOL),
+                      ("grad_norm", GNORM_RTOL)):
+        _close_rel(g["metrics"][key], want[f"{key}_{k}"], rtol,
+                   f"{name} step {k} {key}")
+    np.testing.assert_allclose(g["metrics"]["aux"], want[f"aux_{k}"],
+                               rtol=LOSS_RTOL, atol=0)
+    after = got["steps"][1]["before"] if k == 0 else got["after"]
+    _check_update(_jax_update, g["before"], g["grads"], after,
+                  f"{name} step {k}")
+    if k == 0:
+        for part in ("params", "m", "v"):
+            for key, a in tree_leaves(g["before"][part]):
+                assert np.array_equal(a, np.asarray(_jleaf(
+                    runs["tp_states"][name], part, key), np.float32)), key
+
+
+@pytest.mark.parametrize("name", [n for n in TP_NAMES
+                                  if _tp_cfg(n).n_experts])
+def test_moe_routing_matches_jax_bit_for_bit(runs, name):
+    """Each MoE layer's top-k experts and kept mask in step 1's forward,
+    the ranks' rows put together, equal to JAX's bit for bit (a flip
+    would change an assignment, not a rounding); the two model ranks of a
+    data row route alike."""
+    want = _jax_of(runs, name)
+    cfg = _tp_cfg(name)
+    ranks = runs["ranks"]
+    for i in range(cfg.n_layers):
+        for j, kind in enumerate(("topi", "keep")):
+            rows = []
+            for d in range(GRID[0]):
+                mine = [r[("tp", name)]["routing"][i][j] for rank, r in
+                        enumerate(ranks) if rank // GRID[1] == d]
+                assert all(np.array_equal(m, mine[0]) for m in mine)
+                rows.append(mine[0])
+            np.testing.assert_array_equal(
+                np.concatenate(rows), want[f"{kind}/{i}"],
+                err_msg=f"{name} layer {i} {kind}")
+
+
+@pytest.mark.parametrize("name", TP_NAMES)
+def test_moe_and_mla_leaves_are_held_as_the_ranks_blocks(runs, name):
+    """Params by ``param_pspecs``, m and v by its ``opt`` specs; the
+    experts' ``wi`` (split on d over data and, on the EP route, on E over
+    model, else on the width) and MLA's ``wo`` a quarter on each rank, a
+    different one each, equal to JAX's state's block as
+    ``train_state_from_jax`` cuts it (``local_slices`` of the spec)."""
+    from repro_torch.launch.specs import local_slices
+    cfg = _tp_cfg(name)
+    whole = {k: pd.shape for k, pd in tree_leaves(param_defs(cfg))}
+    jleaf = np.asarray(_jleaf(runs["tp_states"][name], "params",
+                              TP_LEAF[name]))
+    seen = set()
+    for rank, out in enumerate(runs["ranks"]):
+        got = out[("tp", name)]
+        grid = ModelMesh(("data", "model"), GRID, rank)
+        for part, key in (("params", "params"), ("m", "opt"), ("v", "opt")):
+            for leaf, shp in got["blocks"][part].items():
+                assert shp == local_shape(whole[leaf],
+                                          got["specs"][key][leaf], grid)
+        spec = got["specs"]["params"][TP_LEAF[name]]
+        assert "model" in spec and "data" in spec, spec
+        if name == "arctic16":
+            assert spec[1] == "model", spec        # whole experts
+        np.testing.assert_array_equal(
+            got["leaf"], jleaf[local_slices(jleaf.shape, spec, grid)])
+        assert got["leaf"].size * RANKS == jleaf.size
+        seen.add(got["leaf"].tobytes())
+    assert len(seen) == RANKS
+
+
+# ---------------------------------------------------------------------------
 # (c) the port's (2, 2) and (4, 1) steps against its own one process
 # ---------------------------------------------------------------------------
 
@@ -705,6 +971,29 @@ def test_fsdp_step_matches_one_process_for_every_family(runs, arch):
     _check_against_one_process(got, ref, arch)
 
 
+def test_mla_heads_over_four_model_ranks_match_one_process(runs):
+    """minicpm3-4b-smoke on (1, 4): one MLA head a rank, every rank all 8
+    rows, against one process."""
+    cfg = get_config("minicpm3-4b-smoke")
+    got = _same_on_ranks(runs["ranks"], ("mla", "minicpm3-4b-smoke"))[0]
+    assert got["rows"][0] == SELF_SHAPE[0]
+    assert got["specs"]["params"]["stack_0/b0_attn/attn/wk_b"] == \
+        (None, None, "model")
+    _check_against_one_process(got, _one_process(
+        cfg, _batch(cfg, *SELF_SHAPE), 2), "minicpm3 (1, 4)")
+
+
+def test_tensor_parallel_grad_accum_with_moe_matches_one_process(runs):
+    """mixtral-8x22b-smoke, grad_accum=2 on (2, 2): the experts' width
+    over model, each microbatch's aux loss over the whole microbatch,
+    against one process on the same batch."""
+    cfg = get_config("mixtral-8x22b-smoke")
+    got = _same_on_ranks(runs["ranks"],
+                         ("tp_accum", "mixtral-8x22b-smoke"))[0]
+    ref = _one_process(cfg, _batch(cfg, *SELF_SHAPE), 1, ACCUM)
+    _check_against_one_process(got, ref, "mixtral (2, 2) accum")
+
+
 def test_fsdp_grad_accum_with_moe_matches_one_process(runs):
     """mixtral-8x22b-smoke, grad_accum=2 on (4, 1): each microbatch's aux
     loss over the whole microbatch, against one process on the same
@@ -724,9 +1013,12 @@ def test_fsdp_grad_accum_with_moe_matches_one_process(runs):
 @pytest.mark.parametrize("name", [r[0] for r in REFUSALS])
 def test_refusals_name_12_5c_on_every_rank_before_any_collective(runs,
                                                                  name):
+    """What the model line still lacks raises on every rank before any
+    collective, naming ROADMAP item 12.5d (the part of item 12.5c left
+    after the moe kind and MLA)."""
     for rank, out in enumerate(runs["ranks"]):
         err, calls = out["refusals"][name]
-        assert err is not None and "ROADMAP item 12.5c" in err, (rank, err)
+        assert err is not None and "ROADMAP item 12.5d" in err, (rank, err)
         assert calls == [], (rank, calls)
 
 
