@@ -239,7 +239,16 @@ Phases, each of which exits non-zero on failure:
    decode (the combine is plain PyTorch); ms a decode step by rank, the
    part of it in ``gloo`` collectives, cache MiB by rank.  Then
    ``compressed_psum`` over the 4 ranks on card tensors against CPU
-   tensors, 8 steps of error feedback, bit for bit.
+   tensors, 8 steps of error feedback, bit for bit.  The recurrent
+   kinds too, on both grids: recurrentgemma-2b at published width, one
+   period of 3 layers (rglru, rglru, attn), its RG-LRU state split over
+   its 2560 channels and its 2048-slot local window on the sequence
+   split, wrapped by a 2090-token prompt; xlstm-350m, one period of 2
+   layers (mlstm, slstm), its sLSTM ``h`` split over the 1024 units, a
+   1024-token prompt; 16 steps each, held as above, with each rank's
+   state blocks gathered after the last step against one process's
+   states (within 3e-2 of each leaf's largest magnitude) and
+   ``flash_prefill`` launched once per attention layer in prefill.
 6. The serving path: ``repro_torch.launch.serve.run`` with qwen3-32b at
    full width and depth (64 layers, bf16, random weights from a seed), 8
    requests of 512 prompt tokens and 32 generated, then a crash of the
@@ -407,6 +416,26 @@ Phases, each of which exits non-zero on failure:
    seconds by part.  ``--mesh-train-control`` also runs mixtral alone
    with the MoE router's gradient summed over model (planted "router"),
    which must fail a check besides the sanity bound on every rank.
+10d. The same for the recurrent kinds (``run_mesh_tp_phase`` with
+   ``MESH_REC``): xlstm-350m, 2 of 24 layers (mLSTM's 4 heads, 2 a rank;
+   sLSTM whole on every rank from its gathered weights, its widths of
+   1365 whole on model), on 4 x 1024 tokens (its serial loop is slow:
+   the printed reason), twice: in its bf16, where one process first
+   measures how far its own step-1 gradient moves when the 4 rows are
+   summed in 2 and in 4 pieces (``split_spread``: sLSTM's recurrence
+   sums ``w_h``'s gradient over the time steps in bf16) and the ranks'
+   gradient limit on a leaf is twice that where it passes 5e-2, and in
+   f32, every leaf held to 5e-2; and recurrentgemma-2b, 3 of 26 layers
+   (RG-LRU's 2560 channels, 1280 a rank; 10 query heads, 5 a rank; its
+   one KV head split mid-head, 128 columns a rank), bf16 on phase 10c's
+   4 x 2048 batch, all at published width on (2, 2), 2 steps, phase
+   10c's checks and prints (``mix/w_x`` a different quarter on each
+   rank).  ``--mesh-train-control`` also runs xlstm-350m's f32 run and
+   recurrentgemma-2b with a planted fault each: "mlstm_gates" (mLSTM's
+   copy moved from the gates' logits onto z) and "rglru_gate" (the copy
+   taken off RG-LRU's gathered gate input), each of which must fail a
+   check besides the sanity bound on every rank.
+   The line before the card's name gives the whole run's seconds.
 
 The last two lines are the per-kernel JSON record (``hash_probe``'s entry
 carries its probe-window route under ``probe_window``) and
@@ -3620,10 +3649,17 @@ def check_decode_matches_prefill(dev, arch="qwen3-32b", s=511, b=2,
 MESH_DECODE_RANKS = 4
 # (arch, layers, prompt, decode steps): qwen3-32b's prompt ends 12 slots
 # before slot 8192, the first rank boundary on (1, 4); h2o-danube-3-4b's
-# 4090 tokens and 16 steps wrap its 4096-slot window ring
+# 4090 tokens and 16 steps wrap its 4096-slot window ring;
+# recurrentgemma-2b's one period (rglru, rglru, attn) at published width,
+# its RG-LRU state split over its 2560 channels and its local attention's
+# 2048-slot window on the sequence split, wrapped by 2090 tokens;
+# xlstm-350m's (mlstm, slstm), its sLSTM h split over its 1024 units, a
+# 1024-token prompt (mLSTM's chunks of 256)
 MESH_DECODE = dict(grids=((1, 4), (2, 2)), batch=4, seq=32768,
                    runs=(("qwen3-32b", 2, 8180, 16),
-                         ("h2o-danube-3-4b", 2, 4090, 16)))
+                         ("h2o-danube-3-4b", 2, 4090, 16),
+                         ("recurrentgemma-2b", 3, 2090, 16),
+                         ("xlstm-350m", 2, 1024, 16)))
 # logits: max |diff| over the reference's largest |logit| (gqa_decode's
 # bf16 tolerance, 3e-2, taken relative to the logits' scale).  The
 # logits are bf16 values (an ulp of 1/32 between 4 and 8), and one
@@ -3649,16 +3685,23 @@ def kv_bytes(cache) -> int:
                if k.endswith(("/k", "/v")))
 
 
+def recurrent_states(tree) -> dict:
+    """The recurrent state leaves of a cache (or of its spec tree), by
+    path: every leaf but the KV caches and ``pos``."""
+    return {k: a for k, a in tree_leaves(tree)
+            if not k.endswith(("/k", "/v")) and k != "pos"}
+
+
 def mesh_decode_run(cfg, params, plan, prompt, steps, dev, ctx=None,
                     feed=None):
     """A prefill and ``steps`` decode steps at ``plan``'s batch and cache
     length (this rank's rows and cache block with an enabled ``ctx``,
     under the current mesh), each step fed its greedy token, or the rows
     of ``feed`` ((steps + 1, B, 1) tokens) where given: logits and greedy
-    tokens of each step on the host, the KV leaves' bytes, ms per decode
-    step (each synchronized), the ms and calls in ``gloo`` collectives
-    over the steps, and the attention kernels' launches in prefill and
-    decode."""
+    tokens of each step on the host, the KV leaves' bytes, the cache (on
+    the device) after the last step, ms per decode step (each
+    synchronized), the ms and calls in ``gloo`` collectives over the
+    steps, and the attention kernels' launches in prefill and decode."""
     from repro_torch.launch.specs import local_rows
     rows = local_rows(ctx, plan["batch"])
     pre, dec = TS.make_serve_steps(cfg, ctx)
@@ -3672,7 +3715,8 @@ def mesh_decode_run(cfg, params, plan, prompt, steps, dev, ctx=None,
                             gqa_decode_cuda.launches)}
     flash_prefill_cuda.launches = gqa_decode_cuda.launches = 0
     out, ms = [(logits.float().cpu(), nxt.cpu())], []
-    with timed_collectives() as coll:
+    with timed_calls(mesh.ModelMesh, ("all_reduce", "all_gather",
+                                      "reduce_scatter")) as coll:
         for i in range(steps):
             if feed is not None:
                 nxt = feed[i][rows].to(dev)
@@ -3686,7 +3730,7 @@ def mesh_decode_run(cfg, params, plan, prompt, steps, dev, ctx=None,
                           gqa_decode_cuda.launches)
     return dict(logits=torch.stack([o[0] for o in out]),
                 tokens=torch.stack([o[1] for o in out]),
-                kv_bytes=kv_bytes(cache), rows=rows,
+                kv_bytes=kv_bytes(cache), cache=cache, rows=rows,
                 ms=float(np.median(ms)), coll_ms=1e3 * coll["s"] / steps,
                 coll_calls=coll["n"] / steps, launches=launches)
 
@@ -3736,10 +3780,12 @@ def collective_floor_ms(dev, shapes, reps=20) -> list:
 
 def mesh_decode_rank(rank, ref_dir, device, plan):
     """A rank of phase 5b: each run on each grid, held to the one-process
-    run saved in ``ref_dir``, then ``compressed_psum`` on the card."""
+    run saved in ``ref_dir`` (its logits, and the recurrent states after
+    the last step, the ranks' blocks gathered), then ``compressed_psum``
+    on the card."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.meshctx import mesh_context
-    from repro_torch.launch.specs import make_shard_ctx
+    from repro_torch.launch.specs import cache_specs, gather, make_shard_ctx
     dev = mesh.rank_device(rank, device)
     out = {}
     for arch, layers, prompt, steps in plan["runs"]:
@@ -3748,11 +3794,25 @@ def mesh_decode_rank(rank, ref_dir, device, plan):
         ref = torch.load(os.path.join(ref_dir, f"{arch}.pt"))
         for grid in plan["grids"]:
             mm = mesh.make_model_mesh(grid)
-            ctx = make_shard_ctx(cfg, ShapeConfig(
-                "decode_32k", plan["seq"], plan["batch"], "decode"), mm)
+            shape = ShapeConfig("decode_32k", plan["seq"], plan["batch"],
+                                "decode")
+            ctx = make_shard_ctx(cfg, shape, mm)
             with mesh_context(mm):
                 r = mesh_decode_run(cfg, params, plan, prompt, steps, dev,
                                     ctx, feed=ref["tokens"])
+                specs = recurrent_states(cache_specs(cfg, shape, ctx, mm))
+                whole = gather(recurrent_states(r.pop("cache")), specs, mm)
+            # each state leaf's largest |diff| over its largest magnitude;
+            # the leaves the ranks split
+            r["state_err"] = max([float((a.cpu() - ref["states"][k]).abs()
+                                        .max() / ref["states"][k].abs().max()
+                                        .clamp(min=1e-30))
+                                  for k, a in whole.items()], default=0.0)
+            r["state_split"] = sorted(k.rsplit("/", 2)[-2] + "/" +
+                                      k.rsplit("/", 1)[-1]
+                                      for k, spec in specs.items()
+                                      if "model" in spec)
+            del whole
             want = ref["logits"][:, r["rows"]]
             diff = (r.pop("logits") - want).abs().amax(-1)    # (step, row)
             r["err"], r["scale"] = float(diff.max()), float(want.abs().max())
@@ -3799,7 +3859,9 @@ def run_mesh_decode_phase(dev, smi, plan=None):
             params = M.init_params(cfg, seed=SEED, device=dev)
             r = mesh_decode_run(cfg, params, plan, prompt, steps, dev)
             torch.save({"logits": r.pop("logits"),
-                        "tokens": r.pop("tokens")},
+                        "tokens": r.pop("tokens"),
+                        "states": {k: a.cpu() for k, a in recurrent_states(
+                            r.pop("cache")).items()}},
                        os.path.join(tmp, f"{arch}.pt"))
             one[arch] = r
             del params
@@ -3812,8 +3874,11 @@ def run_mesh_decode_phase(dev, smi, plan=None):
     launches = {}
     for arch, layers, prompt, steps in plan["runs"]:
         ref = one[arch]
-        expect(ref["launches"] == {"prefill": (layers, 0),
-                                   "decode": (0, layers * steps)},
+        cfg = get_config(arch).with_layers(layers)
+        n_pre = attention_layers(cfg)
+        expect(ref["launches"] == {
+            "prefill": (n_pre, 0),
+            "decode": (0, decode_attention_layers(cfg) * steps)},
                f"one process {arch}: launches {ref['launches']}")
         print(f"mesh decode {arch} ({layers} layers, {prompt}-token prompt, "
               f"{steps} steps): one process {ref['ms']:.3f} ms a step "
@@ -3835,10 +3900,13 @@ def run_mesh_decode_phase(dev, smi, plan=None):
                 expect(g["kv_bytes"] * split == ref["kv_bytes"],
                        f"{what}: {g['kv_bytes']} KV bytes, one process "
                        f"{ref['kv_bytes']} over {split}")
-                expect(g["launches"]["prefill"] == (layers, 0)
+                expect(g["launches"]["prefill"] == (n_pre, 0)
                        and g["launches"]["decode"] == (0, 0),
                        f"{what}: launches {g['launches']}; expected "
-                       f"flash_prefill {layers} in prefill, nothing else")
+                       f"flash_prefill {n_pre} in prefill, nothing else")
+                expect(g["state_err"] <= MESH_DECODE_REL,
+                       f"{what}: recurrent state off by {g['state_err']} of"
+                       " its largest magnitude")
             launches[(arch, grid)] = [g["launches"] for g in got]
             print(f"mesh decode {arch} {grid}: sequence split {seq_split}, "
                   f"rows split {batch_split}; greedy tokens equal to one "
@@ -3853,8 +3921,12 @@ def run_mesh_decode_phase(dev, smi, plan=None):
                   f"collectives {[round(g['coll_ms'], 3) for g in got]} in "
                   f"{got[0]['coll_calls']:.1f} calls; KV cache MiB by rank "
                   f"{[round(g['kv_bytes'] / 2**20, 3) for g in got]} "
-                  f"(1/{split} of one process's); launches by rank "
-                  f"{[g['launches'] for g in got]} ({smi})")
+                  f"(1/{split} of one process's); recurrent states split "
+                  f"over model {got[0]['state_split']}, gathered, against "
+                  f"one process's: largest |diff| over the leaf's largest "
+                  f"by rank {[round(g['state_err'], 6) for g in got]}; "
+                  f"launches by rank {[g['launches'] for g in got]} "
+                  f"({smi})")
     print(f"gloo all-reduce of card tensors over the {MESH_DECODE_RANKS} "
           f"ranks entering together, the row max and the sums at "
           f"{plan['runs'][0][0]}'s (1, 4) shapes: ms by rank "
@@ -5053,7 +5125,13 @@ MESH_TRAIN_MOVED_SHARE = 0.1
 
 
 def mesh_train_setup(plan):
+    """The config (cut to ``plan["layers"]``; in ``plan["dtype"]`` where
+    the plan names one), AdamW's config and the seeded batch of a mesh
+    train phase's plan."""
     cfg = get_config(plan["arch"]).with_layers(plan["layers"])
+    if plan.get("dtype"):
+        cfg = cfg.replace(param_dtype=plan["dtype"],
+                          compute_dtype=plan["dtype"])
     opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup=1, total_steps=10,
                                 state_dtype=cfg.opt_dtype)
     gen = torch.Generator().manual_seed(SEED + 7)
@@ -5124,11 +5202,17 @@ def planted(fault):
     batch's dp line (each rank keeps its own rows' gradient), "model"
     sums every leaf whole on data over model (ln1, ln2 and final_norm
     doubled), "router" sums the MoE router's gradient over model (a copy
-    onto the model line in front of it: counted twice on (2, 2)); None
-    plants nothing."""
+    onto the model line in front of it: counted twice on (2, 2)),
+    "mlstm_gates" moves mLSTM's copy onto the line from the gates'
+    logits onto z (``w_if``'s gradient then the rank's heads' part),
+    "rglru_gate" takes the copy off RG-LRU's gathered gate input (the
+    conv's gradient then the rank's own gate columns' part); None plants
+    nothing."""
     from repro_torch.models import blocks as B
+    from repro_torch.models import seqmix as SM
     from repro_torch.models import tp as TP
     real_gatherer, real_layout, real_moe = TP.Gatherer, TP.layout, B.moe_ffn
+    real_gates, real_gin = SM._mlstm_gate_logits, SM._rglru_gate_input
     if fault == "dp":
         TP.Gatherer = lambda fsdp, dp, tp: real_gatherer(
             fsdp, TP.Line(dp.mesh, None), tp)
@@ -5141,11 +5225,16 @@ def planted(fault):
                 p = dict(p, router=tp.copy_to(p["router"]))
             return real_moe(p, x, cfg, dp, tp)
         B.moe_ffn = moe_ffn
+    elif fault == "mlstm_gates":
+        SM._mlstm_gate_logits = lambda up, zc, w_if, tp: zc @ w_if
+    elif fault == "rglru_gate":
+        SM._rglru_gate_input = lambda xw, tp: tp.all_gather(xw, -1)
     try:
         yield
     finally:
         TP.Gatherer, TP.layout, B.moe_ffn = real_gatherer, real_layout, \
             real_moe
+        SM._mlstm_gate_logits, SM._rglru_gate_input = real_gates, real_gin
 
 
 def mesh_train_rank(rank, ref_path, device, plan):
@@ -5213,9 +5302,10 @@ def mesh_train_rank(rank, ref_path, device, plan):
     return out
 
 
-def _mesh_train_failures(g, one):
+def _mesh_train_failures(g, one, grad_rtol=None):
     """(check, what) of each check of phase 10b that one rank's run fails
-    against one process's ``one``."""
+    against one process's ``one``; ``grad_rtol`` maps a leaf to its
+    gradient limit where it is not ``MESH_TRAIN_GRAD_RTOL``."""
     fails = []
     for k, (m, w) in enumerate(zip(g["metrics"], one)):
         for key, rtol in (("loss", MESH_TRAIN_LOSS_RTOL),
@@ -5224,7 +5314,7 @@ def _mesh_train_failures(g, one):
                 fails.append((key, f"step {k} {key} {m[key]}, one process "
                                    f"{w[key]}"))
     leaf, err = g["grad_err"]
-    if err > MESH_TRAIN_GRAD_RTOL:
+    if err > (grad_rtol or {}).get(leaf, MESH_TRAIN_GRAD_RTOL):
         fails.append(("grads", f"step 1 gradient {leaf} off by {err:.4g} "
                                "of its largest magnitude"))
     worst, ratio, moved = g["errors"]
@@ -5358,11 +5448,50 @@ def run_mesh_train_phase(dev, smi, plan=None):
 # after its clean run (``--mesh-train-control``)
 MESH_TP = dict(runs=(("mixtral-8x22b", 1), ("minicpm3-4b", 2)),
                batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=2, grid=(2, 2),
-               faults={})
+               faults={}, phase="10c", what="the moe kind and MLA")
+# 10d: the recurrent kinds at their published widths, depth cut to one
+# period: xlstm-350m's (mlstm, slstm), 2 of 24 layers (4 mLSTM heads of
+# 256, 2 a rank; sLSTM whole from its gathered weights, its width 1365
+# whole on model), recurrentgemma-2b's (rglru, rglru, attn), 3 of 26 (10
+# query heads, 5 a rank; its one KV head of 256 columns split mid-head,
+# 128 a rank; RG-LRU's 2560 channels, 1280 a rank); phase 10c's batch,
+# steps and checks.  Trap: sLSTM's serial bf16 recurrence sums ``w_h``'s
+# gradient over its time steps in bf16, so rounding alone moves it: its
+# step-1 gradient sat 0.05 to 0.17 of its largest off one process's on
+# (2, 2) and 0.11 to 0.13 on (4, 1), where no tensor parallelism runs, at
+# 512 to 2048 tokens alike, and within 1e-5 in f32.  So xlstm-350m runs
+# twice: in its bf16, each leaf's gradient held within twice what one
+# process's own gradient of it moves when its rows are summed in other
+# pieces (``split_spread``), and in f32, every leaf held to the phase's
+# 5e-2 (the tight check, and the one the planted fault runs on).  Both on
+# 1024 tokens: the serial loop's 2048 steps (about 1.4 s a forward) kept
+# the phase past 90 s.  A run is named by its arch and the dtype it sets.
+# recurrentgemma-2b runs first: one process's step holds the f32 logits of
+# 4 x 2048 x 256000 (7.81 GiB) and their gradient beside 14.5 GiB of
+# params, m and v, and behind the xlstm runs' references and freed
+# segments it ran out of the card's memory
+MESH_REC = dict(MESH_TP, runs=(
+    ("recurrentgemma-2b", 3),
+    ("xlstm-350m", 2, {"seq": 1024, "spread": True, "why": (
+        "sLSTM's 2048 serial steps keep the phase past 90 s")}),
+    ("xlstm-350m", 2, {"seq": 1024, "dtype": "float32", "why": (
+        "the tight check: in bf16 sLSTM's recurrence turns rounding into "
+        "gradients of w_h up to 0.17 of its largest off one process's")})),
+    phase="10d", what="the recurrent kinds")
+# a bf16 run's gradient limit on a leaf, over what one process's own
+# gradient of it moves when the rows are summed in other pieces: the
+# ranks' sums differ from one process's in as many roundings as such a
+# split, and sum over data in bf16 besides; a fault (a sum left out or
+# doubled) moves a leaf by half its largest or more
+MESH_SPREAD_FACTOR = 2.0
 # the leaf of each arch whose blocks must differ on every rank that splits
-# it (an expert leaf on the width route: a quarter on each rank of (2, 2))
+# it (an expert leaf on the width route: a quarter on each rank of (2, 2);
+# mix/w_x a different half of the columns on each model rank, of the rows
+# on each data rank)
 MESH_TP_LEAF = {"mixtral-8x22b": "stack_0/b0_moe/moe/wi",
-                "minicpm3-4b": "stack_0/b0_attn/attn/wq_b"}
+                "minicpm3-4b": "stack_0/b0_attn/attn/wq_b",
+                "xlstm-350m": "stack_0/b1_slstm/mix/w_x",
+                "recurrentgemma-2b": "stack_0/b0_rglru/mix/w_x"}
 
 
 @contextlib.contextmanager
@@ -5464,10 +5593,9 @@ def _block_errors(got, ref, specs, mm, gmax=None, opt_cfg=None,
                   steps=None):
     """This rank's blocks against the same blocks of one process's whole
     leaves ``ref``.  With ``gmax`` (each leaf's largest |gradient|):
-    (leaf, largest |diff| over it) of the three leaves off most, the worst
-    first.  Else the params' figures of ``_param_errors``: the largest
-    |diff|, over the sanity bound, and the (count moved by more than lr /
-    10, count)."""
+    (leaf, largest |diff| over it) of every leaf, the worst first.  Else
+    the params' figures of ``_param_errors``: the largest |diff|, over the
+    sanity bound, and the (count moved by more than lr / 10, count)."""
     from repro_torch.launch.specs import local_slices
     flat = dict(tree_leaves(specs))
     worst, diff, ratio, moved, total = [], 0.0, 0.0, 0, 0
@@ -5486,7 +5614,7 @@ def _block_errors(got, ref, specs, mm, gmax=None, opt_cfg=None,
         moved += int((d > lr / 10).sum())
         total += d.numel()
     if gmax is not None:
-        return sorted(worst, key=lambda kv: -kv[1])[:3]
+        return sorted(worst, key=lambda kv: -kv[1])
     return diff, ratio, (moved, total)
 
 
@@ -5524,8 +5652,8 @@ def mesh_tp_rank(rank, device, plan, refs):
     (``refs``: its leaves on the card, mapped here, this rank's blocks
     read from them), then the blocks held to one process's params.  After
     each step but the last the clean run copies its blocks out into
-    ``refs[arch]["after"]``, from which one process reruns the next step's
-    loss and gradients."""
+    ``refs[name]["after"]`` (the run's name), from which one process
+    reruns the next step's loss and gradients."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.meshctx import mesh_context
     from repro_torch.launch.specs import (batch_pspecs, local_rows,
@@ -5535,13 +5663,13 @@ def mesh_tp_rank(rank, device, plan, refs):
     dev = mesh.rank_device(rank, device)
     mm = mesh.make_model_mesh(plan["grid"])
     out = {}
-    for arch, layers in plan["runs"]:
-        cfg, opt_cfg, batch = mesh_train_setup(dict(plan, arch=arch,
-                                                    layers=layers))
-        shape = ShapeConfig("train", plan["seq"], plan["batch"], "train")
+    for run in tp_runs(plan):
+        arch, name = run["arch"], run["name"]
+        cfg, opt_cfg, batch = mesh_train_setup(run)
+        shape = ShapeConfig("train", run["seq"], run["batch"], "train")
         ctx = make_shard_ctx(cfg, shape, mm)
         specs = param_pspecs(cfg, ctx, mesh=mm)
-        ref = refs[arch]
+        ref = refs[name]
         with mesh_context(mm):
             rows_of = local_rows(ctx, plan["batch"])
         replicas = {k: mm.world // int(np.prod(
@@ -5549,7 +5677,7 @@ def mesh_tp_rank(rank, device, plan, refs):
             for k, spec in tree_leaves(specs)}
         # the clean run last: it copies its params out into the buffer of
         # step 1's gradients, which the planted runs read
-        for fault in tuple(plan["faults"].get(arch, ())) + (None,):
+        for fault in tuple(plan["faults"].get(name, ())) + (None,):
             t0 = time.perf_counter()
             params = put(M.init_params(cfg, SEED, dev), specs, mm)
             state = TS.TrainState(params, adamw.init(params, opt_cfg))
@@ -5611,10 +5739,50 @@ def mesh_tp_rank(rank, device, plan, refs):
                              .tobytes()).hexdigest())
             r["parts"] = (t1 - t0, sum(ms) / 1e3,
                           time.perf_counter() - t1 - sum(ms) / 1e3)
-            out[(arch, fault)] = r
+            out[(name, fault)] = r
             del state, rows
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
+    return out
+
+
+def tp_runs(plan) -> list:
+    """Each run of a phase 10c or 10d plan as a plan of its own: ``plan``
+    with the run's arch, layers and name (the arch, and the dtype its
+    third entry sets), and the fields its optional third entry replaces
+    ("seq" with the reason "why"; "dtype"; "spread", which holds a bf16
+    run's gradients to ``split_spread``)."""
+    out = []
+    for r in plan["runs"]:
+        opts = r[2] if len(r) > 2 else {}
+        name = r[0] + (f" {opts['dtype']}" if opts.get("dtype") else "")
+        out.append(dict(plan, arch=r[0], layers=r[1], name=name, **opts))
+    return out
+
+
+def split_spread(cfg, params, batch, pieces) -> dict:
+    """How far rounding alone moves one process's step-1 gradient: each
+    leaf's largest |diff| over its largest |gradient| between the whole
+    batch's gradient and the sum of its ``n`` equal pieces' gradients
+    (``steps.microbatch``; each piece's weighted by 1 / n, summed in f32),
+    the most over each n of ``pieces``.  The ranks of a grid sum their
+    rows' gradients in such pieces."""
+    from repro_torch.train.steps import microbatch
+    _, _, whole = TS.loss_and_grads(cfg, params, batch)
+    whole = dict(tree_leaves(whole))
+    out = dict.fromkeys(whole, 0.0)
+    for n in pieces:
+        acc = {k: torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+               for k, g in whole.items()}
+        for i in range(n):
+            _, _, g = TS.loss_and_grads(cfg, params, microbatch(batch, i, n))
+            for k, a in tree_leaves(g):
+                acc[k].add_(a.float(), alpha=1.0 / n)
+            del g
+        for k, g in whole.items():
+            d = float((acc[k] - g.float()).abs().max())
+            out[k] = max(out[k], d / max(float(g.abs().max()), 1e-30))
+        del acc
     return out
 
 
@@ -5650,33 +5818,40 @@ def rerun_steps(dev, plan, ref) -> list:
 
 def run_mesh_tp_phase(dev, smi, plan=None):
     """Phase 10c: the sharded train step of the moe kind (width route)
-    and MLA on (2, 2), at published width, against one process.  A run
-    with a planted fault must fail a check besides the params' sanity
-    bound on every rank.  Returns the ranks' attention kernel launches by
-    arch."""
+    and MLA on (2, 2), at published width, against one process (phase
+    10d: the recurrent kinds, ``MESH_REC``).  A run with a planted fault
+    must fail a check besides the params' sanity bound on every rank.
+    Returns the ranks' attention kernel launches by run name."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.specs import make_shard_ctx
     from repro_torch.models.params import param_defs, param_pspecs
     plan = plan or MESH_TP
     t0 = time.perf_counter()
     grid = plan["grid"]
-    print(f"phase 10c: the sharded train step of the moe kind and MLA on "
+    print(f"phase {plan['phase']}: the sharded train step of "
+          f"{plan['what']} on "
           f"{grid[0] * grid[1]} gloo ranks sharing one card, grid {grid} "
           f"(data, model): "
-          + ", ".join(f"{a} ({n} layer{'s' if n > 1 else ''})"
-                      for a, n in plan["runs"])
-          + f" at published width, {plan['batch']} x {plan['seq']} tokens, "
-          f"{plan['steps']} steps")
+          + ", ".join(f"{r['arch']} ({r['layers']} layers, {r['batch']} x "
+                      f"{r['seq']} tokens"
+                      + (f", {r['dtype']}" if r.get("dtype") else "") + ")"
+                      for r in tp_runs(plan))
+          + f" at published width, {plan['steps']} steps")
+    for r in tp_runs(plan):
+        if r["seq"] != plan["seq"] or r.get("dtype"):
+            print(f"mesh tp {r['name']}: {r['batch']} x {r['seq']} tokens "
+                  f"(the phase's {plan['seq']}), "
+                  f"{r.get('dtype') or 'the config dtype'}: {r['why']}")
     refs, one, held = {}, {}, 0
-    for arch, layers in plan["runs"]:
+    for run in tp_runs(plan):
+        name, layers = run["name"], run["layers"]
         t1 = time.perf_counter()
-        cfg, opt_cfg, batch = mesh_train_setup(dict(plan, arch=arch,
-                                                    layers=layers))
-        shape = ShapeConfig("train", plan["seq"], plan["batch"], "train")
+        cfg, opt_cfg, batch = mesh_train_setup(run)
+        shape = ShapeConfig("train", run["seq"], run["batch"], "train")
         grid_mesh = mesh.ModelMesh(("data", "model"), grid)
         rk = reckoning(cfg, param_pspecs(cfg, make_shard_ctx(
             cfg, shape, grid_mesh), mesh=grid_mesh), grid)
-        print(f"mesh tp {arch}: {rk['params'] / 1e9:.4f}B params "
+        print(f"mesh tp {name}: {rk['params'] / 1e9:.4f}B params "
               f"({rk['stacked'] / 1e9 / layers:.4f}B a layer x {layers}, "
               f"{rk['other'] / 1e9:.4f}B embedding, unembedding and final "
               f"norm), {cfg.param_dtype} params and {cfg.opt_dtype} m and "
@@ -5703,6 +5878,26 @@ def run_mesh_tp_phase(dev, smi, plan=None):
         state_bytes = sum(_tree_bytes(t) for t in (
             state.params, state.opt.m, state.opt.v))
         batch = {k: v.to(dev) for k, v in batch.items()}
+        rtol = {}
+        if run.get("spread"):
+            t = time.perf_counter()
+            spread = split_spread(cfg, state.params, batch,
+                                  (grid[0], run["batch"]))
+            rtol = {k: MESH_SPREAD_FACTOR * e for k, e in spread.items()
+                    if MESH_SPREAD_FACTOR * e > MESH_TRAIN_GRAD_RTOL}
+            worst = sorted(spread.items(), key=lambda kv: -kv[1])[:3]
+            print(f"mesh tp {name} one process against itself: step 1 "
+                  f"gradients of the {run['batch']} rows summed in "
+                  f"{grid[0]} and in {run['batch']} pieces against the "
+                  f"whole batch's, the leaves off most "
+                  f"{[(k, round(e, 5)) for k, e in worst]} of their "
+                  f"largest; the ranks' limits "
+                  f"{MESH_SPREAD_FACTOR} x that where above "
+                  f"{MESH_TRAIN_GRAD_RTOL}: "
+                  f"{[(k, round(v, 5)) for k, v in rtol.items()]} "
+                  f"({time.perf_counter() - t:.1f} s; {smi})")
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
         sync(dev)
         t2 = time.perf_counter()
         if dev.type == "cuda":
@@ -5721,17 +5916,17 @@ def run_mesh_tp_phase(dev, smi, plan=None):
         # the step's own peak: the references held on the card taken out
         peak = torch.cuda.max_memory_allocated(dev) - held \
             if dev.type == "cuda" else 0
-        expect(launches == (0, 0), f"mesh tp {arch} one process: attention "
+        expect(launches == (0, 0), f"mesh tp {name} one process: attention "
                f"kernels launched {launches}")
         for k, a in tree_leaves(state.params):
             ref["params"][k].copy_(a)
         after = ([ref["grads"]] + [
             {k: torch.empty_like(a) for k, a in ref["params"].items()}
             for _ in range(plan["steps"] - 2)])[:plan["steps"] - 1]
-        refs[arch] = dict(params=ref["params"], grads=ref["grads"],
+        refs[name] = dict(params=ref["params"], grads=ref["grads"],
                           gmax=sg["out"], routing=rt["topi"], after=after)
         t4 = time.perf_counter()
-        one[arch] = dict(metrics=metrics, ms=ms, peak=peak,
+        one[name] = dict(metrics=metrics, ms=ms, peak=peak, rtol=rtol,
                          state_bytes=state_bytes, sumsq=sg["sumsq"],
                          s=t4 - t1, parts=(t2 - t1, t3 - t2 - sum(sg["s"]),
                                            t4 - t3 + sum(sg["s"])))
@@ -5754,61 +5949,65 @@ def run_mesh_tp_phase(dev, smi, plan=None):
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
     spawn_s = time.perf_counter() - t1
     t1 = time.perf_counter()
-    for arch, layers in plan["runs"]:
-        one[arch]["next"] = rerun_steps(dev, dict(plan, arch=arch,
-                                                  layers=layers), refs[arch])
+    for run in tp_runs(plan):
+        one[run["name"]]["next"] = rerun_steps(dev, run, refs[run["name"]])
     rerun_s = time.perf_counter() - t1
     del refs
     launches = {}
-    for arch, _ in plan["runs"]:
-        o = one[arch]
-        print(f"mesh tp {arch} one process: ms a step "
+    for run in tp_runs(plan):
+        arch, name = run["arch"], run["name"]
+        o = one[name]
+        print(f"mesh tp {name} one process: ms a step "
               f"{[round(x, 3) for x in o['ms']]}, losses "
               f"{[round(m['loss'], 5) for m in o['metrics']]}, grad norms "
               f"{[round(m['grad_norm'], 5) for m in o['metrics']]}, peak "
               f"device memory {o['peak'] / 2**30:.3f} GiB, params + m + v "
               f"{o['state_bytes'] / 2**30:.3f} GiB ({smi})")
-        for fault in (None,) + tuple(plan["faults"].get(arch, ())):
-            got = [r[(arch, fault)] for r in ranks]
+        for fault in (None,) + tuple(plan["faults"].get(name, ())):
+            got = [r[(name, fault)] for r in ranks]
             # step 1 against one process's; each later step against one
             # process's rerun from the ranks' params (``rerun_steps``)
             held = o["metrics"][:1] + [n["metrics"] for n in o["next"]]
+            # each rank's leaf off most against its limit
             fails = [_mesh_train_failures(
-                dict(g, grad_err=g["grad_err"][0],
+                dict(g, grad_err=max(g["grad_err"], key=lambda kv: kv[1] / (
+                    o["rtol"].get(kv[0], MESH_TRAIN_GRAD_RTOL))),
                      errors=(g["errors"][0], g["errors"][1],
                              g["errors"][2][0] / g["errors"][2][1])),
-                held) for g in got]
-            grad_err = [[(k, round(e, 5)) for k, e in g["grad_err"]]
+                held, o["rtol"]) for g in got]
+            grad_err = [[(k, round(e, 5)) for k, e in g["grad_err"][:3]]
                         for g in got]
             if fault is not None:
                 caught = [sorted({c for c, _ in f if c != "params"})
                           for f in fails]
-                print(f"mesh train control {arch} {grid}, fault {fault!r} "
+                print(f"mesh train control {name} {grid}, fault {fault!r} "
                       f"planted: checks failed by rank {caught}; step 1 "
                       f"gradients off most by rank {grad_err} of their "
                       f"largest; grad norms by rank "
                       f"{[[round(m['grad_norm'], 5) for m in g['metrics']] for g in got]}"
                       f" ({smi})")
-                expect(all(caught), f"mesh tp {arch}: the planted fault "
+                expect(all(caught), f"mesh tp {name}: the planted fault "
                        f"{fault!r} passed every check but the sanity bound "
                        f"on a rank: {fails}")
                 continue
-            launches[arch] = [g["launches"] for g in got]
+            launches[name] = [g["launches"] for g in got]
             key, _, whole, split, _ = got[0]["leaf"]
-            print(f"mesh tp {arch} {grid}: ms a step by rank "
+            routing = "" if not get_config(arch).n_experts else (
+                f"routing of step 1's forward against one process's "
+                f"(top-k assignments differing, of; kept lanes differing, "
+                f"of) by rank "
+                f"{[g['routing'][0] + g['routing'][1] for g in got]}, "
+                f"assignments differing in each route call by rank "
+                f"{[g['routing'][2] for g in got]}, then one process's "
+                f"routing fed to the ranks; ")
+            print(f"mesh tp {name} {grid}: ms a step by rank "
                   f"{[[round(x, 3) for x in g['ms']] for g in got]}, of "
                   f"which in gloo collectives "
                   f"{[[round(x, 3) for x in g['coll_ms']] for g in got]} "
                   f"({got[0]['coll_calls']:.1f} collectives a step; the "
                   f"last step's share in gloo by rank "
                   f"{[round(g['coll_ms'][-1] / g['ms'][-1], 4) for g in got]}"
-                  f"); routing of step 1's forward against one process's "
-                  f"(top-k assignments differing, of; kept lanes "
-                  f"differing, of) by rank "
-                  f"{[g['routing'][0] + g['routing'][1] for g in got]}, "
-                  f"assignments differing in each route call by rank "
-                  f"{[g['routing'][2] for g in got]}, then one process's "
-                  f"routing fed to the ranks; losses "
+                  f"); {routing}losses "
                   f"{[round(m['loss'], 5) for m in got[0]['metrics']]}, grad"
                   f" norms "
                   f"{[round(m['grad_norm'], 5) for m in got[0]['metrics']]}"
@@ -5842,7 +6041,7 @@ def run_mesh_tp_phase(dev, smi, plan=None):
                   f"{[tuple(x // plan['steps'] for x in g['launches']) for g in got]}"
                   f" ({smi})")
             for rank, (g, f) in enumerate(zip(got, fails)):
-                what = f"mesh tp {arch} {grid} rank {rank}"
+                what = f"mesh tp {name} {grid} rank {rank}"
                 expect(not f, f"{what}: {[w for _, w in f]}")
                 expect(g["launches"] == (0, 0),
                        f"{what}: attention kernels launched {g['launches']}")
@@ -5850,18 +6049,19 @@ def run_mesh_tp_phase(dev, smi, plan=None):
                        "the rank's block by param_pspecs")
             expect(all(g["leaf"][1] * split == whole for g in got)
                    and len({g["leaf"][4] for g in got}) == split,
-                   f"mesh tp {arch}: {key} blocks "
+                   f"mesh tp {name}: {key} blocks "
                    f"{[g['leaf'][1] for g in got]} are not 1/{split} of "
                    f"the leaf each, {split} different")
-    print(f"phase 10c: {time.perf_counter() - t0:.1f} s (one process "
+    print(f"phase {plan['phase']}: {time.perf_counter() - t0:.1f} s (one "
+          f"process "
           + ", ".join(f"{a} {one[a]['s']:.1f} s (set-up {one[a]['parts'][0]:.1f}"
                       f", steps {one[a]["parts"][1]:.1f}, the reference "
                       f"kept {one[a]['parts'][2]:.1f})"
-                      for a, _ in plan["runs"])
+                      for a in one)
           + f"; the spawn and the ranks' runs {spawn_s:.1f} s, rank 0's "
           f"set-up, steps and checks by run "
           + ", ".join(f"{a} {[round(x, 1) for x in ranks[0][(a, None)]['parts']]}"
-                      for a, _ in plan["runs"])
+                      for a in one)
           + f"; the reruns {rerun_s:.1f} s)")
     return launches
 
@@ -5877,6 +6077,12 @@ def mesh_train_control_main() -> int:
                                         faults=(None, "dp", "model")))
     run_mesh_tp_phase(dev, smi, dict(MESH_TP, runs=MESH_TP["runs"][:1],
                                      faults={"mixtral-8x22b": ("router",)}))
+    # recurrentgemma-2b and xlstm-350m's f32 run, the one held to the
+    # tight gradient limit
+    run_mesh_tp_phase(dev, smi, dict(
+        MESH_REC, runs=(MESH_REC["runs"][0], MESH_REC["runs"][2]),
+        faults={"xlstm-350m float32": ("mlstm_gates",),
+                "recurrentgemma-2b": ("rglru_gate",)}))
     print(smi)
     print(json.dumps({"mesh_train_control": "ok", "card": smi}))
     return 0
@@ -5893,6 +6099,7 @@ def main() -> int:
         return bucket_scan_main()
     if sys.argv[1:] == ["--mesh-train-control"]:
         return mesh_train_control_main()
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     smi = environment()
 
@@ -6045,6 +6252,10 @@ def main() -> int:
 
     # 10c. the same for the moe kind and MLA at published width
     run_mesh_tp_phase(dev, smi)
+    torch.cuda.empty_cache()
+
+    # 10d. the same for the recurrent kinds at published width
+    run_mesh_tp_phase(dev, smi, MESH_REC)
 
     record = {"kernels": [
         {"name": "recovery_scan", "route": "cuda",
@@ -6155,6 +6366,8 @@ def main() -> int:
     ]}
     print("training " + json.dumps({"arch": TRAIN_ARCH, "card": smi,
                                     **training}))
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s, the build included")
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

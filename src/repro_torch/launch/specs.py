@@ -122,10 +122,8 @@ def cache_specs(cfg: ModelConfig, shape: ShapeConfig, ctx: ShardCtx,
         if name in ("k", "v") and ctx.seq_shard_cache and \
                 shp[bdim + 1] % tps == 0:
             d[bdim + 1] = tp                      # sequence-sharded cache
-        elif name == "h" and len(shp) == bdim + 2 and shp[-1] % tps == 0:
-            d[-1] = tp                            # rglru state width
-        elif name == "conv" and shp[-1] % tps == 0:
-            d[-1] = tp
+        elif state_split(name, shp[1:], tps):
+            d[-1] = tp                            # recurrent state width
         return tuple(d)
 
     def walk(tree, name=None):
@@ -134,6 +132,16 @@ def cache_specs(cfg: ModelConfig, shape: ShapeConfig, ctx: ShardCtx,
         return spec(name, tuple(tree.shape))
 
     return walk(abstract)
+
+
+def state_split(name: str, shape: Tuple[int, ...], n: int) -> bool:
+    """Whether ``cache_specs`` splits a recurrent state leaf of one layer
+    (``shape`` without the stack dim) over a ``model`` axis of ``n``
+    ranks: RG-LRU's and sLSTM's ``h`` (B, width) and RG-LRU's ``conv``
+    (B, K - 1, width) on their width, where n divides it.  sLSTM's ``c``
+    and ``n`` and mLSTM's state stay whole, as in JAX's ``cache_pspecs``."""
+    return ((name == "h" and len(shape) == 2) or name == "conv") and \
+        shape[-1] % n == 0
 
 
 def local_slices(shape: Tuple[int, ...], spec: Tuple, mesh

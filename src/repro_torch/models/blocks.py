@@ -26,6 +26,7 @@ mode touches a cache or writes in place into a tensor autograd saved.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -34,8 +35,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import seqmix as SM
+from repro_torch.models import tp as TP
 from repro_torch.models.moe import moe_ffn
-from repro_torch.models.params import NOT_PORTED, not_ported
+from repro_torch.models.params import NOT_PORTED, not_ported, slstm_width
 
 NEG_INF = L.NEG_INF
 RECURRENT = {"mlstm": (SM.mlstm_seq, SM.mlstm_decode, SM.mlstm_cache),
@@ -78,15 +80,15 @@ def _pos2d(positions):
 
 def _attn_train(p, x, cfg, positions, window, tp=None):
     """With ``tp`` (a ``models/tp.py::Line`` over ``model``), ``wq``,
-    ``wk``, ``wv`` and their biases hold this rank's heads' columns
-    (column-parallel; qk-norm and rotary run on those heads, and
-    ``attention_dense`` unchanged, the GQA groups being contiguous) and
-    ``wo`` their rows (row-parallel, its partial sums summed)."""
-    heads = None
+    ``wk``, ``wv`` and their biases hold this rank's columns
+    (column-parallel: its query heads and their KV heads, or a block of a
+    KV head that ``qkv_project`` gathers; qk-norm and rotary run on those
+    heads, and ``attention_dense`` unchanged, the GQA groups being
+    contiguous) and ``wo`` its heads' rows (row-parallel, its partial sums
+    summed)."""
     if tp is not None:
         x = tp.copy_to(x)
-        heads = (cfg.n_heads // tp.size, cfg.n_kv_heads // tp.size)
-    q, k, v = L.qkv_project(p, x, cfg, positions, heads)
+    q, k, v = L.qkv_project(p, x, cfg, positions, tp)
     pos2 = _pos2d(positions)
     out = L.attention_dense(q, k, v, pos2, pos2, window)
     out = out.reshape(x.shape[0], x.shape[1], -1) @ p["wo"].to(x.dtype)
@@ -327,6 +329,64 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_seq: int,
     return c
 
 
+@functools.lru_cache(maxsize=None)
+def _split_keys(kind: str, cfg: ModelConfig, n: int) -> Tuple[str, ...]:
+    """The keys of the recurrent state leaves of a ``kind`` layer that
+    ``launch/specs.py::cache_specs`` splits over a ``model`` line of ``n``
+    ranks, by its rule on the whole leaf's shape: fixed for a config, so
+    decided once and not at every layer and decode step."""
+    from repro_torch.launch.specs import state_split
+    whole = RECURRENT[kind][2](cfg, 1, "meta")
+    return tuple(k for k, a in whole.items()
+                 if state_split(k, tuple(a.shape), n))
+
+
+def _split_states(kind: str, cfg: ModelConfig, ctx):
+    """Serving under an enabled ``ctx``: (the ``model`` line, the keys of
+    the recurrent state leaves split over it, ``_split_keys``), or None
+    where the cache holds every leaf whole."""
+    if ctx is None or not ctx.enabled:
+        return None
+    tp = TP.line(ctx, "tp")
+    keys = _split_keys(kind, cfg, tp.size) if tp.size > 1 else ()
+    return (tp, keys) if keys else None
+
+
+def _gather_states(cache, split):
+    """The cache with the rank's blocks of the ``split`` state leaves
+    gathered whole over the ``model`` line (split on their last dim): one
+    all-gather for them all, one a layer and decode step.  Every rank of
+    the line then runs the one-process decode on the same whole state.
+    Trap: collective order.  A hybrid's attention layers combine their
+    sequence-split softmax over the same line: every rank runs the layers
+    in one order, so the gathers and the combines pair up."""
+    if split is None:
+        return cache
+    tp, keys = split
+    n = tp.size
+    got = tp.all_gather(torch.cat([cache[k].reshape(-1) for k in keys]),
+                        0).view(n, -1)
+    out, at = dict(cache), 0
+    for k in keys:
+        blk = cache[k]
+        part = got[:, at:at + blk.numel()].reshape((n,) + tuple(blk.shape))
+        out[k] = part.movedim(0, -2).reshape(blk.shape[:-1] +
+                                             (n * blk.shape[-1],))
+        at += blk.numel()
+    return out
+
+
+def _write_states(cache, state, split) -> None:
+    """The new recurrent state into the cache in place: the rank's block
+    of each ``split`` leaf, every other leaf whole."""
+    tp, keys = split or (None, ())
+    for key, val in state.items():
+        if key in keys:
+            w = cache[key].shape[-1]
+            val = val[..., tp.coord * w:(tp.coord + 1) * w]
+        cache[key].copy_(val)
+
+
 def apply_block(kind: str, p: Dict[str, Any], x: torch.Tensor, *,
                 cfg: ModelConfig, mode: str, positions=None, cache=None,
                 pos=None, enc_out=None, mask_pos=None, ctx=None
@@ -356,8 +416,7 @@ def apply_block(kind: str, p: Dict[str, Any], x: torch.Tensor, *,
     train = mode == "train"
     tp = dp = None
     if train and ctx is not None and ctx.enabled:
-        from repro_torch.models.tp import line
-        tp, dp = line(ctx, "tp"), line(ctx, "dp")
+        tp, dp = TP.line(ctx, "tp"), TP.line(ctx, "dp")
     window = cfg.window if cfg.attn_kind == "swa" else None
     if kind == "attn" and cfg.family == "hybrid":
         window = cfg.window                               # local attention
@@ -365,18 +424,22 @@ def apply_block(kind: str, p: Dict[str, Any], x: torch.Tensor, *,
 
     if kind in RECURRENT:
         seq, decode, _ = RECURRENT[kind]
-        if mode == "decode":
-            mix, state = decode(p["mix"], h, cache, cfg)
+        if train:
+            mix, _ = seq(p["mix"], h, cfg, tp)
         else:
-            mix, state = seq(p["mix"], h, cfg)
-        if not train:
-            for key, val in state.items():
-                cache[key].copy_(val)
+            split = _split_states(kind, cfg, ctx)
+            if mode == "decode":
+                mix, state = decode(p["mix"], h,
+                                    _gather_states(cache, split), cfg)
+            else:
+                mix, state = seq(p["mix"], h, cfg)
+            _write_states(cache, state, split)
         x = x + mix
         if kind == "mlstm":
             return x, cache, None
         h2 = L.norm(p["ln2"], x, cfg)
-        return x + L.mlp(p["mlp"], h2, tp), cache, None
+        width = slstm_width(cfg) if kind == "slstm" else cfg.d_ff
+        return x + L.mlp(p["mlp"], h2, TP.split(tp, width)), cache, None
 
     if kind == "enc":
         mix = _enc_attn(p["attn"], h, cfg, positions, mode)
@@ -411,5 +474,5 @@ def apply_block(kind: str, p: Dict[str, Any], x: torch.Tensor, *,
     if kind == "moe":
         ff, aux = moe_ffn(p["moe"], h2, cfg, dp, tp)
     else:
-        ff = L.mlp(p["mlp"], h2, tp)
+        ff = L.mlp(p["mlp"], h2, TP.split(tp, cfg.d_ff))
     return x + ff, cache, aux

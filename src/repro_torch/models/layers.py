@@ -16,7 +16,7 @@ every KV cache's slots, which ``cache_write`` fills and
 ``_sharded_flash_decode`` attends over, combining the ranks of the
 ``model`` axis by an online softmax (``all_reduce`` MAX, then SUM).  In
 the sharded train step the projections and the MLP run on this rank's
-heads and columns (``qkv_project``'s ``heads``, ``mlp``'s ``tp``; the
+heads and columns (``qkv_project``'s and ``mlp``'s ``tp``; the
 collectives in ``models/tp.py``).
 """
 from __future__ import annotations
@@ -274,13 +274,28 @@ def _sharded_flash_decode(ctx, q, ck, cv, valid_len):
 # QKV projection + cache plumbing for the standard (non-MLA) path
 # ---------------------------------------------------------------------------
 
-def qkv_project(p, x, cfg: ModelConfig, positions,
-                heads: Optional[Tuple[int, int]] = None):
-    """q, k, v of x (rotary applied, qk-norm where configured).  ``heads``
-    (query heads, KV heads) are the ones ``p``'s columns hold: this rank's
-    under tensor parallelism (the GQA groups stay contiguous), else the
-    config's."""
-    h, kvh = heads or (cfg.n_heads, cfg.n_kv_heads)
+def qkv_project(p, x, cfg: ModelConfig, positions, tp=None):
+    """q, k, v of x (rotary applied, qk-norm where configured).
+
+    With ``tp`` (a ``models/tp.py::Line`` over ``model``, ``x`` already
+    copied onto it) ``wq`` and ``bq`` hold this rank's query heads'
+    columns, and ``wk``, ``wv`` and their biases its block of the KV
+    columns.  Where the line divides the KV heads that block is whole KV
+    heads, the GQA groups of the rank's query heads (contiguous).  Where it
+    does not (recurrentgemma's one KV head, qwen3-32b-smoke's two over 4
+    ranks), ``param_pspecs`` still splits ``kv_dim``: the block cuts a head.
+    Trap: a KV head split mid-head.  The rank's columns are gathered into
+    the whole K and V (``copy_to(all_gather(.))``: every rank reads only
+    its groups' heads, so the gradient is partial and sums over the line
+    before each rank keeps its block), k-norm and rotary run on the whole
+    K (k-norm's gradient is then partial, summed as ``TP_PARTIAL``'s), and
+    each of the rank's query heads takes its group's KV head, head // (H /
+    KV): the K and V returned have one head per query head."""
+    h, kvh = cfg.n_heads, cfg.n_kv_heads
+    mid = tp is not None and kvh % tp.size != 0
+    if tp is not None:
+        h //= tp.size
+        kvh = kvh if mid else kvh // tp.size
     dt = x.dtype
     q = x @ p["wq"].to(dt)
     k = x @ p["wk"].to(dt)
@@ -289,6 +304,8 @@ def qkv_project(p, x, cfg: ModelConfig, positions,
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
+    if mid:     # one gather and one sum over the line for both
+        k, v = tp.copy_to(tp.all_gather(torch.stack([k, v]), -1)).unbind(0)
     b, s = x.shape[0], x.shape[1]
     q = q.reshape(b, s, h, cfg.head_dim)
     k = k.reshape(b, s, kvh, cfg.head_dim)
@@ -299,6 +316,10 @@ def qkv_project(p, x, cfg: ModelConfig, positions,
     secs = cfg.mrope_sections if cfg.mrope else None
     q = apply_rope(q, positions, cfg.rope_theta, secs)
     k = apply_rope(k, positions, cfg.rope_theta, secs)
+    if mid:
+        group = torch.arange(tp.coord * h, (tp.coord + 1) * h,
+                             device=x.device) // (cfg.n_heads // kvh)
+        k, v = k.index_select(2, group), v.index_select(2, group)
     return q, k, v
 
 
@@ -363,7 +384,11 @@ def mlp(p, x, tp=None):
     """SwiGLU.  With ``tp`` (a ``models/tp.py::Line`` over ``model``),
     ``wi``/``wg`` hold this rank's columns of the hidden width
     (column-parallel) and ``wo`` its rows (row-parallel): the input's
-    gradient and the output's partial sums are summed over the line."""
+    gradient and the output's partial sums are summed over the line.  The
+    caller passes ``models/tp.py::split(line, width)``: where
+    ``param_pspecs`` keeps the width whole (sLSTM's 1365 over 2 ranks)
+    that is None, and the MLP runs whole on every rank, on the replicated
+    input, with no collective."""
     dt = x.dtype
     if tp is not None:
         x = tp.copy_to(x)

@@ -44,9 +44,13 @@ take the same optional ``ctx``.  Each rank then holds its blocks of every
 param by ``param_pspecs`` and its rows of the batch; a layer's ``data``
 blocks are gathered inside its remat body, an ``attn`` block runs on the
 rank's heads (MLA's too) and MLP columns, a ``moe`` block on its columns
-of the experts' width or its whole experts, and the embedding and the
-cross entropy are vocabulary-parallel (``models/tp.py`` has the
-collectives).
+of the experts' width or its whole experts, an ``mlstm`` block on its
+heads, an ``rglru`` block on its channels, an ``slstm`` block whole from
+its gathered weights, a leaf whole on ``model`` whole, and the embedding
+and the cross entropy are vocabulary-parallel (``models/tp.py`` has the
+collectives).  In serving a recurrent state split over ``model`` is
+gathered whole for each decode step and the rank keeps its block of the
+new one.
 """
 from __future__ import annotations
 
@@ -164,14 +168,18 @@ def _run_stacks(params, x, cfg: ModelConfig, mode: str, positions, caches,
 
 
 # the leaves replicated on ``model`` (and whole on ``data``) that an
-# ``attn`` block applies to this rank's heads: their gradients are partial
-# sums over ``model``, summed by the gathers' backward.  Not among them:
-# the norms applied to the replicated residual (whole on every rank), and
-# the leaves split on ``data`` and replicated on ``model`` -- the MoE
-# router, MLA's wq_a and wkv_a -- which the gathers never sum over
-# ``model``: ``moe.py`` and ``blocks.py`` place their ``copy_to`` so that
-# those gradients come out whole on every rank
-TP_PARTIAL = ("q_norm", "k_norm")
+# ``attn`` block applies to this rank's heads (k_norm to the whole K where
+# a KV head is split mid-head: only the rank's groups reach the loss) and
+# an ``mlstm`` block to its heads' skip columns: their gradients are
+# partial sums over ``model``, summed by the gathers' backward.  Not among
+# them: the norms applied to the replicated residual (whole on every
+# rank), and the leaves split on ``data`` and replicated on ``model`` --
+# the MoE router, MLA's wq_a and wkv_a, mLSTM's w_if, the MLP and sLSTM
+# leaves whose ``model`` axis ``param_pspecs`` dropped -- which the
+# gathers never sum over ``model``: ``moe.py``, ``blocks.py`` and
+# ``seqmix.py`` place their ``copy_to`` so that those gradients come out
+# whole on every rank
+TP_PARTIAL = ("q_norm", "k_norm", "skip_scale")
 
 
 def _train_stack(sp, period, x, aux, cfg: ModelConfig, positions,
@@ -338,7 +346,7 @@ def forward_train(params, batch: Dict[str, Any], cfg: ModelConfig,
     rank's blocks by ``param_pspecs(cfg, ctx, mesh=mesh)``, the batch is
     its rows by ``batch_pspecs``, and the hidden state returned is those
     rows' (whole on the ``model`` line: Megatron-SP's split of the
-    residual between blocks is not made, ROADMAP item 12.5d).  A
+    residual between blocks is not made, ROADMAP item 12.5e).  A
     collective of the whole grid."""
     x, aux, _ = _forward_train(params, batch, cfg, ctx)
     return x, aux
@@ -435,19 +443,25 @@ def loss_fn(params, batch, cfg: ModelConfig, ctx=None):
 # Serving: cache init / prefill / decode
 # ---------------------------------------------------------------------------
 
+# the block kinds with tensor-parallel compute in the sharded train step
+TP_KINDS = {"attn", "moe", "mlstm", "slstm", "rglru"}
+
+
 def _check_ctx(cfg: ModelConfig, ctx, train: bool = False) -> None:
     """An enabled ``ctx`` needs the current mesh (``require_mesh`` raises
     without one or with one of other axes or another group).  Serving:
     MLA and the ``ssm`` family never take the sequence split (JAX's
     ``make_shard_ctx`` never gives it them).  Training (``train``): the
-    sharded step has tensor-parallel compute for the ``attn`` and ``moe``
-    block kinds, MLA included, on heads, MLP width, expert width (or the
-    experts, where ``expert_parallel`` splits them), the dense residual's
-    width and vocabulary that the ``model`` line divides (JAX drops the
-    axis elsewhere; the port does not guess), and no ``pod`` axis (ZeRO's
+    sharded step has tensor-parallel compute for the ``TP_KINDS``, MLA
+    included, on query heads, KV width (a KV head may split mid-head),
+    mLSTM heads, RG-LRU width, expert width (or the experts, where
+    ``expert_parallel`` splits them), the dense residual's width and
+    vocabulary that the ``model`` line divides; an MLP or sLSTM width
+    that it does not divide is whole on ``model`` (``param_pspecs`` drops
+    the axis, as JAX does) and runs whole.  It has no ``pod`` axis (ZeRO's
     optimizer blocks over it differ from the params').  What it lacks
-    raises ``NotImplementedError`` here, from the config and the grid
-    alone: before any collective, on every rank."""
+    (ROADMAP item 12.5e) raises ``NotImplementedError`` here, from the
+    config and the grid alone: before any collective, on every rank."""
     if ctx is None or not ctx.enabled:
         return
     from repro_torch.launch.meshctx import require_mesh
@@ -466,13 +480,17 @@ def _check_ctx(cfg: ModelConfig, ctx, train: bool = False) -> None:
         kinds = {k for period, _ in cfg.stacks() for k in period}
         if cfg.family == "audio":
             kinds.add("enc")
-        if kinds - {"attn", "moe"}:
-            missing.append(f"the {sorted(kinds - {'attn', 'moe'})} block "
-                           "kinds")
-        dims = [("query heads", cfg.n_heads), ("KV heads", cfg.n_kv_heads),
-                ("vocabulary", cfg.vocab)]
-        if "attn" in kinds:
-            dims.append(("MLP width", cfg.d_ff))
+        if kinds - TP_KINDS:
+            missing.append(f"the {sorted(kinds - TP_KINDS)} block kinds")
+        dims = [("vocabulary", cfg.vocab)]
+        if kinds & {"attn", "moe"}:
+            dims.append(("query heads", cfg.n_heads))
+            if not cfg.mla:
+                dims.append(("KV width", cfg.kv_dim))
+        if "mlstm" in kinds:
+            dims.append(("mLSTM heads", cfg.n_heads))
+        if "rglru" in kinds:
+            dims.append(("RG-LRU width", cfg.lru_dim or cfg.d_model))
         if "moe" in kinds:
             dims.append(("experts", cfg.n_experts) if expert_parallel(cfg)
                         else ("expert width", cfg.d_ff))
@@ -484,7 +502,7 @@ def _check_ctx(cfg: ModelConfig, ctx, train: bool = False) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: the sharded train step lacks tensor-parallel "
-            f"compute for {'; '.join(missing)} (ROADMAP item 12.5d)")
+            f"compute for {'; '.join(missing)} (ROADMAP item 12.5e)")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
@@ -509,10 +527,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
 
 def _init_cache_part(cfg, batch, max_seq, dtype, device, ctx):
     """This rank's block of every leaf of ``init_cache(cfg, batch,
-    max_seq)``.  Raises where the layout needs what this slice lacks: a
-    recurrent state split over its width (tensor-parallel recurrent
-    compute, ROADMAP item 12.5d), or a sequence split that the ``model``
-    axis cannot make (JAX's ``shard_map`` refuses it)."""
+    max_seq)``, a recurrent state split over its width included (the
+    blocks gather it whole for a decode step).  Raises where the
+    ``model`` axis cannot make a sequence split (JAX's ``shard_map``
+    refuses it)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.meshctx import require_mesh
     from repro_torch.launch.specs import cache_specs, local_shape
@@ -530,11 +548,6 @@ def _init_cache_part(cfg, batch, max_seq, dtype, device, ctx):
                 and spec[2] != tp:
             raise ValueError(f"{cfg.name}: a cache of {leaf.shape[2]} "
                              f"slots does not split over {n} ranks")
-        if n > 1 and name not in ("k", "v") and tp in spec:
-            raise NotImplementedError(
-                f"{cfg.name}: the {name!r} state split over the model axis "
-                "needs tensor-parallel recurrent compute (ROADMAP item "
-                "12.5d)")
         return torch.zeros(local_shape(tuple(leaf.shape), spec, mesh),
                            dtype=leaf.dtype, device=device)
 

@@ -120,9 +120,16 @@ def _mlstm_defs(cfg: ModelConfig) -> Dict[str, PD]:
     }
 
 
+def slstm_width(cfg: ModelConfig) -> int:
+    """The width of sLSTM's output MLP and of its block's MLP (1365 at
+    xlstm-350m's d_model 1024: ``param_pspecs`` keeps it whole on a
+    ``model`` axis of 2)."""
+    return (4 * cfg.d_model) // 3
+
+
 def _slstm_defs(cfg: ModelConfig) -> Dict[str, PD]:
     d = cfg.d_model
-    up = (4 * d) // 3
+    up = slstm_width(cfg)
     # 4 gates (i, f, z, o) from the input and the recurrent hidden state
     return {
         "w_x": PD((d, 4 * d), ("fsdp", "tp")),
@@ -164,7 +171,7 @@ def block_defs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
     if kind == "slstm":
         return {"ln1": _norm_def(cfg), "mix": _slstm_defs(cfg),
                 "ln2": _norm_def(cfg),
-                "mlp": _mlp_defs(cfg, (4 * cfg.d_model) // 3)}
+                "mlp": _mlp_defs(cfg, slstm_width(cfg))}
     if kind == "rglru":
         return {"ln1": _norm_def(cfg), "mix": _rglru_defs(cfg),
                 "ln2": _norm_def(cfg), "mlp": _mlp_defs(cfg)}

@@ -6,10 +6,12 @@ On the grid every param leaf and its AdamW state are held in blocks by
 ``models/params.py::param_pspecs``: the ``fsdp`` role splits a dim over
 ``data``, the ``tp`` and ``ep`` roles over ``model``.  Each rank computes
 on its rows of the batch (``dp``) and, over ``model`` (Megatron-style
-tensor parallelism), on its heads (``attn`` and MLA blocks), its columns
-of an MLP's hidden width, its columns of every expert's width (a ``moe``
-block whose experts do not split: ``expert_parallel`` false) or its whole
-experts (``expert_parallel`` true), and its rows of the vocabulary.
+tensor parallelism), on its heads (``attn`` and MLA blocks, mLSTM's
+cell), its columns of an MLP's hidden width, of RG-LRU's width, of every
+expert's width (a ``moe`` block whose experts do not split:
+``expert_parallel`` false) or its whole experts (``expert_parallel``
+true), and its rows of the vocabulary.  sLSTM's serial loop runs whole on
+every rank of the line, from its gathered weights.
 
   copy_to      identity forward, SUM over the line backward (an input
                entering a column-parallel product: each rank's partial
@@ -29,14 +31,44 @@ experts (``expert_parallel`` true), and its rows of the vocabulary.
 
 Which gradients sum over ``model``: only those of leaves whole on
 ``data`` flagged in ``Layout.partial`` (``models/model.py::TP_PARTIAL``:
-qk-norm's scales).  A leaf split on ``data`` and replicated on ``model``
-is never summed over ``model``, so its gradient must come out whole on
-every model rank by itself: the MoE router and MLA's ``wq_a`` and
-``wkv_a`` (roles ``(fsdp, None)``) are such leaves.  Their products run on
+qk-norm's scales, mLSTM's ``skip_scale``).  A leaf split on ``data`` and
+replicated on ``model`` is never summed over ``model``, so its gradient
+must come out whole on every model rank by itself: the MoE router, MLA's
+``wq_a`` and ``wkv_a`` and mLSTM's ``w_if`` (roles ``(fsdp, None)``), and
+the leaves whose ``model`` axis ``param_pspecs`` dropped, are such
+leaves.  Their products run on
 the replicated residual, and the ``copy_to`` that sums the partial
 gradients of the rank's columns or experts sits after them (on MLA's
-``x @ wq_a`` and ``x @ wkv_a``, on MoE's dispatched tokens), so that no
-partial gradient reaches them.
+``x @ wq_a`` and ``x @ wkv_a``, on MoE's dispatched tokens, on mLSTM's
+``z @ w_if``), so that no partial gradient reaches them.
+
+Split or whole: each product follows its weight's spec.  ``param_pspecs``
+drops ``model`` from a dim that the line does not divide (JAX's rule:
+xlstm-350m's sLSTM width 1365 over 2 ranks), and ``split(tp, dim)``
+applies that same rule to the same dim: a leaf split over ``model`` runs
+on the rank's block, a leaf left whole runs whole on every rank.  Never
+decide it from a tensor's shape.  A product computed whole on every rank
+reads the replicated input, never a ``copy_to``'s output (read through a
+``copy_to``, its whole gradient would be summed tp times); a ``copy_to``
+sits only on a tensor whose gradient is partial on each rank.
+
+Two compositions need no autograd function of their own:
+
+  all_gather of a WEIGHT block (sLSTM's ``w_x`` and ``w_h``, mLSTM's
+      ``w_up``): the product then runs replicated, its gradient is whole
+      on every rank, and the gather's backward keeps the rank's block of
+      it, which is the block's gradient.
+  copy_to(all_gather(x_block, dim)) of an ACTIVATION (a KV head split
+      mid-head, RG-LRU's gate input): the whole tensor feeds only the
+      rank's columns downstream, so its gradient is partial; backward
+      sums it over the line, then keeps the rank's block (a
+      reduce-scatter, written as its two halves).
+
+Trap: the layout is gate-major and half-major, not head-major.  A rank's
+block of mLSTM's ``w_up`` is half of [z | skip_in] (at tp = 2 rank 1 holds
+all of skip_in), of sLSTM's ``w_x`` and ``w_h`` a quarter of [i | f | z |
+o] at tp = 4: never read as "this rank's units".  Those weights are
+gathered and applied whole.
 
 Each is an autograd function over the lines of a ``ModelMesh``
 (``launch/mesh.py``), a no-op on a line of one rank.  A layer's leaves
@@ -98,6 +130,13 @@ def line(ctx, role: str) -> Line:
     current mesh."""
     from repro_torch.launch.meshctx import require_mesh
     return Line(require_mesh(ctx), getattr(ctx, role)())
+
+
+def split(tp: Optional[Line], dim: int) -> Optional[Line]:
+    """``tp`` where ``param_pspecs`` splits a dim of ``dim`` over it (the
+    line divides it), None where the leaf is whole on ``model`` and its
+    product runs whole on every rank (or where there is no line)."""
+    return tp if tp is not None and dim % tp.size == 0 else None
 
 
 class _CopyTo(torch.autograd.Function):

@@ -2,7 +2,11 @@
 grid of 4 ``gloo`` ranks against the JAX package's ``decode_step(...,
 ctx)`` under ``make_shard_ctx`` on 4 fake CPU devices, with the layout
 pieces (``ShardCtx``, ``make_shard_ctx``, ``cache_specs``,
-``constrain_spec``) and the int8 compressed all-reduce.
+``constrain_spec``) and the int8 compressed all-reduce.  The recurrent
+kinds run there too: recurrentgemma-2b-smoke (RG-LRU's state split over
+its width, its local attention on the sequence split) and
+xlstm-350m-smoke (sLSTM's ``h`` split over its width), each rank's
+state blocks held to JAX's cache cut by the specs.
 
 One JAX subprocess (``XLA_FLAGS=--xla_force_host_platform_device_count=4``,
 ``JAX_DISABLE_MOST_OPTIMIZATIONS=1``) and one 4-rank spawn of the port
@@ -44,7 +48,8 @@ from repro_torch.launch.mesh import (ModelMesh,  # noqa: E402
                                      make_model_mesh, spawn)
 from repro_torch.launch.meshctx import mesh_context  # noqa: E402
 from repro_torch.launch.specs import (cache_specs, local_rows,  # noqa: E402
-                                      local_slices, make_shard_ctx)
+                                      local_shape, local_slices,
+                                      make_shard_ctx)
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.convert import (cache_part_from_jax,  # noqa: E402
@@ -65,7 +70,8 @@ GRIDS = {(1, 4): ("data", "model"), (2, 2): ("data", "model"),
          (2, 1, 2): ("pod", "data", "model")}
 ATOL = 1e-4                    # tests/test_torch_model.py's f32 tolerance
 DECODE_ATOL = 2e-5             # the JAX kernel tests' f32 gqa_decode one
-ARCHS = ("qwen3-32b-smoke", "h2o-danube-3-4b-smoke")
+ARCHS = ("qwen3-32b-smoke", "h2o-danube-3-4b-smoke",
+         "recurrentgemma-2b-smoke", "xlstm-350m-smoke")
 # the registered shapes, and one whose batch (3) dp 2 does not divide
 # and whose sequence (32766) tp 4 does not (tp 2 does)
 SPEC_SHAPES = ("decode_32k", "prefill_32k", "train_4k", "odd_decode")
@@ -74,11 +80,18 @@ ODD = ("odd_decode", 32766, 3, "decode")
 # rank on (1, 4), so 12 steps from position 3 cross every shard boundary
 # while later shards are empty; h2o-danube: a 16-slot window ring (4 a
 # rank) under a 21-token prompt (the prefill writes the last 16), then 16
-# steps that wrap it.  B 3 on (2, 2): dp does not divide it.
+# steps that wrap it.  B 3 on (2, 2): dp does not divide it.  The
+# recurrent kinds on both meshes at B 4: recurrentgemma's RG-LRU state
+# (h, conv) split over its 64 channels and its local attention's 16-slot
+# window on the sequence split under the same 21-token prompt and 16
+# steps; xlstm's sLSTM h split over its 48 units, its mLSTM state whole
 RUNS = [(arch, mesh, b, seq, prompt, gen)
         for arch, seq, prompt, gen in (("qwen3-32b-smoke", 16, 3, 12),
                                        ("h2o-danube-3-4b-smoke", 32, 21, 16))
-        for mesh, b in (((1, 4), 4), ((2, 2), 4), ((2, 2), 3))]
+        for mesh, b in (((1, 4), 4), ((2, 2), 4), ((2, 2), 3))] + \
+    [(arch, mesh, 4, 32, 21, 16)
+     for arch in ("recurrentgemma-2b-smoke", "xlstm-350m-smoke")
+     for mesh in MESHES]
 # _sharded_flash_decode alone: W 32 (8 slots a rank on (1, 4), 16 on
 # (2, 2)); lengths 0, 1, one inside shard 0 (shards 1 to 3 empty), one in
 # each later shard, W and past W
@@ -365,8 +378,8 @@ def _rank_compress(rank):
 
 def _rank_refusals(rank):
     """Case (e) on a rank: a mesh of another group or rank, a mesh of
-    other axes, a ctx asking the sequence split of MLA, a recurrent state
-    split over the width, a window the model axis does not divide."""
+    other axes, a ctx asking the sequence split of MLA, a window the
+    model axis does not divide."""
     out = {}
     for name, fn in (
             ("grid_of_8", lambda: make_model_mesh((2, 4))),
@@ -380,8 +393,6 @@ def _rank_refusals(rank):
             ("mla_seq", lambda: _decode_under(
                 make_model_mesh((1, 4)), "minicpm3-4b-smoke",
                 ShardCtx(enabled=True, seq_shard_cache=True))),
-            ("rglru_width", lambda: _decode_under(
-                make_model_mesh((1, 4)), "recurrentgemma-2b-smoke")),
             ("window_6", lambda: _decode_under(
                 make_model_mesh((1, 4)), "qwen3-32b-smoke",
                 ShardCtx(enabled=True, seq_shard_cache=True), seq=6))):
@@ -575,7 +586,9 @@ def test_sharded_decode_matches_jax_decode_step_with_ctx(runs, run):
     ctx = make_shard_ctx(cfg, shape, grid)
     assert ctx.seq_shard_cache == bool(want["seq_shard"])
     assert ctx.batch_shardable == bool(want["batch_shardable"])
-    assert ctx.seq_shard_cache and ctx.batch_shardable == (b % mesh[0] == 0)
+    # every family but ssm takes the sequence split (the hybrid's window)
+    assert ctx.seq_shard_cache == (cfg.family != "ssm")
+    assert ctx.batch_shardable == (b % mesh[0] == 0)
     whole = {k: tuple(a.shape) for k, a in tree_leaves(
         M.init_cache(cfg, b, seq, device="meta"))}
     blocks = set()
@@ -585,10 +598,14 @@ def test_sharded_decode_matches_jax_decode_step_with_ctx(runs, run):
         rows = got["rows"]
         rank_grid = ModelMesh(("data", "model"), mesh, rank)
         assert rows == local_rows_on(ctx, b, rank_grid)
+        specs = dict(tree_leaves(got["specs"]))
         for key, shp in got["shapes"].items():
-            n = mesh[1] if key.endswith(("/k", "/v")) else 1
+            # the KV caches on the sequence, the recurrent states h and
+            # conv on their width (the smoke widths all divide)
+            n = mesh[1] if key.endswith(("/k", "/v", "/h", "/conv")) else 1
             m = (mesh[0] if b % mesh[0] == 0 else 1)
             assert np.prod(shp) * n * m == np.prod(whole[key]), key
+            assert shp == local_shape(whole[key], specs[key], rank_grid)
         for step in range(gen + 1):
             what = f"rank {rank} step {step}"
             np.testing.assert_allclose(got[f"logits_{step}"],
@@ -609,10 +626,9 @@ def test_sharded_decode_matches_jax_decode_step_with_ctx(runs, run):
                     np.testing.assert_allclose(a, part[key], atol=ATOL,
                                                rtol=0,
                                                err_msg=f"{what} {key}")
-        k_spec = got["specs"]["stack_0"]["b0_attn"]["k"]
         blocks.add((rows.start,) + tuple(
-            s.start for s in local_slices(whole["stack_0/b0_attn/k"],
-                                          k_spec, rank_grid)))
+            s.start for key, spec in specs.items()
+            for s in local_slices(whole[key], spec, rank_grid)))
     # each rank its own block; where dp does not divide B, the two ranks
     # of a model coordinate hold the same (every row)
     assert len(blocks) == (RANKS if b % mesh[0] == 0 else mesh[1])
@@ -769,6 +785,4 @@ def test_refusals_on_the_ranks(runs):
         assert got["other_rank"][0] == "ValueError", got
         assert got["pod_ctx"][0] == "ValueError", got
         assert got["mla_seq"][0] == "ValueError", got
-        assert got["rglru_width"][0] == "NotImplementedError", got
-        assert "12.5d" in got["rglru_width"][1]
         assert got["window_6"][0] == "ValueError", got

@@ -13,8 +13,10 @@ JAX side: qwen3-32b-smoke, ``ShapeConfig("t", 32, 8, "train")``,
 ``init_train_state(PRNGKey(0))`` placed by ``param_pspecs`` (m and v
 too), a numpy-seeded batch placed by ``batch_pspecs``, the loss and
 gradients of step 1 under the mesh, two train steps, and one step with
-``grad_accum=2``.  The port: the same state through
-``train_state_from_jax`` cut to each rank's blocks, each rank's
+``grad_accum=2``; then the same first two for each of ``TP_RUNS`` (the
+moe kind, MLA, and the recurrent kinds: xlstm-350m-smoke, also at
+``d_model=52``, and recurrentgemma-2b-smoke).  The port: the same state
+through ``train_state_from_jax`` cut to each rank's blocks, each rank's
 ``batch_pspecs`` rows.
 
 Tolerances are ``tests/test_torch_train.py``'s (f32 smoke configs): the
@@ -83,26 +85,45 @@ SELF_ARCHS = ("h2o-danube-3-4b-smoke", "qwen1.5-110b-smoke",
 MLA_GRID = (1, 4)
 SELF_SHAPE = (8, 16)
 FSDP_GRID = (4, 1)
-# the moe kind and MLA on (2, 2) against JAX's step: (name, arch, config
-# fields replaced in both packages).  mixtral's 4 experts split their width
-# over model; arctic with 16 experts takes JAX's EP route (params.py's
-# ``n_experts % 16 == 0``: whole experts over model), its dense residual
-# column- and row-parallel; minicpm3's MLA splits its 4 heads
+# the moe kind, MLA and the recurrent kinds on (2, 2) against JAX's step:
+# (name, arch, config fields replaced in both packages).  mixtral's 4
+# experts split their width over model; arctic with 16 experts takes JAX's
+# EP route (params.py's ``n_experts % 16 == 0``: whole experts over
+# model), its dense residual column- and row-parallel; minicpm3's MLA
+# splits its 4 heads; xlstm's mLSTM its 2 heads, its sLSTM running whole
+# from its gathered weights (widths 64, split; at d_model 52 the widths are
+# 69, whole on model as the published 1365 is); recurrentgemma's RG-LRU
+# its 64 channels and its one KV head mid-head
 TP_RUNS = (("mixtral", "mixtral-8x22b-smoke", {}),
            ("arctic16", "arctic-480b-smoke", {"n_experts": 16}),
-           ("minicpm", "minicpm3-4b-smoke", {}))
+           ("minicpm", "minicpm3-4b-smoke", {}),
+           ("xlstm", "xlstm-350m-smoke", {}),
+           ("xlstm_whole", "xlstm-350m-smoke", {"d_model": 52}),
+           ("rglru", "recurrentgemma-2b-smoke", {}))
 TP_NAMES = [r[0] for r in TP_RUNS]
 # the leaf of each whose blocks differ on every rank (a quarter each)
 TP_LEAF = {"mixtral": "stack_0/b0_moe/moe/wi",
            "arctic16": "stack_0/b0_moe/moe/wi",
-           "minicpm": "stack_0/b0_attn/attn/wo"}
-# where the model line lacks tensor-parallel compute (ROADMAP 12.5d):
-# (name, arch, grid)
-REFUSALS = (("xlstm", "xlstm-350m-smoke", GRID),
-            ("rglru", "recurrentgemma-2b-smoke", GRID),
-            ("whisper", "whisper-base-smoke", GRID),
-            ("kv_heads", ARCH, (1, 4)),
-            ("pod", ARCH, (2, 1, 2)))
+           "minicpm": "stack_0/b0_attn/attn/wo",
+           "xlstm": "stack_0/b0_mlstm/mix/wq",
+           "xlstm_whole": "stack_0/b0_mlstm/mix/wq",
+           "rglru": "stack_0/b0_rglru/mix/w_x"}
+W_UP = "stack_0/b0_mlstm/mix/w_up"
+# the leaves JAX keeps whole on model at d_model 52 (width 69)
+WHOLE_69 = ("stack_0/b1_slstm/mix/w_up", "stack_0/b1_slstm/mix/w_gate",
+            "stack_0/b1_slstm/mix/w_down", "stack_0/b1_slstm/mlp/wi",
+            "stack_0/b1_slstm/mlp/wg", "stack_0/b1_slstm/mlp/wo")
+# the port's (1, 4) steps against its own one process: RG-LRU's 64
+# channels and one KV head over 4 ranks (a quarter of the head a rank),
+# qwen3-32b-smoke's 2 KV heads over 4 (half a head a rank)
+QUARTER_ARCHS = ("recurrentgemma-2b-smoke", ARCH)
+# where the model line lacks tensor-parallel compute (ROADMAP 12.5e):
+# (name, arch, config fields replaced, grid)
+REFUSALS = (("whisper", "whisper-base-smoke", {}, GRID),
+            ("pod", ARCH, {}, (2, 1, 2)),
+            ("xlstm", "xlstm-350m-smoke", {}, (1, 4)),
+            ("heads", "recurrentgemma-2b-smoke", {"n_heads": 10}, (1, 4)),
+            ("lru", "recurrentgemma-2b-smoke", {"lru_dim": 66}, (1, 4)))
 
 
 def _opt():
@@ -392,12 +413,12 @@ def _remat_bits(cfg, mesh, state, batch):
         for r in ("full", "dots")}
 
 
-def _refusal(arch, mesh):
+def _refusal(arch, kw, mesh):
     """The sharded step where the model line lacks tensor-parallel
     compute: the exception, and the model mesh's collectives run before
     it (none)."""
     from repro_torch.launch import mesh as mesh_mod
-    cfg = get_config(arch)
+    cfg = get_config(arch).replace(**kw)
     b, s = 8, 16
     ctx = make_shard_ctx(cfg, ShapeConfig("t", s, b, "train"), mesh)
     whole = TS.init_train_state(cfg, 0, _opt(), "cpu")
@@ -449,12 +470,14 @@ def _tp_run(name, mesh, jstate):
     ctx = make_shard_ctx(cfg, ShapeConfig(*SHAPE), mesh)
     state = train_state_from_jax(jstate, "cpu",
                                  param_pspecs(cfg, ctx, mesh=mesh), mesh)
-    leaf = dict(tree_leaves(state.params))[TP_LEAF[name]].numpy().copy()
+    blocks = dict(tree_leaves(state.params))
+    leaf = blocks[TP_LEAF[name]].numpy().copy()
+    w_up = blocks[W_UP].numpy().copy() if W_UP in blocks else None
     with _port_routing() as taps:
         rec = _sharded_run(cfg, mesh, state,
                            _batch(cfg, SHAPE[2], SHAPE[1]), 2)
     rec["routing"] = taps[:cfg.n_layers if cfg.n_experts else 0]
-    rec["leaf"] = leaf
+    rec["leaf"], rec["w_up"] = leaf, w_up
     return rec
 
 
@@ -485,14 +508,15 @@ def torch_rank(rank, jstate, tp_states):
         [("fsdp", a + "-smoke", FSDP_GRID, 1, 1) for a in ASSIGNED] + \
         [("fsdp_accum", "mixtral-8x22b-smoke", FSDP_GRID, 1, ACCUM),
          ("tp_accum", "mixtral-8x22b-smoke", GRID, 1, ACCUM),
-         ("mla", "minicpm3-4b-smoke", MLA_GRID, 2, 1)]
+         ("mla", "minicpm3-4b-smoke", MLA_GRID, 2, 1)] + \
+        [("quarter", a, MLA_GRID, 2, 1) for a in QUARTER_ARCHS]
     for kind, arch, grid, steps, accum in runs:
         c = _cfg(arch)
         out[(kind, arch)] = _sharded_run(
             c, meshes[grid], _port_state(c, meshes[grid]),
             _batch(c, *SELF_SHAPE), steps, accum)
-    out["refusals"] = {name: _refusal(arch, meshes[grid])
-                       for name, arch, grid in REFUSALS}
+    out["refusals"] = {name: _refusal(arch, kw, meshes[grid])
+                       for name, arch, kw, grid in REFUSALS}
     return out
 
 
@@ -832,7 +856,8 @@ def test_remat_full_and_dots_change_no_number_on_the_grid(runs):
 
 
 # ---------------------------------------------------------------------------
-# (b2) the moe kind and MLA on (2, 2) against JAX's make_train_step on 2 x 2
+# (b2) the moe kind, MLA and the recurrent kinds on (2, 2) against JAX's
+# make_train_step on 2 x 2
 # ---------------------------------------------------------------------------
 
 
@@ -847,7 +872,10 @@ def test_moe_and_mla_step_one_loss_and_gradients_match_jax(runs, name):
     """Step 1's loss, ce and aux and the gradients of every leaf, gathered
     on each rank, against JAX's on the same state and batch: the width
     route (mixtral), the EP route with arctic's dense residual (16
-    experts), MLA's heads (minicpm3)."""
+    experts), MLA's heads (minicpm3), mLSTM's heads and sLSTM whole from
+    its gathered weights, with its widths split or whole (xlstm, at
+    d_model 48 and 52), RG-LRU's channels and a KV head split mid-head
+    (recurrentgemma)."""
     want = _jax_of(runs, name)
     wg = {k[len("grad0/"):]: v for k, v in want.items()
           if k.startswith("grad0/")}
@@ -917,9 +945,10 @@ def test_moe_routing_matches_jax_bit_for_bit(runs, name):
 def test_moe_and_mla_leaves_are_held_as_the_ranks_blocks(runs, name):
     """Params by ``param_pspecs``, m and v by its ``opt`` specs; the
     experts' ``wi`` (split on d over data and, on the EP route, on E over
-    model, else on the width) and MLA's ``wo`` a quarter on each rank, a
-    different one each, equal to JAX's state's block as
-    ``train_state_from_jax`` cuts it (``local_slices`` of the spec)."""
+    model, else on the width), MLA's ``wo``, mLSTM's ``wq`` and RG-LRU's
+    ``w_x`` a quarter on each rank, a different one each, equal to JAX's
+    state's block as ``train_state_from_jax`` cuts it (``local_slices`` of
+    the spec)."""
     from repro_torch.launch.specs import local_slices
     cfg = _tp_cfg(name)
     whole = {k: pd.shape for k, pd in tree_leaves(param_defs(cfg))}
@@ -983,6 +1012,65 @@ def test_mla_heads_over_four_model_ranks_match_one_process(runs):
         cfg, _batch(cfg, *SELF_SHAPE), 2), "minicpm3 (1, 4)")
 
 
+@pytest.mark.parametrize("arch", QUARTER_ARCHS)
+def test_kv_head_split_mid_head_over_four_model_ranks_matches_one_process(
+        runs, arch):
+    """(1, 4): recurrentgemma-2b-smoke (one KV head of 16 columns, 4 a
+    rank; RG-LRU's 64 channels, 16 a rank) and qwen3-32b-smoke (2 KV
+    heads, half a head a rank; qk-norm's k scale applied to the whole K)
+    against one process, every rank all 8 rows."""
+    cfg = get_config(arch)
+    got = _same_on_ranks(runs["ranks"], ("quarter", arch))[0]
+    assert got["rows"][0] == SELF_SHAPE[0]
+    assert cfg.n_kv_heads % MLA_GRID[1] and not cfg.kv_dim % MLA_GRID[1]
+    split = [spec[-1] == "model" for key, spec in
+             got["specs"]["params"].items()
+             if key.endswith(("/attn/wk", "/attn/wv", "/mix/w_x"))]
+    assert split and all(split)
+    _check_against_one_process(got, _one_process(
+        cfg, _batch(cfg, *SELF_SHAPE), 2), f"{arch} (1, 4)")
+
+
+def test_mlstm_w_up_block_is_half_major_and_jax_keeps_widths_whole(runs):
+    """The traps of the layout, held to JAX's: each rank's block of
+    mLSTM's ``w_up`` (d, 2 x inner) is its data rows of one half of
+    [z | skip_in], so rank 1 (model coordinate 1) holds skip_in's columns,
+    never a head's; and at d_model 52 the sLSTM widths (69) are whole on
+    model in both packages' specs, split at 48 (64)."""
+    import jax
+    from jax.sharding import PartitionSpec as P
+    from repro.configs.base import get_config as jget
+    from repro.configs.base import ShapeConfig as JShape
+    from repro.launch.specs import make_shard_ctx as jmake_ctx
+    from repro.models.params import param_pspecs as jparam_pspecs
+    w_up = np.asarray(_jleaf(runs["tp_states"]["xlstm"], "params", W_UP))
+    inner = w_up.shape[-1] // 2
+    rows = w_up.shape[1] // GRID[0]
+    for rank, out in enumerate(runs["ranks"]):
+        d, m = divmod(rank, GRID[1])
+        got = out[("tp", "xlstm")]["w_up"]
+        want = np.split(w_up, 2, -1)[m][:, d * rows:(d + 1) * rows]
+        np.testing.assert_array_equal(got, want, err_msg=f"rank {rank}")
+        if m == 1:
+            np.testing.assert_array_equal(
+                got, w_up[:, d * rows:(d + 1) * rows, inner:])
+    axes = ("data", "model")
+    jmesh = types.SimpleNamespace(axis_names=axes,
+                                  shape=dict(zip(axes, GRID)))
+    for name, whole in (("xlstm", False), ("xlstm_whole", True)):
+        _, arch, kw = next(r for r in TP_RUNS if r[0] == name)
+        jcfg = jget(arch).replace(**kw)
+        flat = jax.tree_util.tree_flatten_with_path(
+            jparam_pspecs(jcfg, jmake_ctx(jcfg, JShape(*SHAPE), jmesh),
+                          mesh=jmesh), is_leaf=lambda x: isinstance(x, P))[0]
+        want = {"/".join(str(getattr(k, "key", k)) for k in path): tuple(p)
+                for path, p in flat}
+        got = runs["ranks"][0][("tp", name)]["specs"]["params"]
+        assert got == want, name
+        for leaf in WHOLE_69:
+            assert ("model" not in got[leaf]) == whole, (name, leaf)
+
+
 def test_tensor_parallel_grad_accum_with_moe_matches_one_process(runs):
     """mixtral-8x22b-smoke, grad_accum=2 on (2, 2): the experts' width
     over model, each microbatch's aux loss over the whole microbatch,
@@ -1014,11 +1102,18 @@ def test_fsdp_grad_accum_with_moe_matches_one_process(runs):
 def test_refusals_name_12_5c_on_every_rank_before_any_collective(runs,
                                                                  name):
     """What the model line still lacks raises on every rank before any
-    collective, naming ROADMAP item 12.5d (the part of item 12.5c left
-    after the moe kind and MLA)."""
+    collective, naming ROADMAP item 12.5e (the part of item 12.5c left
+    after the moe kind, MLA and the recurrent kinds): whisper's
+    encoder-decoder, a pod axis, 2 mLSTM heads over 4 ranks, 10 query
+    heads over 4 (a query head split mid-head), an RG-LRU width of 66 over
+    4."""
+    want = {"whisper": "'dec', 'enc'", "pod": "a pod axis",
+            "xlstm": "2 mLSTM heads over 4", "heads": "10 query heads over 4",
+            "lru": "66 RG-LRU width over 4"}[name]
     for rank, out in enumerate(runs["ranks"]):
         err, calls = out["refusals"][name]
-        assert err is not None and "ROADMAP item 12.5d" in err, (rank, err)
+        assert err is not None and "ROADMAP item 12.5e" in err, (rank, err)
+        assert want in err, (rank, err)
         assert calls == [], (rank, calls)
 
 
